@@ -6,17 +6,30 @@
 Phases (any failure exits non-zero; no phase's failure is caught):
 
 1. device: the card's name and power limit from nvidia-smi;
-2. build: compile every CUDA kernel of the port from ``pcgan_tpu_torch/csrc``;
-3. kernel check: each kernel against its plain PyTorch version on the card
-   (TF32 off) at the main path's shape and at a ragged and an identity
-   shape, in f32 and bf16 output, then timed beside its plain version, one
-   library yardstick and its bound;
-4. main path: ``pcgan_tpu_torch.test.main`` end to end (synthetic data,
-   resnet_9blocks at full width, 128 px, 10 bins, bf16), with launch counts
-   read around each run, the written grid checked, the grid rate after
-   warm-up, and one more run under torch.profiler (device time per batch
-   by kernel, the device's busy share of the batch windows);
-5. card parity: the same seeded G in f32 on the card against the CPU.
+2. build: compile every CUDA kernel of the port from ``pcgan_tpu_torch/csrc``
+   (one nvcc per source, started together);
+3. B1 kernel check: the preprocessing kernel against its plain PyTorch
+   version on the card (TF32 off) at the main path's shape and at a ragged
+   and an identity shape, in f32 and bf16 output, then timed beside its
+   plain version, one library yardstick and its bound;
+4. sampling path: ``pcgan_tpu_torch.test.main`` end to end (synthetic
+   data, resnet_9blocks at full width, 128 px, 10 bins, bf16), with launch
+   counts read around each run, the written grid checked, the grid rate
+   after warm-up, and one more run under torch.profiler (device time per
+   batch by kernel, the device's busy share of the batch windows);
+5. sampling parity: the same seeded G in f32 on the card against the CPU;
+6. B2 kernel check: the weight-gradient kernel against its plain version at
+   the G tail's shape (bf16 and f32), a ragged and a C_out 8 shape, timed
+   in turns beside its plain version and cuDNN's weight-gradient conv;
+7. path 2: ``pcgan_tpu_torch.tools.bench_lowch.main`` (tail and stem, bf16)
+   with B2's launches read around it, and the routed VJP held against the
+   direct one;
+8. path 1: ``pcgan_tpu_torch.train_main.main`` at the default GAN's full
+   width in bf16 for 3 epochs of 8 steps, its outputs and a
+   ``--continue_train`` resume checked, steps/s after the first epoch, and
+   a fresh 2 x 4-step run under torch.profiler;
+9. training parity: one f32 step of a small config on the card against the
+   CPU from the same seeded weights.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -41,8 +54,10 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (dense): f32 on the CUDA cores, HBM3 bandwidth
+# H100 SXM published peaks (dense): f32 on the CUDA cores, bf16 on the
+# tensor cores, HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # main path: the sampler's input batch (test.py, --batch_size 8) of 200 px
@@ -54,6 +69,17 @@ F32_TOL = 2e-5        # kernel vs plain, f32 output: summation order only
 PARITY_TOL = 1e-4     # f32 G on the card vs the CPU (the golden grid's atol)
 INPUT_SPREAD_F32 = 1e-4      # input injection: columns agree to f32 noise
 BOTTLENECK_SPREAD_F32 = 1e-3  # bottleneck injection: columns really differ
+# B2 vs its plain version: both sum f32 products, in another order; the
+# first card runs measured ~1e-6 of the largest entry
+B2_REL_TOL = 1e-5
+# routed vs direct conv VJP in bf16: both round to bf16 (8 mantissa bits)
+# after different f32 sums; the reflect-pad transpose adds up to 4 bf16
+# values at the borders
+BF16_REL_TOL = 3e-2
+# the default GAN's G tail: 2B = 16 images at 128 px, 64 -> 3, 7x7
+TAIL = (16, CROP + 6, CROP + 6, 64, 3, 7)
+TRAIN_STEP_TOL = 1e-4        # f32 step losses, card vs CPU
+LR = 2e-4
 
 
 def say(msg: str) -> None:
@@ -129,10 +155,14 @@ def phase_device(torch) -> str:
 
 
 def phase_build() -> None:
-    from pcgan_tpu_torch.ops import _build, cuda_preprocess
+    from concurrent.futures import ThreadPoolExecutor
+    from pcgan_tpu_torch.ops import _build, cuda_preprocess, cuda_wgrad
     t0 = time.perf_counter()
-    cuda_preprocess.build()
-    say(f"build: {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as pool:      # one nvcc each, together
+        for f in [pool.submit(m.build) for m in (cuda_preprocess,
+                                                 cuda_wgrad)]:
+            f.result()
+    say(f"build (B1 + B2): {time.perf_counter() - t0:.2f} s")
     for log in sorted(os.listdir(_build.BUILD_DIR)):
         if log.endswith(".log"):
             with open(os.path.join(_build.BUILD_DIR, log)) as f:
@@ -262,13 +292,15 @@ def _main_run(torch, argv):
     read just after."""
     from pcgan_tpu_torch import test as port_test
     from pcgan_tpu_torch.ops import cuda_preprocess as cp
-    cp.launches = 0
+    from pcgan_tpu_torch.ops import cuda_wgrad as cw
+    cp.launches = cw.launches = 0
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         res = port_test.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    check(cw.launches == 0, f"sampling path: {cw.launches} B2 launches")
     return res, cp.launches, wall
 
 
@@ -368,6 +400,22 @@ def phase_main_path(torch, tmp) -> dict:
     return out
 
 
+def _device_rows(torch, prof, n: int) -> list:
+    """(device ms, launches, name) per kernel of a trace, per one of ``n``
+    batches or steps, largest first. Ranges a region annotates on the
+    device timeline (``Optimizer.step`` and the like) overlap the kernels
+    inside them and are left out."""
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            rows.append((us / 1e3 / n, e.count / n, e.key))
+    return sorted(rows, reverse=True)
+
+
 def _profile_run(torch, tmp, batches: int = 4) -> dict:
     """One more run of the main path under torch.profiler: device time per
     batch by kernel, and the device's busy share of the batch windows
@@ -380,14 +428,7 @@ def _profile_run(torch, tmp, batches: int = 4) -> dict:
     n = len(res["batch_seconds"])
     check(launches == n == batches,
           f"profile run: {launches} launches for {n} batches")
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            rows.append((us / 1e3 / n, e.count / n, e.key))
-    rows.sort(reverse=True)
+    rows = _device_rows(torch, prof, n)
     device_ms = sum(r[0] for r in rows)
     window_ms = sum(res["batch_seconds"]) * 1e3 / n
     check(device_ms > 0, "profile run: no device time traced")
@@ -454,6 +495,316 @@ def phase_card_parity(torch, tmp) -> dict:
     return out
 
 
+def _wgrad_case(torch, rng, b, hp, wp, cin, cout, k, dtype):
+    x = torch.from_numpy(rng.standard_normal((b, hp, wp, cin)).astype(
+        np.float32)).to(DEV, dtype)
+    dy = torch.from_numpy(rng.standard_normal(
+        (b, hp - k + 1, wp - k + 1, cout)).astype(np.float32)).to(DEV, dtype)
+    return x, dy
+
+
+def phase_wgrad_check(torch) -> dict:
+    """B2 against its plain version; then timed in turns at the G tail's
+    shape in bf16 (the training path's dtype) with its bound and cuDNN's
+    weight-gradient conv as the library yardstick."""
+    from pcgan_tpu_torch.ops import cuda_wgrad as cw
+    rng = np.random.default_rng(1)
+    cases = [("tail", TAIL, torch.bfloat16), ("tail", TAIL, torch.float32),
+             ("ragged", (3, 37, 29, 24, 1, 3), torch.float32),
+             ("cout8", (2, 40, 40, 16, 8, 7), torch.bfloat16)]
+    worst = worst_abs = 0.0
+    for name, (b, hp, wp, cin, cout, k), dt in cases:
+        x, dy = _wgrad_case(torch, rng, b, hp, wp, cin, cout, k, dt)
+        got = cw.wgrad_cuda(x, dy, k)
+        again = cw.wgrad_cuda(x, dy, k)
+        want = cw.wgrad_plain(x, dy, k)
+        torch.cuda.synchronize()
+        check(got.shape == (k, k, cin, cout) and got.dtype == torch.float32,
+              f"wgrad {name}: {tuple(got.shape)} {got.dtype}")
+        check(bool(torch.isfinite(got).all()), f"wgrad {name}: non-finite")
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        worst, worst_abs = max(worst, rel), max(worst_abs, err)
+        check(rel <= B2_REL_TOL, f"wgrad {name} {dt}: max err {rel:.3g} of "
+              f"max|plain| > {B2_REL_TOL}")
+        check(bool(torch.equal(got, again)),
+              f"wgrad {name}: two launches differ")
+        say(f"wgrad {name} {str(dt)[6:]}: max err {rel:.3g} of max|plain|, "
+            f"deterministic")
+
+    b, hp, wp, cin, cout, k = TAIL
+    x, dy = _wgrad_case(torch, rng, b, hp, wp, cin, cout, k, torch.bfloat16)
+    ms = {"ms": [], "plain_ms": []}
+    for key in ("plain_ms", "ms", "ms", "plain_ms"):          # in turns
+        fn = ((lambda: cw.wgrad_cuda(x, dy, k)) if key == "ms"
+              else (lambda: cw.wgrad_plain(x, dy, k)))
+        ms[key].append(cuda_ms(torch, fn, iters=50 if key == "ms" else 10,
+                               warmup=3))
+    xn, dn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    library_ms = cuda_ms(torch, lambda: torch.nn.grad.conv2d_weight(
+        xn, (cout, cin, k, k), dn), iters=50, warmup=3)
+    h, w = hp - k + 1, wp - k + 1
+    flops = 2 * k * k * cin * cout * b * h * w
+    nbytes = 2 * (x.numel() + dy.numel()) + 4 * k * k * cin * cout
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    out = {"name": "wgrad", "route": "cuda",
+           "source": "pcgan_tpu_torch/csrc/wgrad.cu",
+           "replaces": "pcgan_tpu/ops/pallas_wgrad.py:82",
+           "max_abs_err": worst_abs, "max_err_of_max_plain": worst,
+           "ms": min(ms["ms"]), "plain_ms": min(ms["plain_ms"]),
+           "library_ms": library_ms,
+           "library": "torch.nn.grad.conv2d_weight (cuDNN), bf16",
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bound_peaks": "3.35 TB/s HBM3; 989 TFLOP/s bf16 tensor cores",
+           "flops": flops, "bytes": nbytes,
+           "f32_fma_floor_ms": flops / PEAK_F32_FLOPS * 1e3,
+           "shape": f"x_pad {TAIL[:4]} bf16, dy C_out {cout}, k {k}",
+           "timings_in_turns_ms": ms}
+    say(f"wgrad timing: {json.dumps(out)}")
+    return out
+
+
+def phase_path2(torch) -> dict:
+    """``bench_lowch.main`` in bf16 at 128 px, batch 16; B2 launches once
+    per routed tail VJP and never for the stem. Then the routed VJP is held
+    against the direct one on the same tensors (not counted)."""
+    from pcgan_tpu_torch.ops import cuda_wgrad as cw
+    from pcgan_tpu_torch.ops import lowch_conv as lc
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.tools import bench_lowch
+    cp.launches = cw.launches = 0
+    res = bench_lowch.main(["--size", str(CROP), "--batch", "16"])
+    torch.cuda.synchronize()
+    launches = cw.launches
+    check(cp.launches == 0, f"path 2: {cp.launches} B1 launches")
+    tail, stem = (res[n] for n in sorted(res, key=lambda n: not
+                                         n.startswith("tail")))
+    check(tail["wgrad_launches"] == tail["calls"]["routed f+vjp"] > 0,
+          f"path 2: {tail['wgrad_launches']} B2 launches for "
+          f"{tail['calls']['routed f+vjp']} routed tail VJPs")
+    check(stem["wgrad_launches"] == 0,
+          f"path 2: {stem['wgrad_launches']} B2 launches for the stem")
+    check(launches == tail["wgrad_launches"],
+          f"path 2: {launches} B2 launches in all")
+    gen = torch.Generator().manual_seed(2)
+    errs = {}
+    for name, (cin, cout) in (("tail", (64, 3)), ("stem", (13, 64))):
+        x = torch.randn((16, CROP, CROP, cin), generator=gen).to(
+            DEV, torch.bfloat16).requires_grad_()
+        w = (torch.randn((7, 7, cin, cout), generator=gen) * 0.05).to(
+            DEV, torch.bfloat16).requires_grad_()
+        dy = torch.randn((16, CROP, CROP, cout), generator=gen).to(
+            DEV, torch.bfloat16)
+        direct = torch.autograd.grad(
+            lc.conv_valid_ref(lc.reflect_pad(x, 3), w), (x, w), dy)
+        routed = torch.autograd.grad(lc.lowch_reflect_conv(x, w, 3), (x, w),
+                                     dy)
+        for gname, a, b in (("dx", direct[0], routed[0]),
+                            ("dw", direct[1], routed[1])):
+            check(bool(torch.isfinite(b).all()), f"{name} {gname} non-finite")
+            rel = float((a.float() - b.float()).abs().max()) / float(
+                a.float().abs().max())
+            errs[f"{name}_{gname}"] = rel
+            check(rel <= BF16_REL_TOL, f"path 2 {name} {gname}: routed vs "
+                  f"direct {rel:.3g} of max > {BF16_REL_TOL}")
+    out = {"launches": launches, "routed_vs_direct_rel": errs,
+           "ms": {n: r["ms"] for n, r in res.items()}}
+    say(f"path 2 (bench_lowch, bf16, 16 x {CROP} px): {json.dumps(out)}")
+    return out
+
+
+def _train_argv(tmp, name, niter, size=64, extra=()):
+    return ["--dataset_mode", "synthetic", "--max_dataset_size", str(size),
+            "--batch_size", "8", "--netG", NETG, "--ngf", str(NGF),
+            "--netD", "basic", "--ndf", "64", "--n_layers_D", "3",
+            "--norm", "instance", "--crop_size", str(CROP),
+            "--load_size", str(LOAD), "--n_age_bins", str(NB),
+            "--dtype", "bfloat16", "--gan_mode", "lsgan", "--lambda_L1",
+            "100", "--pool_size", "50", "--lr_policy", "linear",
+            "--niter", str(niter), "--niter_decay", "0",
+            "--save_epoch_freq", "1", "--print_freq", "4",
+            "--cond_inject", "bottleneck", "--name", name,
+            "--checkpoints_dir", os.path.join(tmp, "train"), *extra]
+
+
+def _train_run(torch, argv):
+    """One run of path 1 with every launch count zeroed just before and
+    read just after."""
+    from pcgan_tpu_torch import train_main
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.ops import cuda_wgrad as cw
+    cp.launches = cw.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        res = train_main.main(argv)
+    torch.cuda.synchronize()
+    return res, cp.launches, cw.launches, time.perf_counter() - t0
+
+
+def phase_path1(torch, tmp) -> dict:
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    name = "smoke_train"
+    argv = _train_argv(tmp, name, niter=3)
+    res, b1, b2, wall = _train_run(torch, argv)
+    steps = res["step"]
+    check(steps == 24 and [e["steps"] for e in res["epochs"]] == [8, 8, 8],
+          f"path 1: {steps} steps, epochs {res['epochs']}")
+    check(b1 == steps, f"path 1: {b1} B1 launches for {steps} steps")
+    run = os.path.join(tmp, "train", name)
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check([r["step"] for r in rows] == [4, 8, 12, 16, 20, 24],
+          f"path 1: metrics rows at {[r['step'] for r in rows]}")
+    for r in rows:
+        for k in ("loss_G", "loss_G_GAN", "loss_G_L1", "loss_D",
+                  "loss_D_real", "loss_D_fake"):
+            check(bool(np.isfinite(r[k])), f"path 1: {k} {r[k]} at "
+                  f"step {r['step']}")
+    files = set(os.listdir(run))
+    want = {"loss_curves.svg", "latest.pt", "latest_G.pt", "opt.json"} | {
+        f"epoch_{e}{s}.pt" for e in (1, 2, 3) for s in ("", "_G")}
+    check(want <= files, f"path 1: missing {sorted(want - files)}")
+    # parameters moved from their seeded init
+    cfg = parse_config(argv)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        g0 = define_G(cfg, torch.Generator().manual_seed(cfg.train.seed))
+    d0 = define_D(cfg, torch.Generator().manual_seed(cfg.train.seed + 1))
+    sd = torch.load(ckpt.state_path(os.path.join(tmp, "train"), name),
+                    weights_only=True)
+    for net, init in (("G", g0), ("D", d0)):
+        moved = [k for k, v in init.state_dict().items()
+                 if not torch.equal(v, sd[net][k])]
+        check(len(moved) == len(init.state_dict()),
+              f"path 1: {net} tensors that did not move: "
+              f"{sorted(set(init.state_dict()) - set(moved))}")
+    later = res["epochs"][1:]
+    steps_per_s = sum(e["steps"] for e in later) / sum(
+        e["train_seconds"] for e in later)
+    out = {"steps": steps, "b1_launches": b1, "b2_launches": b2,
+           "cli_wall_s": wall, "epochs": res["epochs"],
+           "steps_per_s": steps_per_s, "images_per_s": 8 * steps_per_s,
+           "last_metrics": res["metrics"]}
+    say(f"path 1: {steps} steps in {wall:.2f} s (CLI wall incl. "
+        f"checkpoints); epochs 2-3 ({sum(e['steps'] for e in later)} "
+        f"steps) {steps_per_s:.3f} steps/s = "
+        f"{8 * steps_per_s:.2f} images/s (batch 8, bf16); B1 launches {b1}, "
+        f"B2 launches {b2}")
+    # resume: one more epoch from the epoch-3 'latest'
+    res2, b1r, _, _ = _train_run(
+        torch, _train_argv(tmp, name, niter=4, extra=("--continue_train",)))
+    check(res2["step"] == 32 and [e["epoch"] for e in res2["epochs"]] == [4],
+          f"path 1 resume: step {res2['step']}, epochs {res2['epochs']}")
+    check(b1r == 8, f"path 1 resume: {b1r} B1 launches for 8 steps")
+    out["resume"] = {"step": res2["step"], "b1_launches": b1r,
+                     "metrics": res2["metrics"]}
+    out["profile"] = _profile_train(torch, tmp)
+    out["launches_per_run"] = {"train": b1, "resume": b1r,
+                               "profile": out["profile"]["launches"]}
+    return out
+
+
+def _profile_train(torch, tmp, steps: int = 4) -> dict:
+    """Path 1 under torch.profiler: a fresh run of two epochs of 4 steps.
+    Device ms per step by kernel is averaged over all 8 steps; the step
+    window is the second epoch's (first batch to the last step done), when
+    the synthetic images are cached as in steady training. The run's
+    checkpoint writes are stubbed out, so the trace holds data,
+    preprocessing, the steps and the print points."""
+    from torch.profiler import ProfilerActivity, profile
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    argv = _train_argv(tmp, "smoke_train_profile", niter=2, size=8 * steps)
+    saves = ckpt.save_state, ckpt.save_generator
+    ckpt.save_state = ckpt.save_generator = lambda *a, **k: None
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            res, b1, _, _ = _train_run(torch, argv)
+    finally:
+        ckpt.save_state, ckpt.save_generator = saves
+    n = 2 * steps
+    check(b1 == n == res["step"],
+          f"profile run: {b1} B1 launches for {res['step']} steps")
+    rows = _device_rows(torch, prof, n)
+    device_ms = sum(r[0] for r in rows)
+    window_ms = res["epochs"][1]["train_seconds"] * 1e3 / steps
+    check(device_ms > 0, "profile run: no device time traced")
+    out = {"launches": b1, "device_ms_per_step": device_ms,
+           "window_ms_per_step": window_ms,
+           "device_busy_share": device_ms / window_ms,
+           "device_launches_per_step": sum(r[1] for r in rows),
+           "preprocess_kernel_ms_per_step": sum(
+               r[0] for r in rows if "preprocess_kernel" in r[2]),
+           "top_kernels_ms_per_step": [[round(ms, 4), cnt, name[:100]]
+                                       for ms, cnt, name in rows[:20]]}
+    say(f"training profile (bf16, 2 epochs of {steps} steps of batch 8, "
+        f"every step traced, no checkpoint writes): device "
+        f"{device_ms:.3f} ms of {window_ms:.3f} ms window per step, busy "
+        f"share {device_ms / window_ms:.3f}, "
+        f"{out['device_launches_per_step']:.1f} launches per step")
+    for ms, cnt, name in rows[:20]:
+        say(f"  {ms:9.4f} ms/step {cnt:7.1f} launches/step  {name[:100]}")
+    return out
+
+
+def phase_train_parity(torch) -> dict:
+    """One f32 step (TF32 off) of a small config on the card and on the CPU
+    from the same seeded weights and batch: losses within 1e-4, parameters
+    within the Adam first-step envelope."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.train import create_train_state, make_train_step
+    cfg = parse_config(["--netG", "resnet_6blocks", "--ngf", "16", "--ndf",
+                        "16", "--crop_size", "32", "--load_size", "32",
+                        "--batch_size", "4", "--n_age_bins", "4",
+                        "--pool_size", "0", "--dtype", "float32",
+                        "--cond_inject", "bottleneck", "--lr_policy",
+                        "constant"])
+    rng = np.random.default_rng(4)
+    batch = {"image": torch.from_numpy(
+                 rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)),
+             "bin": torch.from_numpy(rng.integers(0, 4, 4)),
+             "target_bin": torch.from_numpy(rng.integers(0, 4, 4))}
+    runs = {}
+    for dev in ("cpu", DEV):
+        G = define_G(cfg, torch.Generator().manual_seed(7)).to(dev)
+        D = define_D(cfg, torch.Generator().manual_seed(8)).to(dev)
+        state = create_train_state(cfg, G, D, torch.Generator().manual_seed(0))
+        m = make_train_step(cfg, G, D)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        runs[dev] = ({k: float(v) for k, v in m.items()},
+                     {f"{n}.{k}": v.detach().cpu() for n, net in
+                      (("G", G), ("D", D))
+                      for k, v in net.state_dict().items()})
+    (mc, pc), (mg, pg) = runs["cpu"], runs[DEV]
+    loss_err = max(abs(mc[k] - mg[k]) for k in mc)
+    check(loss_err <= TRAIN_STEP_TOL, f"train parity: losses differ by "
+          f"{loss_err} (cpu {mc}, card {mg})")
+    g0 = define_G(cfg, torch.Generator().manual_seed(7)).state_dict()
+    d0 = define_D(cfg, torch.Generator().manual_seed(8)).state_dict()
+    init = {**{f"G.{k}": v for k, v in g0.items()},
+            **{f"D.{k}": v for k, v in d0.items()}}
+    worst = {"max": 0.0, "median": 0.0, "frac": 0.0}
+    for k, v0 in init.items():
+        diff = ((pc[k] - v0) - (pg[k] - v0)).abs().numpy()
+        worst["max"] = max(worst["max"], float(diff.max()))
+        worst["median"] = max(worst["median"], float(np.median(diff)))
+        worst["frac"] = max(worst["frac"], float((diff > 0.25 * LR).mean()))
+    check(worst["max"] <= 2.1 * LR and worst["median"] < 2e-6
+          and worst["frac"] < 2e-3,
+          f"train parity: parameters outside the Adam envelope {worst}")
+    out = {"loss_max_abs_err": loss_err, "param_delta_diff": worst,
+           "losses_card": mg}
+    say(f"train parity (f32, TF32 off, resnet_6blocks ngf/ndf 16, 32 px, "
+        f"batch 4, one step): {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "pcgan_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository "
@@ -468,16 +819,30 @@ def main() -> None:
     t_start = time.perf_counter()
     card = phase_device(torch)
     phase_build()
-    kernel = phase_kernel_check(torch)
+    b1 = phase_kernel_check(torch)
+    b2 = phase_wgrad_check(torch)
     with tempfile.TemporaryDirectory() as tmp:
-        main_path = phase_main_path(torch, tmp)
+        sampling = phase_main_path(torch, tmp)
         parity = phase_card_parity(torch, tmp)
-    kernel["launches"] = main_path["launches"]
-    kernel["launches_per_run"] = main_path["launches_per_run"]
-    say(f"summary: {json.dumps({'main_path': main_path, 'parity': parity})}")
+        path2 = phase_path2(torch)
+        path1 = phase_path1(torch, tmp)
+        train_parity = phase_train_parity(torch)
+    b1["launches_per_path"] = {
+        "sampling": sampling["launches_per_run"],
+        "training": path1["launches_per_run"], "bench_lowch": 0}
+    b1["launches"] = sampling["launches"] + sum(
+        path1["launches_per_run"].values())
+    b2["launches_per_path"] = {"bench_lowch": path2["launches"],
+                               "training": path1["b2_launches"],
+                               "sampling": 0}
+    b2["launches"] = path2["launches"] + path1["b2_launches"]
+    check(b1["launches"] > 0 and b2["launches"] > 0,
+          f"a kernel was never launched on its path: B1 {b1['launches']}, "
+          f"B2 {b2['launches']}")
+    say(f"summary: {json.dumps({'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity})}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    print(json.dumps({"kernels": [b1, b2]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

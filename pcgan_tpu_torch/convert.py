@@ -1,13 +1,15 @@
-"""Weight bridge: a flax generator param tree -> the port's ``state_dict``.
+"""Weight bridge: flax param trees (G, D) and a JAX ``TrainState`` -> the port.
 
 The flax tree of ``pcgan_tpu``'s ResnetGenerator names its convs by creation
 order (``TorchConv_N`` / ``ResnetBlock_i`` / ``TorchConvTranspose_i``; with
 bottleneck injection the 1x1 projection takes ``TorchConv_{nd+1}`` and the
 tail's index shifts by one), the walk of ``pcgan_tpu/utils/pth_import.py:39-60``.
-Kernels are HWIO: conv weights become OIHW, deconv weights become
-``ConvTranspose2d``'s ``(Cin, Cout, kH, kW)`` by ``transpose(2, 3, 0, 1)``
-with no flip (``pcgan_tpu/utils/pth_export.py:84-94``). Biases exist only
-where the flax tree has them.
+The discriminator's convs are ``TorchConv_0..n`` in order. Kernels are
+HWIO: conv weights become OIHW, deconv weights become ``ConvTranspose2d``'s
+``(Cin, Cout, kH, kW)`` by ``transpose(2, 3, 0, 1)`` with no flip
+(``pcgan_tpu/utils/pth_export.py:84-94``). Biases exist only where the flax
+tree has them. Adam's moments have their parameters' shapes and take the
+same walk.
 
 To dump a JAX generator for ``load_flax_npz`` (on the JAX side)::
 
@@ -84,23 +86,12 @@ def _count(flat: Mapping, pattern: str) -> int:
     return len({m.group(0) for k in flat if (m := rx.match(k))})
 
 
-def convert_generator_params(flax_params: Mapping
-                             ) -> "OrderedDict[str, torch.Tensor]":
-    """Flax ResnetGenerator params (nested or '/'-flat, numpy or jax
-    arrays) -> a ``state_dict`` for ``ResnetGenerator``. The block count,
-    the downsampling depth and the injection site are read off the tree;
-    every flax tensor must be consumed."""
-    flat = flatten_params(flax_params)
-    n_blocks = _count(flat, r"ResnetBlock_\d+/")
-    n_down = _count(flat, r"TorchConvTranspose_\d+/")
-    n_top_convs = _count(flat, r"TorchConv_\d+/")
-    if n_top_convs not in (n_down + 2, n_down + 3):
-        raise ValueError(f"not a resnet generator tree: {n_top_convs} top "
-                         f"convs for {n_down} upsampling layers")
-    inject = "bottleneck" if n_top_convs == n_down + 3 else "input"
+def _walk(flat: Mapping, order) -> "Tuple[OrderedDict[str, torch.Tensor], set]":
+    """(flax path, torch name, kind) walk of one '/'-flat tree -> an ordered
+    torch dict, plus the set of flax keys consumed."""
     sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     used = set()
-    for path, name, kind in resnet_param_map(n_blocks, n_down, inject):
+    for path, name, kind in order:
         kernel = flat[f"{path}/kernel"]
         to_torch = conv_weight_from_flax if kind == "conv" \
             else deconv_weight_from_flax
@@ -111,8 +102,88 @@ def convert_generator_params(flax_params: Mapping
             sd[f"{name}.bias"] = torch.from_numpy(
                 np.asarray(flat[f"{path}/bias"], np.float32).copy())
             used.add(f"{path}/bias")
+    return sd, used
+
+
+def _convert(flax_params: Mapping, order_of, what: str
+             ) -> "OrderedDict[str, torch.Tensor]":
+    flat = flatten_params(flax_params)
+    sd, used = _walk(flat, order_of(flat))
     left = sorted(set(flat) - used)
     if left:
-        raise ValueError(f"flax tensors with no place in the port's "
-                         f"generator: {left}")
+        raise ValueError(f"flax tensors with no place in the port's {what}: "
+                         f"{left}")
     return sd
+
+
+def _generator_order(flat: Mapping):
+    n_blocks = _count(flat, r"ResnetBlock_\d+/")
+    n_down = _count(flat, r"TorchConvTranspose_\d+/")
+    n_top_convs = _count(flat, r"TorchConv_\d+/")
+    if n_top_convs not in (n_down + 2, n_down + 3):
+        raise ValueError(f"not a resnet generator tree: {n_top_convs} top "
+                         f"convs for {n_down} upsampling layers")
+    inject = "bottleneck" if n_top_convs == n_down + 3 else "input"
+    return resnet_param_map(n_blocks, n_down, inject)
+
+
+def _discriminator_order(flat: Mapping):
+    """NLayerDiscriminator: flax ``TorchConv_0..n`` -> ``convs.0..n``."""
+    n = _count(flat, r"TorchConv_\d+/")
+    if n < 3 or any(f"TorchConv_{i}/kernel" not in flat for i in range(n)):
+        raise ValueError(f"not an NLayerDiscriminator tree: {sorted(flat)}")
+    return [(f"TorchConv_{i}", f"convs.{i}", "conv") for i in range(n)]
+
+
+def convert_generator_params(flax_params: Mapping
+                             ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ResnetGenerator params (nested or '/'-flat, numpy or jax
+    arrays) -> a ``state_dict`` for ``ResnetGenerator``. The block count,
+    the downsampling depth and the injection site are read off the tree;
+    every flax tensor must be consumed."""
+    return _convert(flax_params, _generator_order, "generator")
+
+
+def convert_discriminator_params(flax_params: Mapping
+                                 ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax NLayerDiscriminator params -> a ``state_dict`` for the port's
+    ``NLayerDiscriminator`` (HWIO -> OIHW; every tensor consumed)."""
+    return _convert(flax_params, _discriminator_order, "discriminator")
+
+
+def _adam_moments(opt_state):
+    """The ScaleByAdamState (count, mu, nu) inside an optax.adam state."""
+    for s in opt_state if isinstance(opt_state, (tuple, list)) else [opt_state]:
+        if hasattr(s, "mu") and hasattr(s, "nu"):
+            return s
+    raise ValueError("no Adam moments (mu/nu) in the optimizer state")
+
+
+def convert_train_state(jax_state) -> dict:
+    """A JAX ``pcgan_tpu.train.TrainState`` (its arrays, fetched to the host)
+    -> the payload ``pcgan_tpu_torch.utils.checkpoint.load_state`` takes:
+    G and D ``state_dict``s, both optimizers' count and Adam moments ``mu``
+    / ``nu`` under the port's parameter names, the EMA twin, the pool, the
+    step, ``lr_scale`` and plateau memory. The JAX key has no torch
+    counterpart; the port's step generator is left as it is."""
+    def opt(opt_state, convert):
+        adam = _adam_moments(opt_state)
+        return {"count": int(np.asarray(adam.count)),
+                "mu": convert(adam.mu), "nu": convert(adam.nu)}
+
+    gs = jax_state
+    pool = gs.pool
+    return {
+        "step": int(np.asarray(gs.step)),
+        "G": convert_generator_params(gs.g_params),
+        "D": convert_discriminator_params(gs.d_params),
+        "opt_g": opt(gs.g_opt, convert_generator_params),
+        "opt_d": opt(gs.d_opt, convert_discriminator_params),
+        "ema": (None if gs.ema_params is None
+                else convert_generator_params(gs.ema_params)),
+        "pool": {k: torch.from_numpy(np.array(getattr(pool, k)))
+                 for k in ("imgs", "conds", "count")},
+        "lr_scale": float(np.asarray(gs.lr_scale)),
+        "plateau_best": float(np.asarray(gs.plateau_best)),
+        "plateau_bad": float(np.asarray(gs.plateau_bad)),
+    }

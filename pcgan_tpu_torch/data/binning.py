@@ -29,6 +29,19 @@ def age_to_bin(age, n_bins: int, max_age: int = 116) -> np.ndarray:
     return np.clip(idx, 0, n_bins - 1).astype(np.int32)
 
 
+def bin_to_onehot(bin_idx, n_bins: int, dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+    """Integer bins (tensor or array) -> (..., n_bins) one-hot condition."""
+    idx = torch.as_tensor(bin_idx, device=device).long()
+    return torch.eye(n_bins, dtype=dtype, device=idx.device)[idx]
+
+
+def age_to_onehot(age, n_bins: int, max_age: int = 116, dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+    return bin_to_onehot(age_to_bin(age, n_bins, max_age), n_bins, dtype,
+                         device)
+
+
 def bin_center_age(bin_idx, n_bins: int, max_age: int = 116) -> np.ndarray:
     """Inverse map: representative age per bin (for labeling sample grids)."""
     edges = bin_edges(n_bins, max_age)

@@ -13,6 +13,7 @@ from typing import Optional
 import torch
 
 from pcgan_tpu_torch.config import Config
+from pcgan_tpu_torch.models.discriminator import NLayerDiscriminator
 from pcgan_tpu_torch.models.generator import ResnetGenerator
 from pcgan_tpu_torch.models.layers import init_weights, make_initializer
 
@@ -34,6 +35,11 @@ def _reject_unported(cfg: Config) -> None:
         if on:
             raise NotImplementedError(
                 f"{flag} is not ported to pcgan_tpu_torch yet")
+    _reject_unported_common(cfg)
+
+
+def _reject_unported_common(cfg: Config) -> None:
+    m = cfg.model
     if m.cond_mode != "onehot":
         raise NotImplementedError(
             f"--cond_mode {m.cond_mode} is not ported to pcgan_tpu_torch yet "
@@ -82,3 +88,29 @@ def define_G(cfg: Config,
     init_weights(G, make_initializer(cfg.model.init_type,
                                      cfg.model.init_gain), generator)
     return G
+
+
+def define_D(cfg: Config,
+             generator: Optional[torch.Generator] = None
+             ) -> NLayerDiscriminator:
+    """The PatchGAN discriminator of ``cfg`` (``--netD basic|n_layers``)
+    with freshly drawn weights (f32 params on the CPU)."""
+    m = cfg.model
+    if m.netD not in ("basic", "n_layers"):
+        raise NotImplementedError(
+            f"--netD {m.netD} is not ported to pcgan_tpu_torch yet "
+            f"(basic | n_layers)")
+    for flag, on in (("--spectral_norm", m.spectral_norm),
+                     ("--d_attn", m.d_attn)):
+        if on:
+            raise NotImplementedError(
+                f"{flag} is not ported to pcgan_tpu_torch yet")
+    _reject_unported_common(cfg)
+    D = NLayerDiscriminator(
+        input_nc=cfg.data.input_nc, cond_nc=cfg.cond_nc, ndf=m.ndf,
+        n_layers=3 if m.netD == "basic" else m.n_layers_D, norm=m.norm,
+        dtype=DTYPES[m.dtype])
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.train.seed + 1)
+    init_weights(D, make_initializer(m.init_type, m.init_gain), generator)
+    return D

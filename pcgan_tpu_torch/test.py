@@ -68,7 +68,8 @@ def main(argv=None) -> dict:
 
     ds = data_loader.create_dataset(cfg, train=False)
     bs = min(cfg.data.batch_size, cfg.run.num_test)
-    ld = data_loader.Loader(ds, bs, num_threads=cfg.data.num_threads)
+    ld = data_loader.Loader(ds, bs, shuffle=False, drop_last=False,
+                            num_threads=cfg.data.num_threads)
     pre = make_preprocess(cfg, train=False)   # center crop, no flip
     sampler = make_sampler(cfg, G)
 

@@ -48,6 +48,9 @@ def test_forbidden_prefix_rule():
 def test_files_exist():
     assert os.path.isfile(FILES[-1]), "chip_smoke.py missing at the repo root"
     assert len(FILES) > 10
+    rel = {os.path.relpath(f, ROOT) for f in FILES}
+    assert {"pcgan_tpu_torch/tools/bench_lowch.py",
+            "pcgan_tpu_torch/train_main.py"} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: os.path.relpath(p, ROOT))

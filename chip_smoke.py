@@ -9,9 +9,11 @@ Phases (any failure exits non-zero; no phase's failure is caught):
 2. build: compile every CUDA kernel of the port from ``pcgan_tpu_torch/csrc``
    (one nvcc per source, started together);
 3. B1 kernel check: the preprocessing kernel against its plain PyTorch
-   version on the card (TF32 off) at the main path's shape and at a ragged
-   and an identity shape, in f32 and bf16 output, then timed beside its
-   plain version, one library yardstick and its bound;
+   version on the card (TF32 off) at the sampling shape (center crop), the
+   training shape (random crops and flips), a ragged, an identity and an
+   upscale shape with flips, in f32 and bf16 output, then timed (graph
+   replay, eager, and with a cold L2) beside its plain version, one library
+   yardstick and its bound;
 4. sampling path: ``pcgan_tpu_torch.test.main`` end to end (synthetic
    data, resnet_9blocks at full width, 128 px, 10 bins, bf16), with launch
    counts read around each run, the written grid checked, the grid rate
@@ -19,8 +21,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    batch by kernel, the device's busy share of the batch windows);
 5. sampling parity: the same seeded G in f32 on the card against the CPU;
 6. B2 kernel check: the weight-gradient kernel against its plain version at
-   the G tail's shape (bf16 and f32), a ragged and a C_out 8 shape, timed
-   in turns beside its plain version and cuDNN's weight-gradient conv;
+   the G tail's shape (bf16 and f32) and at the shapes the tensor-core
+   tiling must take in bf16 (Cin 24 and 300, k 1 and 3, C_out 1 and 8, Wp
+   not a multiple of 16, rows of two segments), timed in turns beside its
+   plain version and cuDNN's weight-gradient conv, then with a cold L2;
 7. path 2: ``pcgan_tpu_torch.tools.bench_lowch.main`` (tail and stem, bf16)
    with B2's launches read around it, and the routed VJP held against the
    direct one;
@@ -80,6 +84,13 @@ BF16_REL_TOL = 3e-2
 TAIL = (16, CROP + 6, CROP + 6, 64, 3, 7)
 TRAIN_STEP_TOL = 1e-4        # f32 step losses, card vs CPU
 LR = 2e-4
+# what each time in the kernels line measures; `ms` and `library_ms` were
+# eager calls before the port's kernels moved to graph replay (a break in
+# their series): eager_ms and library_eager_ms continue the old one
+TIMING_NOTE = ("ms and library_ms: CUDA-graph replay, 200 calls on the same "
+               "inputs, warm L2; cold_ms and library_cold_ms: one call after "
+               "a 256 MB read evicts the L2, median of 30; eager_ms, plain_ms "
+               "and library_eager_ms: back-to-back eager calls")
 
 
 def say(msg: str) -> None:
@@ -123,7 +134,8 @@ def read_png(path: str) -> np.ndarray:
 
 
 def cuda_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
-    """Mean ms per call over back-to-back calls, CUDA events."""
+    """Mean ms per call over back-to-back eager calls, CUDA events: the
+    device time, or the host's when each call's Python work takes longer."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -135,6 +147,53 @@ def cuda_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, calls: int = 20, reps: int = 10) -> float:
+    """Mean ms per call of ``fn`` replayed from one CUDA graph of ``calls``
+    calls, CUDA events: the device time of its launches, without the host
+    time of the Python wrapper (which runs once per call, at capture)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * reps)
+
+
+def cold_ms(torch, fn, iters: int = 30, flush_mb: int = 256) -> float:
+    """Median ms of one call of ``fn`` with a cold L2: before each call a
+    read of ``flush_mb`` MB (five times the H100's 50 MB L2; a read leaves
+    clean lines, so the call pays no write-back) evicts its inputs, and a
+    device sleep lets the host enqueue the call before the device reaches
+    it. CUDA events around the call alone."""
+    flush = torch.ones((flush_mb << 20) // 4, dtype=torch.int32, device=DEV)
+    fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    for start, end in ev:
+        flush.sum()
+        torch.cuda._sleep(100_000)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
 # --------------------------------------------------------------------------- #
@@ -163,19 +222,35 @@ def phase_build() -> None:
                                                  cuda_wgrad)]:
             f.result()
     say(f"build (B1 + B2): {time.perf_counter() - t0:.2f} s")
+    # ptxas -v per kernel: its (mangled) name, then spills, then registers
+    # and static shared memory
     for log in sorted(os.listdir(_build.BUILD_DIR)):
         if log.endswith(".log"):
             with open(os.path.join(_build.BUILD_DIR, log)) as f:
-                for line in f:
-                    if re.search(r"registers|spill|smem", line):
-                        say(f"ptxas: {line.strip()}")
+                text = f.read()
+            for name, body in re.findall(
+                    r"Function properties for (\S+)\n(.*?)(?=ptxas info    : "
+                    r"Compile time)", text, re.S):
+                stats = " | ".join(
+                    m.strip() for m in re.findall(
+                        r"(\d+ bytes spill stores.*|Used \d+ registers.*)",
+                        body))
+                kernel = re.search(r"(preprocess|wgrad_tc|wgrad_fma|"
+                                   r"wgrad_reduce)_kernel(I.*?EE)?", name)
+                say(f"ptxas {kernel.group(0) if kernel else name}: {stats}")
 
 
-def _preprocess_case(torch, rng, b, native, load, crop):
+def _preprocess_case(torch, rng, b, native, load, crop, center=False):
+    """A u8 batch and its crop offsets and flips: random, or the sampling
+    path's center crop without flips."""
     dev = torch.device(DEV)
     imgs = torch.from_numpy(rng.integers(0, 256, (b, native, native, C),
                                          dtype=np.uint8)).to(dev)
     span = load - crop
+    if center:
+        cy = cx = torch.full((b,), span // 2, dtype=torch.int32, device=dev)
+        fl = torch.zeros(b, dtype=torch.int32, device=dev)
+        return imgs, cy, cx, fl
     cy = torch.from_numpy(rng.integers(0, span + 1, b).astype(np.int32)).to(dev)
     cx = torch.from_numpy(rng.integers(0, span + 1, b).astype(np.int32)).to(dev)
     fl = torch.from_numpy(rng.integers(0, 2, b).astype(np.int32)).to(dev)
@@ -187,12 +262,16 @@ def phase_kernel_check(torch) -> dict:
     from pcgan_tpu_torch.ops.preprocess import (crop_rows, preprocess_batch,
                                                 resize_matrix)
     rng = np.random.default_rng(0)
-    cases = {"main": (MAIN_B, NATIVE, LOAD, CROP),
-             "ragged": (4, 50, 43, 32),
-             "identity": (2, CROP, CROP, CROP)}
+    # (B, native, load, crop, center crop without flips)
+    cases = {"sampling": (MAIN_B, NATIVE, LOAD, CROP, True),
+             "training": (MAIN_B, NATIVE, LOAD, CROP, False),
+             "ragged": (4, 50, 43, 32, False),
+             "identity": (2, CROP, CROP, CROP, False),
+             "upscale": (3, 30, 64, 48, False)}
     err_f32, ulps_bf16 = 0.0, 0.0
-    for name, (b, native, load, crop) in cases.items():
-        imgs, cy, cx, fl = _preprocess_case(torch, rng, b, native, load, crop)
+    for name, (b, native, load, crop, center) in cases.items():
+        imgs, cy, cx, fl = _preprocess_case(torch, rng, b, native, load, crop,
+                                            center)
         for dt in (torch.float32, torch.bfloat16):
             got = cp.preprocess_batch_cuda(imgs, cy, cx, fl, load, crop,
                                            out_dtype=dt)
@@ -215,18 +294,25 @@ def phase_kernel_check(torch) -> dict:
                 check(ulps <= 1.0, f"kernel {name} bf16: {ulps} ulp > 1")
             say(f"kernel {name} {str(dt)[6:]}: max abs err {err:.3g}")
 
-    # timing at the main path's shape and output dtype (bf16)
+    # timing at the sampling path's shape and output dtype (bf16): the
+    # kernel from a CUDA graph (its device time) and eagerly through its
+    # wrapper, in turns with the plain version (eager: it copies the resize
+    # matrices from the host, which a graph cannot hold)
     imgs, cy, cx, fl = _preprocess_case(torch, rng, MAIN_B, NATIVE, LOAD, CROP)
     flb = fl.bool()
     bf16 = torch.bfloat16
+
+    def kernel():
+        return cp.preprocess_batch_cuda(imgs, cy, cx, fl, LOAD, CROP,
+                                        out_dtype=bf16)
+
+    def plain():
+        return preprocess_batch(imgs, cy, cx, flb, LOAD, CROP, out_dtype=bf16)
     ms_pairs = {"ms": [], "plain_ms": []}
     for key in ("plain_ms", "ms", "ms", "plain_ms"):      # in turns
-        fn = ((lambda: cp.preprocess_batch_cuda(imgs, cy, cx, fl, LOAD, CROP,
-                                                out_dtype=bf16))
-              if key == "ms" else
-              (lambda: preprocess_batch(imgs, cy, cx, flb, LOAD, CROP,
-                                        out_dtype=bf16)))
-        ms_pairs[key].append(cuda_ms(torch, fn))
+        ms_pairs[key].append(graph_ms(torch, kernel) if key == "ms"
+                             else cuda_ms(torch, plain))
+    eager_ms = cuda_ms(torch, kernel)
     # library yardstick (timed only, never called by the port): the same two
     # contractions as two batched f32 products, TF32 off, inputs pre-gathered
     mh = torch.from_numpy(resize_matrix(NATIVE, LOAD)).to(DEV)
@@ -239,29 +325,41 @@ def phase_kernel_check(torch) -> dict:
         t = torch.matmul(mh_b, xf.view(MAIN_B, NATIVE, NATIVE * C))
         return torch.einsum("bpw,bowc->bopc", mw_b,
                             t.view(MAIN_B, CROP, NATIVE, C))
-    library_ms = cuda_ms(torch, library)
-    # bound: what this run's inputs need. Each row of Mh/Mw is non-zero only
-    # over the filter's support, so the work is the band of the rows the
-    # crops read, not the dense products the kernel's body does.
+    library_ms = graph_ms(torch, library)
+    library_eager_ms = cuda_ms(torch, library)
+    # bound: what this run's inputs need. Row y of Mh (Mw) is non-zero only
+    # over the filter's support, so image b needs only the input rows
+    # (columns) in the union of the supports of its crop's rows (columns),
+    # u8, read once; the non-zero taps of the distinct rows the crops use;
+    # crop offsets and flips; the bf16 output. Operations: the vertical pass
+    # over the needed columns only, then the horizontal pass per output
+    # pixel, one FMA per non-zero tap.
+    sup_h, sup_w = mh[ys] != 0, mw[xs] != 0             # (B, crop, NATIVE)
+    rows_in, cols_in = sup_h.any(1).sum(1), sup_w.any(1).sum(1)     # (B,)
+    flops = 2 * C * (int((sup_h.sum((1, 2)) * cols_in).sum())
+                     + CROP * int(sup_w.sum()))
     nz = (mh != 0).sum(1)
-    flops = 2 * C * (NATIVE * int(nz[ys].sum()) + CROP * int(nz[xs].sum()))
-    dense_flops = 2 * MAIN_B * C * (CROP * NATIVE * NATIVE
-                                    + CROP * NATIVE * CROP)
     band_bytes = 4 * (int(nz[ys.unique()].sum()) + int(nz[xs.unique()].sum()))
-    nbytes = (imgs.numel() + band_bytes + 3 * MAIN_B * 4
-              + MAIN_B * CROP * CROP * C * 2)
+    nbytes = (C * int((rows_in * cols_in).sum()) + band_bytes
+              + 3 * MAIN_B * 4 + MAIN_B * CROP * CROP * C * 2)
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     out = {"name": "preprocess", "route": "cuda",
            "source": "pcgan_tpu_torch/csrc/preprocess.cu",
            "replaces": "pcgan_tpu/ops/pallas_preprocess.py:104",
            "max_abs_err": err_f32, "max_ulp_bf16": ulps_bf16,
-           "ms": min(ms_pairs["ms"]), "kernel_ms": min(ms_pairs["ms"]),
+           "ms": min(ms_pairs["ms"]), "eager_ms": eager_ms,
+           "cold_ms": cold_ms(torch, kernel),
            "plain_ms": min(ms_pairs["plain_ms"]), "library_ms": library_ms,
+           "library_eager_ms": library_eager_ms,
+           "library_cold_ms": cold_ms(torch, library),
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "flops": flops, "bytes": nbytes, "kernel_dense_flops": dense_flops,
+           "flops": flops, "bytes": nbytes,
+           "input_rows_cols": [[int(r), int(c)] for r, c in
+                               zip(rows_in, cols_in)],
            "shape": f"B{MAIN_B} {NATIVE}->{LOAD}->{CROP} C{C} u8->bf16",
+           "timing": TIMING_NOTE,
            "timings_in_turns_ms": ms_pairs}
     say(f"kernel timing: {json.dumps(out)}")
     return out
@@ -504,22 +602,32 @@ def _wgrad_case(torch, rng, b, hp, wp, cin, cout, k, dtype):
 
 
 def phase_wgrad_check(torch) -> dict:
-    """B2 against its plain version; then timed in turns at the G tail's
-    shape in bf16 (the training path's dtype) with its bound and cuDNN's
-    weight-gradient conv as the library yardstick."""
+    """B2 against its plain version, bf16 on the tensor-core route and f32
+    on the f32-FMA route; then timed in turns at the G tail's shape in bf16
+    (the training path's dtype) with its bound and cuDNN's weight-gradient
+    conv as the library yardstick."""
     from pcgan_tpu_torch.ops import cuda_wgrad as cw
     rng = np.random.default_rng(1)
-    cases = [("tail", TAIL, torch.bfloat16), ("tail", TAIL, torch.float32),
-             ("ragged", (3, 37, 29, 24, 1, 3), torch.float32),
-             ("cout8", (2, 40, 40, 16, 8, 7), torch.bfloat16)]
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (B, Hp, Wp, Cin, Cout, k): Wp 29, 21 and 13 are not multiples of 16;
+    # Wp 262 splits each row into two segments
+    cases = [("tail", TAIL, bf16), ("tail", TAIL, f32),
+             ("segments", (2, 20, 262, 64, 3, 7), bf16),
+             ("ragged", (3, 37, 29, 24, 1, 3), bf16),
+             ("ragged", (3, 37, 29, 24, 1, 3), f32),
+             ("cout8", (2, 40, 40, 16, 8, 7), bf16),
+             ("cin300", (2, 19, 21, 300, 2, 7), bf16),
+             ("k1", (2, 12, 13, 5, 4, 1), bf16)]
     worst = worst_abs = 0.0
     for name, (b, hp, wp, cin, cout, k), dt in cases:
         x, dy = _wgrad_case(torch, rng, b, hp, wp, cin, cout, k, dt)
         got = cw.wgrad_cuda(x, dy, k)
+        check(cw.last_tensor_core == (dt == bf16),
+              f"wgrad {name} {dt}: not on the {dt} route")
         again = cw.wgrad_cuda(x, dy, k)
         want = cw.wgrad_plain(x, dy, k)
         torch.cuda.synchronize()
-        check(got.shape == (k, k, cin, cout) and got.dtype == torch.float32,
+        check(got.shape == (k, k, cin, cout) and got.dtype == f32,
               f"wgrad {name}: {tuple(got.shape)} {got.dtype}")
         check(bool(torch.isfinite(got).all()), f"wgrad {name}: non-finite")
         err = float((got - want).abs().max())
@@ -532,17 +640,27 @@ def phase_wgrad_check(torch) -> dict:
         say(f"wgrad {name} {str(dt)[6:]}: max err {rel:.3g} of max|plain|, "
             f"deterministic")
 
+    # timing: the kernel from a CUDA graph (its device time) and eagerly,
+    # in turns with the plain version (eager: 49 einsums); cuDNN both ways
     b, hp, wp, cin, cout, k = TAIL
-    x, dy = _wgrad_case(torch, rng, b, hp, wp, cin, cout, k, torch.bfloat16)
+    x, dy = _wgrad_case(torch, rng, b, hp, wp, cin, cout, k, bf16)
+
+    def kernel():
+        return cw.wgrad_cuda(x, dy, k)
+
+    def plain():
+        return cw.wgrad_plain(x, dy, k)
     ms = {"ms": [], "plain_ms": []}
     for key in ("plain_ms", "ms", "ms", "plain_ms"):          # in turns
-        fn = ((lambda: cw.wgrad_cuda(x, dy, k)) if key == "ms"
-              else (lambda: cw.wgrad_plain(x, dy, k)))
-        ms[key].append(cuda_ms(torch, fn, iters=50 if key == "ms" else 10,
-                               warmup=3))
+        ms[key].append(graph_ms(torch, kernel) if key == "ms"
+                       else cuda_ms(torch, plain, iters=10, warmup=3))
+    eager_ms = cuda_ms(torch, kernel, iters=50, warmup=3)
     xn, dn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-    library_ms = cuda_ms(torch, lambda: torch.nn.grad.conv2d_weight(
-        xn, (cout, cin, k, k), dn), iters=50, warmup=3)
+
+    def library():
+        return torch.nn.grad.conv2d_weight(xn, (cout, cin, k, k), dn)
+    library_ms = graph_ms(torch, library)
+    library_eager_ms = cuda_ms(torch, library, iters=50, warmup=3)
     h, w = hp - k + 1, wp - k + 1
     flops = 2 * k * k * cin * cout * b * h * w
     nbytes = 2 * (x.numel() + dy.numel()) + 4 * k * k * cin * cout
@@ -552,15 +670,18 @@ def phase_wgrad_check(torch) -> dict:
            "source": "pcgan_tpu_torch/csrc/wgrad.cu",
            "replaces": "pcgan_tpu/ops/pallas_wgrad.py:82",
            "max_abs_err": worst_abs, "max_err_of_max_plain": worst,
-           "ms": min(ms["ms"]), "plain_ms": min(ms["plain_ms"]),
-           "library_ms": library_ms,
+           "ms": min(ms["ms"]), "eager_ms": eager_ms,
+           "cold_ms": cold_ms(torch, kernel),
+           "plain_ms": min(ms["plain_ms"]), "library_ms": library_ms,
+           "library_eager_ms": library_eager_ms,
+           "library_cold_ms": cold_ms(torch, library),
            "library": "torch.nn.grad.conv2d_weight (cuDNN), bf16",
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
            "bound_peaks": "3.35 TB/s HBM3; 989 TFLOP/s bf16 tensor cores",
            "flops": flops, "bytes": nbytes,
-           "f32_fma_floor_ms": flops / PEAK_F32_FLOPS * 1e3,
            "shape": f"x_pad {TAIL[:4]} bf16, dy C_out {cout}, k {k}",
+           "timing": TIMING_NOTE,
            "timings_in_turns_ms": ms}
     say(f"wgrad timing: {json.dumps(out)}")
     return out

@@ -8,29 +8,37 @@
 //                       -1, 1),   sel(q) = x0 + (flip ? crop-1-q : q)
 //
 // Mh (load, H) and Mw (load, W) are the PIL-faithful resize matrices
-// (ops/resize.py resize_matrix). Everything runs in full f32 FMA on the
-// CUDA cores, never TF32: u8 data needs more than 8 mantissa bits through
-// the two products. Normalization comes after both products, as in the TPU
+// (ops/resize.py resize_matrix). The kernel reads them as bands
+// (ops/resize.py resize_band): row y of M is zero outside
+// [lo[y], lo[y]+K), and taps[y, t] = M[y, lo[y]+t]. Everything runs in
+// full f32 FMA on the CUDA cores, never TF32: u8 data needs more than 8
+// mantissa bits through the two products. Each sum runs over ascending
+// input index, and the terms a dense product adds outside the band are
+// exact zeros (fmaf(0, v, acc) == acc), so the result has the bits of the
+// dense products. Normalization comes after both products, as in the TPU
 // kernel.
 //
-// Bound: bytes. Each row of Mh/Mw is non-zero only over the filter's
-// support (3-6 taps at 200 -> 143 bicubic), so the function needs about
-// 11 MFLOP at B 8, 200 -> 143 -> 128, C 3, while moving ~1.75 MB (u8 in,
-// bf16 out): the HBM rate is the limit. This kernel does the dense
-// products, 2*B*C*(crop*H*W + crop*W*crop) = 0.40 GFLOP, so it is far
-// from that bound; a band-aware version is later work.
+// Bound: bytes. At B 8, 200 -> 143 -> 128, C 3 the function needs
+// ~10.7 MFLOP (at most 6 non-zero bicubic taps a row, the vertical pass
+// over only the ~183 needed columns) on ~1.6 MB (the ~183 x 183 input
+// pixels each crop's supports touch, u8; the bf16 output): ~0.00048 ms at
+// 3.35 TB/s, below the cost of one launch. So the kernel is bound by
+// latency: the design does only the band's arithmetic and gives each block
+// one short chain of dependent loads, with enough blocks to keep every SM
+// busy.
 //
 // Design. The TPU kernel builds 0/1 selector matrices for crop and flip
 // (Mosaic has no unaligned sublane slice and no `rev`) and transposes the
-// image to NCHW; here the block indexes rows of Mh and Mw directly and
-// reads NHWC u8 as it lies. One block owns (image b, kRows output rows):
-//   1. stage its kRows rows of Mh, transposed, in shared memory;
-//   2. T[r, w*C+c] = sum_h Mh[y0+row0+r, h] * img[b, h, w, c], one thread
-//      per (w, c) column, kRows accumulators in registers, T kept in
-//      shared memory (transposed so a thread reads its kRows values as two
-//      float4 loads);
-//   3. out[row0+r, q, c] = sum_w T[r, w*C+c] * Mw[sel(q), w], one thread per
-//      (q, c), writes coalesced along NHWC; rows past the crop are masked.
+// image to NCHW; here the block indexes the band rows directly and reads
+// NHWC u8 as it lies. One block owns (image b, output row y): B x crop
+// blocks, 1024 at the main shape.
+//   1. vertical pass: V[w*C+c] = sum_t taps_h[y, t] * img[b, lo_h[y]+t, w,
+//      c] over only the input columns the crop's columns touch
+//      (lo_w[x0] .. lo_w[x0+crop-1]+K_w), one thread per (w, c), reads
+//      coalesced along NHWC; V stays in shared memory;
+//   2. horizontal pass: out[y, q, c] = sum_t taps_w[sel(q), t] *
+//      V[(lo_w[sel(q)]+t)*C+c], one thread per (q, c), writes coalesced
+//      along NHWC.
 // The block loads its crop offsets and flip bit itself. Crop offsets clamp
 // to [0, load - crop] as jax.lax.dynamic_slice clamps them.
 
@@ -40,127 +48,105 @@
 
 namespace {
 
-constexpr int kRows = 8;       // output rows per block
 constexpr int kThreads = 256;
-static_assert(kRows == 8, "the float4 loads below assume 8 rows per block");
 
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-__device__ __forceinline__ void fma8(float (&acc)[kRows], const float4* m8,
-                                     float v) {
-  const float4 a = m8[0], b = m8[1];
-  acc[0] = fmaf(a.x, v, acc[0]);
-  acc[1] = fmaf(a.y, v, acc[1]);
-  acc[2] = fmaf(a.z, v, acc[2]);
-  acc[3] = fmaf(a.w, v, acc[3]);
-  acc[4] = fmaf(b.x, v, acc[4]);
-  acc[5] = fmaf(b.y, v, acc[5]);
-  acc[6] = fmaf(b.z, v, acc[6]);
-  acc[7] = fmaf(b.w, v, acc[7]);
-}
-
 template <typename OutT>
 __global__ void __launch_bounds__(kThreads)
-preprocess_kernel(const uint8_t* __restrict__ img,  // (B, H, W, C)
-                  const float* __restrict__ mh,     // (load, H)
-                  const float* __restrict__ mw,     // (load, W)
+preprocess_kernel(const uint8_t* __restrict__ img,   // (B, H, W, C)
+                  const int* __restrict__ lo_h,      // (load,)
+                  const float* __restrict__ taps_h,  // (load, kh)
+                  const int* __restrict__ lo_w,      // (load,)
+                  const float* __restrict__ taps_w,  // (load, kw)
                   const int* __restrict__ cy, const int* __restrict__ cx,
-                  const int* __restrict__ flip,     // (B,) each
-                  OutT* __restrict__ out,           // (B, crop, crop, C)
-                  int H, int W, int C, int load, int crop) {
-  extern __shared__ float4 smem4[];
-  float* mh_s = reinterpret_cast<float*>(smem4);    // (H, kRows)
-  float* t_s = mh_s + (size_t)H * kRows;            // (W*C, kRows)
+                  const int* __restrict__ flip,      // (B,) each
+                  OutT* __restrict__ out,            // (B, crop, crop, C)
+                  int H, int W, int C, int load, int crop, int kh, int kw) {
+  extern __shared__ float v_s[];   // ((whi - wlo) * C,): the vertical pass
 
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
+  const int b = blockIdx.y, row = blockIdx.x;
   const int span = load - crop;
-  const int y0 = min(max(cy[b], 0), span);
+  const int y = min(max(cy[b], 0), span) + row;
   const int x0 = min(max(cx[b], 0), span);
   const bool flipped = flip[b] != 0;
   const int WC = W * C;
+  // input columns the crop's columns read (band starts are non-decreasing)
+  const int wlo = lo_w[x0];
+  const int nj = (lo_w[x0 + crop - 1] + kw - wlo) * C;
 
-  for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-    const int r = i / H, h = i - r * H;
-    mh_s[h * kRows + r] =
-        (row0 + r < crop) ? mh[(size_t)(y0 + row0 + r) * H + h] : 0.f;
+  const float* th = taps_h + (size_t)y * kh;
+  const uint8_t* src = img + ((size_t)b * H + lo_h[y]) * WC + (size_t)wlo * C;
+  for (int j = threadIdx.x; j < nj; j += kThreads) {
+    float acc = 0.f;
+#pragma unroll 8
+    for (int u = 0; u < kh; ++u)
+      acc = fmaf(__ldg(th + u), (float)src[(size_t)u * WC + j], acc);
+    v_s[j] = acc;
   }
   __syncthreads();
 
-  const uint8_t* im = img + (size_t)b * H * WC;
-  for (int j = threadIdx.x; j < WC; j += blockDim.x) {
-    float acc[kRows] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int h = 0; h < H; ++h) {
-      const float v = (float)im[(size_t)h * WC + j];
-      fma8(acc, reinterpret_cast<const float4*>(mh_s + h * kRows), v);
-    }
-    float4* t4 = reinterpret_cast<float4*>(t_s + (size_t)j * kRows);
-    t4[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
-    t4[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
-  }
-  __syncthreads();
-
-  const int QC = crop * C;
-  for (int k = threadIdx.x; k < QC; k += blockDim.x) {
-    const int q = k / C, c = k - q * C;
-    const float* mrow = mw + (size_t)(x0 + (flipped ? crop - 1 - q : q)) * W;
-    float acc[kRows] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int w = 0; w < W; ++w) {
-      fma8(acc,
-           reinterpret_cast<const float4*>(t_s + (size_t)(w * C + c) * kRows),
-           __ldg(mrow + w));
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (row0 + r < crop) {
-        const float o =
-            fminf(fmaxf(acc[r] * (2.0f / 255.0f) - 1.0f, -1.0f), 1.0f);
-        store_out(out + (((size_t)b * crop + row0 + r) * crop + q) * C + c, o);
-      }
-    }
+  OutT* o = out + ((size_t)b * crop + row) * crop * C;
+  for (int e = threadIdx.x; e < crop * C; e += kThreads) {
+    const int q = e / C, c = e - q * C;
+    const int sel = x0 + (flipped ? crop - 1 - q : q);
+    const float* tw = taps_w + (size_t)sel * kw;
+    const float* v = v_s + (lo_w[sel] - wlo) * C + c;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int u = 0; u < kw; ++u) acc = fmaf(v[u * C], __ldg(tw + u), acc);
+    store_out(o + e, fminf(fmaxf(acc * (2.0f / 255.0f) - 1.0f, -1.0f), 1.0f));
   }
 }
 
 template <typename OutT>
-cudaError_t launch(const void* img, const void* mh, const void* mw,
-                   const void* cy, const void* cx, const void* flip, void* out,
-                   int B, int H, int W, int C, int load, int crop,
+cudaError_t launch(const void* img, const void* lo_h, const void* taps_h,
+                   const void* lo_w, const void* taps_w, const void* cy,
+                   const void* cx, const void* flip, void* out, int B, int H,
+                   int W, int C, int load, int crop, int kh, int kw,
                    cudaStream_t stream) {
-  const size_t smem = sizeof(float) * kRows * ((size_t)H + (size_t)W * C);
+  const size_t smem = sizeof(float) * (size_t)W * C;
   auto kernel = preprocess_kernel<OutT>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid((crop + kRows - 1) / kRows, B);
+  const dim3 grid(crop, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const uint8_t*>(img), static_cast<const float*>(mh),
-      static_cast<const float*>(mw), static_cast<const int*>(cy),
+      static_cast<const uint8_t*>(img), static_cast<const int*>(lo_h),
+      static_cast<const float*>(taps_h), static_cast<const int*>(lo_w),
+      static_cast<const float*>(taps_w), static_cast<const int*>(cy),
       static_cast<const int*>(cx), static_cast<const int*>(flip),
-      static_cast<OutT*>(out), H, W, C, load, crop);
+      static_cast<OutT*>(out), H, W, C, load, crop, kh, kw);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes): launches on `stream` and returns
-// cudaGetLastError() of the launch. out_bf16 selects a bf16 output, else f32.
-extern "C" int pcgan_preprocess(const void* img, const void* mh,
-                                const void* mw, const void* cy, const void* cx,
-                                const void* flip, void* out, int out_bf16,
-                                int B, int H, int W, int C, int load, int crop,
+// cudaGetLastError() of the launch. out_bf16 selects a bf16 output, else
+// f32. lo_h/taps_h and lo_w/taps_w are resize_band(H, load) and
+// resize_band(W, load), of kh and kw taps.
+extern "C" int pcgan_preprocess(const void* img, const void* lo_h,
+                                const void* taps_h, const void* lo_w,
+                                const void* taps_w, const void* cy,
+                                const void* cx, const void* flip, void* out,
+                                int out_bf16, int B, int H, int W, int C,
+                                int load, int crop, int kh, int kw,
                                 void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || crop <= 0 || crop > load)
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || crop <= 0 || crop > load ||
+      kh <= 0 || kh > H || kw <= 0 || kw > W)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
-      out_bf16 ? launch<__nv_bfloat16>(img, mh, mw, cy, cx, flip, out, B, H,
-                                       W, C, load, crop, s)
-               : launch<float>(img, mh, mw, cy, cx, flip, out, B, H, W, C,
-                               load, crop, s);
+      out_bf16
+          ? launch<__nv_bfloat16>(img, lo_h, taps_h, lo_w, taps_w, cy, cx,
+                                  flip, out, B, H, W, C, load, crop, kh, kw, s)
+          : launch<float>(img, lo_h, taps_h, lo_w, taps_w, cy, cx, flip, out,
+                          B, H, W, C, load, crop, kh, kw, s);
   return (int)e;
 }

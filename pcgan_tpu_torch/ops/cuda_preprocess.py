@@ -16,7 +16,7 @@ import functools
 import torch
 
 from pcgan_tpu_torch.ops import _build
-from pcgan_tpu_torch.ops.resize import resize_matrix
+from pcgan_tpu_torch.ops.resize import resize_band
 
 SOURCE = "preprocess.cu"
 
@@ -30,7 +30,7 @@ _OUT_DTYPES = (torch.float32, torch.bfloat16)
 @functools.cache
 def _kernel():
     fn = _build.load("pcgan_preprocess", SOURCE).pcgan_preprocess
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -42,9 +42,11 @@ def build() -> None:
 
 
 @functools.lru_cache(maxsize=32)
-def _matrix_on(in_size: int, out_size: int, method: str,
-               device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(resize_matrix(in_size, out_size, method)).to(device)
+def _band_on(in_size: int, out_size: int, method: str,
+             device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Device copies of ``resize_band(in_size, out_size, method)``."""
+    lo, taps = resize_band(in_size, out_size, method)
+    return torch.tensor(lo, device=device), torch.tensor(taps, device=device)
 
 
 def preprocess_batch_cuda(imgs: torch.Tensor, crop_y: torch.Tensor,
@@ -78,17 +80,19 @@ def preprocess_batch_cuda(imgs: torch.Tensor, crop_y: torch.Tensor,
             raise ValueError(f"preprocess kernel: {name} shape "
                              f"{tuple(t.shape)}, want ({b},)")
         idx.append(t.to(device=dev, dtype=torch.int32).contiguous())
-    mh = _matrix_on(h, load_size, method, dev)
-    mw = _matrix_on(w, load_size, method, dev)
+    lo_h, taps_h = _band_on(h, load_size, method, dev)
+    lo_w, taps_w = _band_on(w, load_size, method, dev)
     out = torch.empty((b, crop_size, crop_size, c), dtype=out_dtype,
                       device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _kernel()(imgs.data_ptr(), mh.data_ptr(), mw.data_ptr(),
+        err = _kernel()(imgs.data_ptr(), lo_h.data_ptr(), taps_h.data_ptr(),
+                        lo_w.data_ptr(), taps_w.data_ptr(),
                         idx[0].data_ptr(), idx[1].data_ptr(),
                         idx[2].data_ptr(), out.data_ptr(),
                         int(out_dtype == torch.bfloat16),
-                        b, h, w, c, load_size, crop_size, stream)
+                        b, h, w, c, load_size, crop_size,
+                        taps_h.shape[1], taps_w.shape[1], stream)
     if err != 0:
         raise RuntimeError(f"preprocess kernel launch failed: CUDA error "
                            f"{err}")

@@ -6,8 +6,11 @@ Replaces ``pcgan_tpu/ops/pallas_wgrad.py`` ``conv_wgrad_lowcout``::
 
 The CUDA C++ source is ``pcgan_tpu_torch/csrc/wgrad.cu`` (route: nvcc ->
 shared library -> ctypes); its header comment gives the design and the
-bound. ``wgrad_cuda`` takes CUDA tensors only: it launches the kernel or
-raises. ``wgrad_plain`` is the plain PyTorch version of the same function.
+bound. bf16 inputs run a tensor-core GEMM over the pixels of x_pad; f32
+inputs (and bf16 shapes too large for its shared memory) an f32-FMA
+kernel; both end in a fixed-order reduction of per-block partials.
+``wgrad_cuda`` takes CUDA tensors only: it launches the kernel or raises.
+``wgrad_plain`` is the plain PyTorch version of the same function.
 ``conv_wgrad_lowcout`` chooses between them by the tensors' device.
 """
 
@@ -23,9 +26,13 @@ from pcgan_tpu_torch.ops import _build
 SOURCE = "wgrad.cu"
 MAX_COUT = 8
 
-# kernel launches made by this wrapper (one per call: both passes of the
-# kernel); chip_smoke.py zeroes and reads it around the paths it drives
+# kernel launches made by this wrapper (one per call: the partial pass and
+# its reduction); chip_smoke.py zeroes and reads it around the paths it
+# drives
 launches = 0
+# the route of the last launch: True for the bf16 tensor-core kernel, False
+# for the f32-FMA kernel (the checks read it)
+last_tensor_core = None
 
 _IN_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -33,7 +40,8 @@ _IN_DTYPES = (torch.float32, torch.bfloat16)
 @functools.cache
 def _lib():
     lib = _build.load("pcgan_wgrad", SOURCE)
-    lib.pcgan_wgrad_nparts.argtypes = [ctypes.c_int] * 6
+    lib.pcgan_wgrad_nparts.argtypes = ([ctypes.c_int] * 7
+                                       + [ctypes.POINTER(ctypes.c_int)])
     lib.pcgan_wgrad_nparts.restype = ctypes.c_int
     lib.pcgan_wgrad.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                                 + [ctypes.c_void_p])
@@ -78,7 +86,7 @@ def wgrad_cuda(x_pad: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     (B, Hp-k+1, Wp-k+1, Cout), contiguous NHWC, both f32 or both bf16,
     1 <= Cout <= 8. Returns (k, k, Cin, Cout) f32 on the same device,
     enqueued on the current stream."""
-    global launches
+    global launches, last_tensor_core
     _check(x_pad, dy, k)
     if x_pad.device.type != "cuda" or dy.device != x_pad.device:
         raise ValueError(f"wgrad kernel: x_pad on {x_pad.device}, dy on "
@@ -96,7 +104,10 @@ def wgrad_cuda(x_pad: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty((k, k, cin, cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         lib = _lib()
-        nparts = lib.pcgan_wgrad_nparts(b, hp, wp, cin, cout, k)
+        tc = ctypes.c_int(0)
+        nparts = lib.pcgan_wgrad_nparts(int(x_pad.dtype == torch.bfloat16),
+                                        b, hp, wp, cin, cout, k,
+                                        ctypes.byref(tc))
         if nparts <= 0:
             raise ValueError(f"wgrad kernel: shapes x_pad {tuple(x_pad.shape)}"
                              f", Cout {cout}, k {k} not supported (CUDA "
@@ -111,6 +122,7 @@ def wgrad_cuda(x_pad: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"wgrad kernel launch failed: CUDA error {err}")
     launches += 1
+    last_tensor_core = bool(tc.value)
     return out
 
 

@@ -3,8 +3,9 @@
 A PIL-style antialiased resize is linear and separable: along each axis it is
 a product with an (out_size, in_size) matrix. ``resize_matrix`` is a
 bit-for-bit copy of ``pcgan_tpu/ops/preprocess.py``'s, so both packages
-resize identically. Both the plain preprocessing (ops/preprocess.py) and the
-kernel's wrapper (ops/cuda_preprocess.py) read it.
+resize identically. The plain preprocessing (ops/preprocess.py) reads it;
+the kernel's wrapper (ops/cuda_preprocess.py) reads its band form,
+``resize_band``.
 """
 
 from __future__ import annotations
@@ -63,3 +64,24 @@ def resize_matrix(in_size: int, out_size: int, method: str = "bicubic"
         else:
             m[i, min(int(center), in_size - 1)] = 1.0
     return m.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def resize_band(in_size: int, out_size: int, method: str = "bicubic"
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """``resize_matrix`` as a band: ``lo`` (out,) int32 and ``taps``
+    (out, K) f32 with ``M[y, lo[y] + t] == taps[y, t]`` and M zero outside
+    ``[lo[y], lo[y] + K)``. K is the widest span of non-zero weights of any
+    row (7 at 200 -> 143 bicubic, 1 for identity and nearest); ``lo`` is
+    clamped so that ``lo + K <= in_size`` and is non-decreasing. The taps
+    are M's own floats; taps past a row's support are M's zeros."""
+    m = resize_matrix(in_size, out_size, method)
+    nz = m != 0
+    first = nz.argmax(1)
+    last = in_size - 1 - nz[:, ::-1].argmax(1)
+    k = int((last - first + 1).max())
+    lo = np.minimum(first, in_size - k).astype(np.int32)
+    taps = np.take_along_axis(m, lo[:, None] + np.arange(k), 1)
+    lo.setflags(write=False)
+    taps.setflags(write=False)
+    return lo, taps

@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    (one nvcc per source, started together);
 3. B1 kernel check: the preprocessing kernel against its plain PyTorch
    version on the card (TF32 off) at the sampling shape (center crop), the
-   training shape (random crops and flips), a ragged, an identity and an
-   upscale shape with flips, in f32 and bf16 output, then timed (graph
+   training shape (random crops and flips), the comparator's 2B shapes
+   (both pair members with random crops and flips; held-out pairs center
+   cropped), a ragged, an identity and an upscale shape with flips, in f32
+   and bf16 output, then timed (graph
    replay, eager, and with a cold L2) beside its plain version, one library
    yardstick and its bound;
 4. sampling path: ``pcgan_tpu_torch.test.main`` end to end (synthetic
@@ -33,7 +35,18 @@ Phases (any failure exits non-zero; no phase's failure is caught):
    ``--continue_train`` resume checked, steps/s after the first epoch, and
    a fresh 2 x 4-step run under torch.profiler;
 9. training parity: one f32 step of a small config on the card against the
-   CPU from the same seeded weights.
+   CPU from the same seeded weights;
+10. path 3: comparator pretraining (``train_main.main --model comparator
+    --dataset_mode pairwise``) at the default comparator's width in bf16, 2
+    epochs and 1 resumed, its bundle and anchors checked, pairs/s after the
+    first epoch, and a fresh 2 x 4-step run under torch.profiler;
+11. path 1 with the comparator: the phase-8 GAN with ``--comparator_path``
+    at ``--lambda_cond 10`` (2 epochs of 8 steps, the cond loss non-zero, C
+    unchanged, steps/s and a profiled 2 x 4-step run beside phase 8's), then
+    one epoch in ``--cond_mode score`` and its score-sweep grid from
+    ``pcgan_tpu_torch.test.main``;
+12. comparator parity: one f32 comparator step and one f32 GAN step with
+    the cond loss, card against CPU.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -265,6 +278,11 @@ def phase_kernel_check(torch) -> dict:
     # (B, native, load, crop, center crop without flips)
     cases = {"sampling": (MAIN_B, NATIVE, LOAD, CROP, True),
              "training": (MAIN_B, NATIVE, LOAD, CROP, False),
+             # comparator pretraining: both pair members in one call, and
+             # the held-out pairs' center crops (an anchor batch of 8
+             # images is the sampling shape)
+             "comparator": (2 * MAIN_B, NATIVE, LOAD, CROP, False),
+             "comparator_eval": (2 * MAIN_B, NATIVE, LOAD, CROP, True),
              "ragged": (4, 50, 43, 32, False),
              "identity": (2, CROP, CROP, CROP, False),
              "upscale": (3, 30, 64, 48, False)}
@@ -830,31 +848,40 @@ def phase_path1(torch, tmp) -> dict:
     return out
 
 
-def _profile_train(torch, tmp, steps: int = 4) -> dict:
-    """Path 1 under torch.profiler: a fresh run of two epochs of 4 steps.
-    Device ms per step by kernel is averaged over all 8 steps; the step
-    window is the second epoch's (first batch to the last step done), when
-    the synthetic images are cached as in steady training. The run's
-    checkpoint writes are stubbed out, so the trace holds data,
-    preprocessing, the steps and the print points."""
+def _profile_train(torch, tmp, steps: int = 4, argv=None,
+                   what: str = "training") -> dict:
+    """Path 1 (or ``argv``'s run) under torch.profiler: a fresh run of two
+    epochs of 4 steps. Device ms per step by kernel is averaged over all 8
+    steps; the step window is the second epoch's (first batch to the last
+    step done), when the synthetic images are cached as in steady training.
+    The run's checkpoint writes (and a comparator run's anchor bundle) are
+    stubbed out, so the trace holds data, preprocessing, the steps and the
+    print points."""
     from torch.profiler import ProfilerActivity, profile
+    from pcgan_tpu_torch import train_main
     from pcgan_tpu_torch.utils import checkpoint as ckpt
-    argv = _train_argv(tmp, "smoke_train_profile", niter=2, size=8 * steps)
-    saves = ckpt.save_state, ckpt.save_generator
+    if argv is None:
+        argv = _train_argv(tmp, "smoke_train_profile", niter=2,
+                           size=8 * steps)
+    saved = (ckpt.save_state, ckpt.save_generator, ckpt.save_comparator_state,
+             train_main._save_anchor_bundle)
     ckpt.save_state = ckpt.save_generator = lambda *a, **k: None
+    ckpt.save_comparator_state = lambda *a, **k: None
+    train_main._save_anchor_bundle = lambda *a, **k: None
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             res, b1, _, _ = _train_run(torch, argv)
     finally:
-        ckpt.save_state, ckpt.save_generator = saves
+        (ckpt.save_state, ckpt.save_generator, ckpt.save_comparator_state,
+         train_main._save_anchor_bundle) = saved
     n = 2 * steps
     check(b1 == n == res["step"],
-          f"profile run: {b1} B1 launches for {res['step']} steps")
+          f"{what} profile run: {b1} B1 launches for {res['step']} steps")
     rows = _device_rows(torch, prof, n)
     device_ms = sum(r[0] for r in rows)
     window_ms = res["epochs"][1]["train_seconds"] * 1e3 / steps
-    check(device_ms > 0, "profile run: no device time traced")
+    check(device_ms > 0, f"{what} profile run: no device time traced")
     out = {"launches": b1, "device_ms_per_step": device_ms,
            "window_ms_per_step": window_ms,
            "device_busy_share": device_ms / window_ms,
@@ -863,7 +890,7 @@ def _profile_train(torch, tmp, steps: int = 4) -> dict:
                r[0] for r in rows if "preprocess_kernel" in r[2]),
            "top_kernels_ms_per_step": [[round(ms, 4), cnt, name[:100]]
                                        for ms, cnt, name in rows[:20]]}
-    say(f"training profile (bf16, 2 epochs of {steps} steps of batch 8, "
+    say(f"{what} profile (bf16, 2 epochs of {steps} steps of batch 8, "
         f"every step traced, no checkpoint writes): device "
         f"{device_ms:.3f} ms of {window_ms:.3f} ms window per step, busy "
         f"share {device_ms / window_ms:.3f}, "
@@ -926,6 +953,271 @@ def phase_train_parity(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# the comparator slice: path 3 (pretraining) and path 1 with the comparator
+# --------------------------------------------------------------------------- #
+
+# the default comparator (--cmp_nf 64 --cmp_n_down 4), batch 8 pairs, 160
+# base images: 160 pairs, 16 held out, 18 steps an epoch
+CMP_SIZE, CMP_STEPS, CMP_HELD_OUT = 160, 18, 16
+COND_TOL = 1e-4              # f32 comparator / cond-loss step, card vs CPU
+
+
+def _cmp_argv(tmp, name, niter, size=CMP_SIZE, extra=()):
+    return ["--model", "comparator", "--dataset_mode", "pairwise",
+            "--cmp_nf", "64", "--cmp_n_down", "4", "--norm", "instance",
+            "--load_size", str(LOAD), "--crop_size", str(CROP),
+            "--batch_size", "8", "--dtype", "bfloat16",
+            "--max_dataset_size", str(size), "--n_age_bins", str(NB),
+            "--lr_policy", "linear", "--niter", str(niter),
+            "--niter_decay", "0", "--save_epoch_freq", "1",
+            "--print_freq", "6", "--name", name,
+            "--checkpoints_dir", os.path.join(tmp, "cmp"), *extra]
+
+
+def phase_path3(torch, tmp) -> dict:
+    """Comparator pretraining at full width, its outputs and resume, the
+    pair rate after the first epoch, and a profiled 2 x 4-step run."""
+    name = "smoke_cmp"
+    run = os.path.join(tmp, "cmp", name)
+    res, b1, b2, wall = _train_run(torch, _cmp_argv(tmp, name, niter=2))
+    steps = res["step"]
+    check(steps == 2 * CMP_STEPS
+          and [e["steps"] for e in res["epochs"]] == [CMP_STEPS] * 2,
+          f"path 3: {steps} steps, epochs {res['epochs']}")
+    # one B1 launch per step (both members in one 2B call), one per
+    # held-out batch of 8 pairs each epoch, one per anchor batch of 8
+    want_b1 = steps + 2 * (CMP_HELD_OUT // 8) + CMP_SIZE // 8
+    check(b1 == want_b1 and b2 == 0,
+          f"path 3: {b1} B1 launches (want {want_b1}), {b2} B2 launches")
+    files = set(os.listdir(run))
+    want = {"comparator.pt", "cmp_latest.pt", "cmp_epoch_1.pt",
+            "cmp_epoch_2.pt", "metrics.jsonl", "opt.json"}
+    check(want <= files, f"path 3: missing {sorted(want - files)}")
+    check(res["eval_acc"] is not None and np.isfinite(res["eval_acc"]),
+          f"path 3: held-out accuracy {res['eval_acc']}")
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        for k in ("loss_cmp", "acc_cmp", "eval_acc_cmp"):
+            if k in r:
+                check(bool(np.isfinite(r[k])), f"path 3: {k} {r[k]}")
+    bundle = torch.load(os.path.join(run, "comparator.pt"),
+                        weights_only=True)
+    lo, hi, means = (bundle[k].numpy() for k in ("bin_lo", "bin_hi",
+                                                 "bin_means"))
+    check(bool(np.all(np.diff(means) >= 0)), f"path 3: means {means}")
+    check(lo[0] == -1e30 and hi[-1] == 1e30
+          and bool(np.array_equal(lo[1:], hi[:-1])),
+          f"path 3: intervals do not tile the score axis: {lo} {hi}")
+    check(bool(np.isfinite(means).all()) and means[-1] > means[0],
+          f"path 3: degenerate anchors {means}")
+    second = res["epochs"][1]
+    pairs_per_s = 8 * second["steps"] / second["train_seconds"]
+    out = {"steps": steps, "b1_launches": b1, "cli_wall_s": wall,
+           "epochs": res["epochs"], "pairs_per_s": pairs_per_s,
+           "eval_acc": res["eval_acc"], "last_metrics": res["metrics"],
+           "bin_means": means.tolist()}
+    say(f"path 3: {steps} steps in {wall:.2f} s (CLI wall incl. eval, "
+        f"anchors, checkpoints); epoch 2 ({second['steps']} steps) "
+        f"{pairs_per_s:.2f} pairs/s (batch 8, bf16, 2.9 M params); "
+        f"held-out accuracy {res['eval_acc']}; B1 launches {b1}; bin means "
+        f"{[round(m, 4) for m in means.tolist()]}")
+    res2, b1r, _, _ = _train_run(
+        torch, _cmp_argv(tmp, name, niter=3, extra=("--continue_train",)))
+    check(res2["step"] == 3 * CMP_STEPS
+          and [e["epoch"] for e in res2["epochs"]] == [3],
+          f"path 3 resume: step {res2['step']}, epochs {res2['epochs']}")
+    want_b1 = CMP_STEPS + CMP_HELD_OUT // 8 + CMP_SIZE // 8
+    check(b1r == want_b1, f"path 3 resume: {b1r} B1 launches, want {want_b1}")
+    out["resume"] = {"step": res2["step"], "b1_launches": b1r,
+                     "eval_acc": res2["eval_acc"]}
+    # profiled: 32 pairs, none held out, 4 steps an epoch
+    out["profile"] = _profile_train(
+        torch, tmp, argv=_cmp_argv(tmp, "smoke_cmp_profile", niter=2,
+                                   size=32, extra=("--cmp_eval_frac", "0")),
+        what="comparator")
+    out["launches_per_run"] = {"pretrain": b1, "resume": b1r,
+                               "profile": out["profile"]["launches"]}
+    out["bundle_dir"] = run
+    return out
+
+
+def _capture_comparator():
+    """Wraps ``load_comparator_bundle`` so the frozen C a run loads can be
+    read after it; returns (the list it lands in, the restore callable)."""
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    loaded, orig = [], ckpt.load_comparator_bundle
+
+    def load(*a, **k):
+        out = orig(*a, **k)
+        loaded.append(out[0])
+        return out
+    ckpt.load_comparator_bundle = load
+
+    def restore():
+        ckpt.load_comparator_bundle = orig
+    return loaded, restore
+
+
+def phase_path1_cond(torch, tmp, bundle_dir, plain_profile) -> dict:
+    """The phase-8 GAN with the frozen comparator at --lambda_cond 10, then
+    one epoch in score mode and its score-sweep grid."""
+    from pcgan_tpu_torch import test as port_test
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    cond = ("--comparator_path", bundle_dir, "--lambda_cond", "10",
+            "--cmp_nf", "64", "--cmp_n_down", "4")
+    bundle = torch.load(os.path.join(bundle_dir, "comparator.pt"),
+                        weights_only=True)
+    out = {}
+    for mode, niter in (("onehot", 2), ("score", 1)):
+        name = f"smoke_cond_{mode}"
+        loaded, restore = _capture_comparator()
+        try:
+            res, b1, b2, wall = _train_run(torch, _train_argv(
+                tmp, name, niter=niter,
+                extra=cond + ("--cond_mode", mode)))
+        finally:
+            restore()
+        steps = res["step"]
+        check(steps == 8 * niter and b1 == steps,
+              f"path 1 cond {mode}: {steps} steps, {b1} B1 launches")
+        with open(os.path.join(tmp, "train", name, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        conds = [r["loss_G_cond"] for r in rows]
+        check(len(rows) == steps // 4 and all(
+            np.isfinite(c) and c != 0.0 for c in conds),
+            f"path 1 cond {mode}: loss_G_cond {conds}")
+        check(len(loaded) == 1, f"path 1 cond {mode}: C loaded "
+              f"{len(loaded)} times")
+        sd = loaded[0].state_dict()
+        check(next(loaded[0].parameters()).device.type == DEV
+              and all(torch.equal(sd[k].cpu(), v)
+                      for k, v in bundle["C"].items()),
+              f"path 1 cond {mode}: C changed or is off the card")
+        out[mode] = {"steps": steps, "b1_launches": b1, "b2_launches": b2,
+                     "cli_wall_s": wall, "epochs": res["epochs"],
+                     "loss_G_cond": conds, "last_metrics": res["metrics"]}
+    later = out["onehot"]["epochs"][1:]
+    out["onehot"]["steps_per_s"] = sum(e["steps"] for e in later) / sum(
+        e["train_seconds"] for e in later)
+    say(f"path 1 with C: epoch 2 (8 steps) {out['onehot']['steps_per_s']:.3f}"
+        f" steps/s (bf16, batch 8, lambda_cond 10); loss_G_cond "
+        f"{out['onehot']['loss_G_cond']}; score mode loss_G_cond "
+        f"{out['score']['loss_G_cond']}; C bit-identical after both runs")
+    prof = _profile_train(torch, tmp, argv=_train_argv(
+        tmp, "smoke_cond_profile", niter=2, size=32, extra=cond),
+        what="training with C")
+    out["profile"] = prof
+    out["cond_cost"] = {
+        "device_ms_per_step": [plain_profile["device_ms_per_step"],
+                               prof["device_ms_per_step"]],
+        "launches_per_step": [plain_profile["device_launches_per_step"],
+                              prof["device_launches_per_step"]],
+        "window_ms_per_step": [plain_profile["window_ms_per_step"],
+                               prof["window_ms_per_step"]]}
+    say(f"the cond loss on the card (phase 8 -> with C, same call): "
+        f"{json.dumps(out['cond_cost'])}")
+
+    # the score-sweep grid of the score-mode checkpoint
+    cp.launches = 0
+    argv = ["--dataset_mode", "synthetic", "--max_dataset_size", "8",
+            "--num_test", "8", "--batch_size", "8", "--name",
+            "smoke_cond_score", "--checkpoints_dir", os.path.join(tmp, "train"),
+            "--results_dir", os.path.join(tmp, "res"), "--device", DEV]
+    res = port_test.main(argv)
+    torch.cuda.synchronize()
+    pngs = os.listdir(os.path.join(res["web_dir"], "images"))
+    cols = sorted((n for n in pngs if n.startswith("0000_score_")),
+                  key=lambda n: float(n[11:-4]))
+    check(res["done"] == 8 and len(cols) == NB
+          and len(pngs) == 8 * (1 + NB) and cp.launches == 1,
+          f"score grid: {res['done']} rows, columns {cols}, {len(pngs)} "
+          f"PNGs, {cp.launches} B1 launches")
+    out["score_grid"] = {"columns": [c[5:-4] for c in cols],
+                         "b1_launches": cp.launches}
+    say(f"score grid: 8 rows x {NB} columns {out['score_grid']['columns']}")
+    out["launches_per_run"] = {"onehot": out["onehot"]["b1_launches"],
+                               "score": out["score"]["b1_launches"],
+                               "profile": prof["launches"],
+                               "score_grid": cp.launches}
+    return out
+
+
+def _scaled_comparator(torch, cfg, seed):
+    """A seeded C with its Dense kernels 20x their init, so the scores are
+    O(1) and the losses depend on them."""
+    from pcgan_tpu_torch.models import define_C
+    C = define_C(cfg, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        C.fc.weight.mul_(20.0)
+        C.head.weight.mul_(20.0)
+    return C
+
+
+def phase_cond_parity(torch) -> dict:
+    """One f32 comparator step and one f32 GAN step with the cond loss
+    (pinned target bins, pool off), card against CPU from the same seeded
+    weights: every loss within 1e-4."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.train import (create_comparator_state,
+                                       create_train_state,
+                                       make_comparator_step, make_train_step)
+    small = ["--crop_size", "32", "--load_size", "32", "--batch_size", "4",
+             "--n_age_bins", "4", "--dtype", "float32", "--lr_policy",
+             "constant", "--cmp_nf", "16", "--cmp_n_down", "3"]
+    rng = np.random.default_rng(6)
+
+    def img(n):
+        return torch.from_numpy(rng.uniform(-1, 1, (n, 32, 32, 3)).astype(
+            np.float32))
+    out = {}
+    cfg = parse_config(small + ["--model", "comparator"])
+    pairs = {"image_a": img(4), "image_b": img(4),
+             "label": torch.from_numpy(rng.integers(0, 3, 4))}
+    runs = {}
+    for dev in ("cpu", DEV):
+        C = _scaled_comparator(torch, cfg, 5).to(dev)
+        state = create_comparator_state(cfg, C, torch.Generator())
+        m = make_comparator_step(cfg, C)(
+            state, {k: v.to(dev) for k, v in pairs.items()})
+        runs[dev] = {k: float(v) for k, v in m.items()}
+    err = max(abs(runs["cpu"][k] - runs[DEV][k]) for k in runs["cpu"])
+    check(err <= COND_TOL, f"comparator parity: {runs}")
+    out["comparator_step"] = {"max_abs_err": err, "card": runs[DEV]}
+
+    cfg = parse_config(small + ["--netG", "resnet_6blocks", "--ngf", "16",
+                                "--ndf", "16", "--pool_size", "0",
+                                "--cond_inject", "bottleneck",
+                                "--lambda_cond", "10"])
+    batch = {"image": img(4), "bin": torch.from_numpy(rng.integers(0, 4, 4)),
+             "target_bin": torch.from_numpy(rng.integers(0, 4, 4))}
+    runs = {}
+    for dev in ("cpu", DEV):
+        C = _scaled_comparator(torch, cfg, 5)
+        with torch.no_grad():
+            mu = C(batch["image"])[0]
+        means = torch.sort(mu)[0]
+        mid = 0.5 * (means[1:] + means[:-1])
+        anchors = (torch.cat([torch.tensor([-1e30]), mid]),
+                   torch.cat([mid, torch.tensor([1e30])]), means)
+        state = create_train_state(
+            cfg, define_G(cfg, torch.Generator().manual_seed(7)).to(dev),
+            define_D(cfg, torch.Generator().manual_seed(8)).to(dev),
+            torch.Generator().manual_seed(0), C=C, bin_anchors=anchors)
+        m = make_train_step(cfg, state.G, state.D, state.C)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        runs[dev] = {k: float(v) for k, v in m.items()}
+    err = max(abs(runs["cpu"][k] - runs[DEV][k]) for k in runs["cpu"])
+    check(err <= COND_TOL and runs[DEV]["loss_G_cond"] != 0.0,
+          f"cond-loss step parity: {runs}")
+    out["gan_step_with_C"] = {"max_abs_err": err, "card": runs[DEV]}
+    say(f"comparator parity (f32, TF32 off, cmp_nf 16, 32 px, batch 4, one "
+        f"step each): {json.dumps(out)}")
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "pcgan_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository "
@@ -948,19 +1240,28 @@ def main() -> None:
         path2 = phase_path2(torch)
         path1 = phase_path1(torch, tmp)
         train_parity = phase_train_parity(torch)
+        path3 = phase_path3(torch, tmp)
+        cond = phase_path1_cond(torch, tmp, path3["bundle_dir"],
+                                path1["profile"])
+        cond_parity = phase_cond_parity(torch)
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
-        "training": path1["launches_per_run"], "bench_lowch": 0}
-    b1["launches"] = sampling["launches"] + sum(
-        path1["launches_per_run"].values())
+        "training": path1["launches_per_run"], "bench_lowch": 0,
+        "comparator": path3["launches_per_run"],
+        "training_cond": cond["launches_per_run"]}
+    per_path = {p: sum(v.values()) if isinstance(v, dict) else v
+                for p, v in b1["launches_per_path"].items()}
+    b1["launches"] = sum(per_path.values())
     b2["launches_per_path"] = {"bench_lowch": path2["launches"],
                                "training": path1["b2_launches"],
-                               "sampling": 0}
+                               "sampling": 0, "comparator": 0,
+                               "training_cond": 0}
     b2["launches"] = path2["launches"] + path1["b2_launches"]
-    check(b1["launches"] > 0 and b2["launches"] > 0,
-          f"a kernel was never launched on its path: B1 {b1['launches']}, "
+    check(b1["launches"] > 0 and b2["launches"] > 0
+          and per_path["comparator"] > 0 and per_path["training_cond"] > 0,
+          f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity})}")
+    say(f"summary: {json.dumps({'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity})}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)

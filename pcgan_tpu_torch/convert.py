@@ -1,4 +1,5 @@
-"""Weight bridge: flax param trees (G, D) and a JAX ``TrainState`` -> the port.
+"""Weight bridge: flax param trees (G, D, C), a JAX ``TrainState`` /
+``ComparatorState`` and a JAX comparator bundle -> the port.
 
 The flax tree of ``pcgan_tpu``'s ResnetGenerator names its convs by creation
 order (``TorchConv_N`` / ``ResnetBlock_i`` / ``TorchConvTranspose_i``; with
@@ -9,13 +10,31 @@ HWIO: conv weights become OIHW, deconv weights become ``ConvTranspose2d``'s
 ``(Cin, Cout, kH, kW)`` by ``transpose(2, 3, 0, 1)`` with no flip
 (``pcgan_tpu/utils/pth_export.py:84-94``). Biases exist only where the flax
 tree has them. Adam's moments have their parameters' shapes and take the
-same walk.
+same walk. The comparator's trunk convs are ``TorchConv_0..n-1`` (a bias on
+the first only under instance norm) and its two heads ``Dense_0`` /
+``Dense_1``, whose (in, out) kernels become ``nn.Linear``'s (out, in).
 
 To dump a JAX generator for ``load_flax_npz`` (on the JAX side)::
 
     from flax.traverse_util import flatten_dict
     flat = flatten_dict(g_vars["params"], sep="/")
     np.savez("G_flax.npz", **{k: np.asarray(v) for k, v in flat.items()})
+
+and a JAX comparator bundle (``<run>/comparator``, written by ``train.py
+--model comparator``; same imports)::
+
+    from pcgan_tpu.eval_lib import load_comparator_bundle
+    _, c_vars, lo, hi, means = load_comparator_bundle(cfg)  # --comparator_path
+    np.savez("C_flax.npz", **{k: np.asarray(v) for k, v in
+                              flatten_dict(c_vars["params"], sep="/").items()})
+    np.savez("C_anchors.npz", bin_lo=lo, bin_hi=hi, bin_means=means)
+
+then, on the port's side, write the port's bundle::
+
+    a = np.load("C_anchors.npz")
+    b = convert_comparator_bundle({"c_vars": load_flax_npz("C_flax.npz"),
+                                   **{k: a[k] for k in a.files}})
+    torch.save(b, "<run>/comparator.pt")
 """
 
 from __future__ import annotations
@@ -187,3 +206,64 @@ def convert_train_state(jax_state) -> dict:
         "plateau_best": float(np.asarray(gs.plateau_best)),
         "plateau_bad": float(np.asarray(gs.plateau_bad)),
     }
+
+
+def convert_comparator_params(flax_params: Mapping
+                              ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax Comparator params -> a ``state_dict`` for the port's
+    ``Comparator``: ``TorchConv_i`` -> ``convs.i`` (HWIO -> OIHW),
+    ``Dense_0`` / ``Dense_1`` -> ``fc`` / ``head`` (kernel transposed).
+    Every flax tensor must be consumed."""
+    def order(flat):
+        n = _count(flat, r"TorchConv_\d+/")
+        if n < 1 or any(f"Dense_{i}/kernel" not in flat for i in (0, 1)):
+            raise ValueError(f"not a Comparator tree: {sorted(flat)}")
+        return [(f"TorchConv_{i}", f"convs.{i}", "conv") for i in range(n)]
+
+    flat = flatten_params(flax_params)
+    sd, used = _walk(flat, order(flat))
+    for path, name in (("Dense_0", "fc"), ("Dense_1", "head")):
+        sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
+            np.asarray(flat[f"{path}/kernel"], np.float32).T))
+        sd[f"{name}.bias"] = torch.from_numpy(
+            np.asarray(flat[f"{path}/bias"], np.float32).copy())
+        used |= {f"{path}/kernel", f"{path}/bias"}
+    left = sorted(set(flat) - used)
+    if left:
+        raise ValueError(f"flax tensors with no place in the port's "
+                         f"comparator: {left}")
+    return sd
+
+
+def convert_comparator_state(jax_state) -> dict:
+    """A JAX ``pcgan_tpu.train.ComparatorState`` -> the payload
+    ``pcgan_tpu_torch.utils.checkpoint.load_comparator_state`` takes: C's
+    ``state_dict``, Adam's count and moments under the port's names, the
+    step. The JAX key has no torch counterpart."""
+    adam = _adam_moments(jax_state.opt)
+    return {"step": int(np.asarray(jax_state.step)),
+            "C": convert_comparator_params(jax_state.params),
+            "opt": {"count": int(np.asarray(adam.count)),
+                    "mu": convert_comparator_params(adam.mu),
+                    "nu": convert_comparator_params(adam.nu)}}
+
+
+def convert_comparator_bundle(payload: Mapping) -> dict:
+    """A JAX comparator bundle ``{'c_vars', 'bin_lo', 'bin_hi',
+    'bin_means'}`` (numpy or jax arrays; ``bin_means`` may be absent or
+    None) -> the port's ``comparator.pt`` payload. ``cmp_nf``, ``cmp_n_down``
+    and ``norm`` are read off the tree; the JAX bundle does not record the
+    compute dtype that pretrained it, so the payload has none."""
+    sd = convert_comparator_params(payload["c_vars"])
+    n_down = sum(1 for k in sd if k.startswith("convs.")
+                 and k.endswith(".weight"))
+    means = payload.get("bin_means")
+
+    def f32(v):
+        return torch.from_numpy(np.array(v, np.float32))
+    return {"C": sd, "bin_lo": f32(payload["bin_lo"]),
+            "bin_hi": f32(payload["bin_hi"]),
+            "bin_means": None if means is None else f32(means),
+            "cmp_nf": int(sd["convs.0.weight"].shape[0]),
+            "cmp_n_down": n_down,
+            "norm": "none" if "convs.1.bias" in sd else "instance"}

@@ -54,3 +54,39 @@ def all_bins_onehot(n_bins: int, dtype=torch.float32,
     """(n_bins, n_bins) identity: one condition vector per bin, for the
     aging-progression grid."""
     return torch.eye(n_bins, dtype=dtype, device=device)
+
+
+# --------------------------------------------------------------------------- #
+# continuous score conditioning (--cond_mode score): the comparator's score
+# normalized to [-1, 1] by the pretraining-time anchor range
+# --------------------------------------------------------------------------- #
+
+
+def bin_to_score(bin_idx, n_bins: int) -> torch.Tensor:
+    """Bin index -> normalized score in [-1, 1] (bin centers, evenly
+    spaced), f32: the score-mode condition when no comparator scores the
+    real images."""
+    b = torch.as_tensor(bin_idx).float()
+    return 2.0 * (b + 0.5) / float(n_bins) - 1.0
+
+
+def score_sweep(n_steps: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(n_steps, 1) condition column sweeping the normalized score range
+    [-1, 1]: the score-mode analogue of ``all_bins_onehot``."""
+    return torch.linspace(-1.0, 1.0, n_steps, dtype=torch.float32,
+                          device=device)[:, None].to(dtype)
+
+
+def normalize_score(mu, score_min, score_max) -> torch.Tensor:
+    """Raw comparator score -> [-1, 1] given the anchor range (the extreme
+    bins' mean scores), clipped to the conditioning interval."""
+    mu = torch.as_tensor(mu).float()
+    span = torch.clamp(torch.as_tensor(score_max - score_min).float(),
+                       min=1e-6)
+    return torch.clamp(2.0 * (mu - score_min) / span - 1.0, -1.0, 1.0)
+
+
+def denormalize_score(s, score_min, score_max) -> torch.Tensor:
+    """[-1, 1] normalized score -> raw comparator score."""
+    s = torch.as_tensor(s).float()
+    return score_min + (s + 1.0) * 0.5 * (score_max - score_min)

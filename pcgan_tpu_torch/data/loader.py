@@ -1,13 +1,16 @@
-"""Host data loader (counterpart of ``pcgan_tpu/data/loader.py:42-49, 215-316``).
+"""Host data loader (counterpart of ``pcgan_tpu/data/loader.py:42-49, 92-105, 215-316``).
 
 The loader emits RAW batches (native-size u8 + integer labels) as numpy;
 all image math happens on the device (ops/preprocess.py). Only the
-synthetic dataset modes are ported; the JPEG folder modes (native decoder)
-and ``--host_resize`` (PIL) are later work and raise.
+synthetic dataset modes and the pairs drawn over them are ported; the JPEG
+folder modes (native decoder), the comparisons CSV and ``--host_resize``
+(PIL) are later work and raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -17,6 +20,7 @@ import numpy as np
 
 from pcgan_tpu_torch.config import Config
 from pcgan_tpu_torch.data.binning import age_to_bin
+from pcgan_tpu_torch.data.pairwise import PairwiseComparisonDataset
 from pcgan_tpu_torch.data.synthetic import SyntheticAgingDataset
 
 
@@ -28,9 +32,25 @@ def create_dataset(cfg: Config, train: bool = True):
         return SyntheticAgingDataset(
             size=size, seed=cfg.train.seed, max_age=cfg.data.max_age,
             variant=("hard" if mode == "synthetic_hard" else "easy"))
+    if mode in ("pairwise", "pairwise_hard"):
+        # comparisons synthesized over the synthetic set (the hard one for
+        # pairwise_hard); an existing --dataroot would make the JAX package
+        # pair its JPEG folder instead
+        if cfg.data.dataroot and os.path.isdir(cfg.data.dataroot):
+            raise NotImplementedError(
+                f"--dataset_mode {mode} over the JPEG folder "
+                f"{cfg.data.dataroot} is not ported to pcgan_tpu_torch yet "
+                f"(the folder modes, ROADMAP.md A4); point --dataroot "
+                f"elsewhere to pair the synthetic set")
+        base_mode = "synthetic_hard" if mode == "pairwise_hard" else "synthetic"
+        base = create_dataset(dataclasses.replace(
+            cfg, data=dataclasses.replace(cfg.data, dataset_mode=base_mode)),
+            train)
+        return PairwiseComparisonDataset(base, tie_years=3, seed=cfg.train.seed)
     raise NotImplementedError(
         f"dataset_mode [{mode}] is not ported to pcgan_tpu_torch yet "
-        f"(synthetic | synthetic_hard only)")
+        f"(synthetic | synthetic_hard | pairwise | pairwise_hard; the JPEG "
+        f"folder and CSV modes are ROADMAP.md A4)")
 
 
 class Loader:

@@ -31,9 +31,11 @@ from torch import nn
 _TRUNC_STD = 0.87962566103423978
 
 
-def _fans(shape_hwio: Sequence[int]):
-    kh, kw, ci, co = shape_hwio
-    return ci * kh * kw, co * kh * kw
+def _fans(shape: Sequence[int]):
+    """(fan_in, fan_out) of an HWIO conv kernel or an (in, out) Dense
+    kernel: the receptive field times the in / out width."""
+    *rf, ci, co = shape
+    return ci * math.prod(rf), co * math.prod(rf)
 
 
 def _orthogonal(shape, gain, generator):
@@ -78,14 +80,20 @@ def make_initializer(init_type: str, init_gain: float) -> Callable:
 def init_weights(module: nn.Module, init: Callable,
                  generator: Optional[torch.Generator]) -> None:
     """Draw every conv kernel with ``init`` (in HWIO, converted to the
-    module's layout) in module order; biases start at zero."""
+    module's layout) and every Linear kernel (in flax's (in, out), then
+    transposed) in module order; biases start at zero."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (TorchConv, TorchConvTranspose)):
                 m.weight.copy_(m.weight_from_hwio(
                     init(m.hwio_shape(), generator)))
-                if m.bias is not None:
-                    m.bias.zero_()
+            elif isinstance(m, nn.Linear):
+                m.weight.copy_(init((m.in_features, m.out_features),
+                                    generator).T)
+            else:
+                continue
+            if m.bias is not None:
+                m.bias.zero_()
 
 
 # --------------------------------------------------------------------------- #

@@ -1,8 +1,9 @@
-"""Network factory keyed by ``--netG`` (counterpart of ``pcgan_tpu/models/registry.py:38-104``).
+"""Network factories keyed by ``--netG`` / ``--netD`` (counterpart of ``pcgan_tpu/models/registry.py:38-137``).
 
-``define_G`` builds the module and draws its initial weights from an
-explicit ``torch.Generator`` (seeded from ``--seed`` when none is given).
-Flags this port does not implement yet raise ``NotImplementedError``.
+``define_G`` / ``define_D`` / ``define_C`` build the module and draw its
+initial weights from an explicit ``torch.Generator`` (seeded from
+``--seed`` when none is given). Flags this port does not implement yet
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Optional
 import torch
 
 from pcgan_tpu_torch.config import Config
+from pcgan_tpu_torch.models.comparator import Comparator
 from pcgan_tpu_torch.models.discriminator import NLayerDiscriminator
 from pcgan_tpu_torch.models.generator import ResnetGenerator
 from pcgan_tpu_torch.models.layers import init_weights, make_initializer
@@ -40,10 +42,6 @@ def _reject_unported(cfg: Config) -> None:
 
 def _reject_unported_common(cfg: Config) -> None:
     m = cfg.model
-    if m.cond_mode != "onehot":
-        raise NotImplementedError(
-            f"--cond_mode {m.cond_mode} is not ported to pcgan_tpu_torch yet "
-            f"(onehot only)")
     if m.norm not in ("instance", "none"):
         raise NotImplementedError(
             f"--norm {m.norm} is not ported to pcgan_tpu_torch yet "
@@ -114,3 +112,18 @@ def define_D(cfg: Config,
         generator = torch.Generator().manual_seed(cfg.train.seed + 1)
     init_weights(D, make_initializer(m.init_type, m.init_gain), generator)
     return D
+
+
+def define_C(cfg: Config,
+             generator: Optional[torch.Generator] = None) -> Comparator:
+    """The pairwise comparator of ``cfg`` (``--cmp_nf``, ``--cmp_n_down``,
+    ``--norm``, ``--dtype``) with freshly drawn weights (f32 params on the
+    CPU)."""
+    _reject_unported_common(cfg)
+    m = cfg.model
+    C = Comparator(input_nc=cfg.data.input_nc, nf=m.cmp_nf,
+                   n_down=m.cmp_n_down, norm=m.norm, dtype=DTYPES[m.dtype])
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.train.seed)
+    init_weights(C, make_initializer(m.init_type, m.init_gain), generator)
+    return C

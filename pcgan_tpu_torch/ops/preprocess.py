@@ -129,3 +129,24 @@ def make_preprocess(cfg, train: bool = True):
         return out
 
     return fn
+
+
+def make_pair_preprocess(cfg, train: bool = True):
+    """Returns f(generator, raw_pairs) -> pair batch for the comparator
+    (counterpart of ``pcgan_tpu/parallel/train_parallel.py:145-152``).
+
+    raw_pairs: {'image_a', 'image_b': (B,H,W,C) u8 tensors on one device,
+    'label': (B,)}. Both members go through ``make_preprocess`` in ONE call
+    over their 2B concatenation (one kernel launch on the card), so every
+    image gets its own crop offsets and flip from ``generator``. The
+    outputs are the two halves of that 2B batch."""
+    pre = make_preprocess(cfg, train)
+
+    def fn(generator, raw):
+        a = raw["image_a"]
+        both = pre(generator, {"image": torch.cat([a, raw["image_b"]])})
+        x = both["image"]
+        return {"image_a": x[:a.shape[0]], "image_b": x[a.shape[0]:],
+                "label": raw["label"]}
+
+    return fn

@@ -4,7 +4,8 @@ Given a G and input faces, renders the same identity at every age bin in
 ONE batched forward: the (B, n_bins) product is flattened into the batch.
 Each image is repeated ``n_bins`` times consecutively, the conditions are
 tiled, and the result is reshaped to (B, n_bins, ...), the order of the JAX
-sampler.
+sampler. Under ``--cond_mode score`` the columns sweep the normalized
+comparator score over [-1, 1] in ``n_age_bins`` even steps instead.
 """
 
 from __future__ import annotations
@@ -15,19 +16,21 @@ import numpy as np
 import torch
 
 from pcgan_tpu_torch.config import Config
-from pcgan_tpu_torch.data.binning import all_bins_onehot, bin_center_age
+from pcgan_tpu_torch.data.binning import (all_bins_onehot, bin_center_age,
+                                          score_sweep)
 
 
 def make_sampler(cfg: Config, G: torch.nn.Module):
     """Returns f(images (B,H,W,C)) -> (B, n_bins, H, W, C) f32, under
     ``torch.no_grad`` with G in eval mode."""
     nb = cfg.data.n_age_bins
+    sweep = score_sweep if cfg.model.cond_mode == "score" else all_bins_onehot
 
     @torch.no_grad()
     def sample(images: torch.Tensor) -> torch.Tensor:
         G.eval()
         b = images.shape[0]
-        conds = all_bins_onehot(nb, images.dtype, images.device)   # (nb, nb)
+        conds = sweep(nb, images.dtype, images.device)   # (nb, nb) or (nb, 1)
         x = images.repeat_interleave(nb, dim=0)                     # (B*nb, ...)
         c = conds.repeat(b, 1)
         fakes = G(x, c)
@@ -38,9 +41,15 @@ def make_sampler(cfg: Config, G: torch.nn.Module):
 
 def aging_grid_visuals(cfg: Config, real: np.ndarray,
                        fakes: np.ndarray) -> Dict[str, np.ndarray]:
-    """Row dict for the HTML page: input + one fake per bin, labeled by the
-    bin's representative age (reference results-page layout)."""
+    """Row dict for the HTML page: input + one fake per condition, labeled
+    by the bin's representative age (onehot) or the swept normalized score
+    (score mode), the reference results-page layout."""
     out = {"input": real}
+    if cfg.model.cond_mode == "score":
+        sweep = score_sweep(fakes.shape[0])[:, 0].numpy()
+        for b in range(fakes.shape[0]):
+            out[f"score_{sweep[b]:+.2f}"] = fakes[b]
+        return out
     for b in range(fakes.shape[0]):
         age = int(bin_center_age(b, cfg.data.n_age_bins, cfg.data.max_age))
         out[f"age_{age:03d}"] = fakes[b]

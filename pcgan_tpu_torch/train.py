@@ -17,23 +17,35 @@ One step holds both alternating updates of the reference's
    pre-increment step count, times ``lr_scale``;
    the EMA twin with the ``(1+t)/(10+t)`` ramp when ``--ema_decay > 0``.
 
+With a frozen comparator C (``--comparator_path``, ``--lambda_cond > 0``)
+the G loss adds ``lambda_cond * condition_consistency_loss(C(fake))``
+against the target's score interval; its gradient flows through C into G.
+``--cond_mode score`` conditions on a normalized comparator score instead of
+a one-hot (``pcgan_tpu/train.py:328-366``). Comparator pretraining
+(``pcgan_tpu/train.py:626-751``) is at the end of this module.
+
 Compute runs in ``--dtype`` (bf16 or f32); params, optimizer state and
-losses are f32. Step randomness (target bins, pool draws) comes from the
-state's CPU ``torch.Generator``, which checkpoints carry, so a resumed run
-draws what the uninterrupted one would have.
+losses are f32. Step randomness (target bins or scores, pool draws) comes
+from the state's CPU ``torch.Generator``, which checkpoints carry, so a
+resumed run draws what the uninterrupted one would have.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from pcgan_tpu_torch.config import Config
-from pcgan_tpu_torch.data.binning import bin_to_onehot
+from pcgan_tpu_torch.data.binning import (bin_to_onehot, bin_to_score,
+                                          denormalize_score, normalize_score)
+from pcgan_tpu_torch.models.comparator import (comparison_accuracy,
+                                               comparison_loss,
+                                               condition_consistency_loss)
 from pcgan_tpu_torch.models.registry import DTYPES
 from pcgan_tpu_torch.ops.gan_loss import gan_loss, split_pred
 from pcgan_tpu_torch.utils import image_pool
@@ -144,15 +156,24 @@ class TrainState:
     lr_scale: float = 1.0               # host-driven LR factor (plateau)
     plateau_best: float = float("inf")  # plateau scheduler memory
     plateau_bad: float = 0.0
+    # the frozen comparator and its score anchors (on G's device): per-bin
+    # score intervals for the cond loss, and the raw-score range (the
+    # extreme bins' mean scores) that score mode normalizes by. Loaded from
+    # the comparator bundle, never trained, not in the checkpoint.
+    C: Optional[nn.Module] = None
+    bin_lo: Optional[torch.Tensor] = None      # (n_bins,) f32
+    bin_hi: Optional[torch.Tensor] = None
+    score_min: Optional[torch.Tensor] = None   # 0-dim f32
+    score_max: Optional[torch.Tensor] = None
 
 
 def reject_unported_train(cfg: Config) -> None:
     """Every training flag this slice does not implement raises when it is
     set away from its default; none is ignored."""
     t, m, d, r, p = cfg.train, cfg.model, cfg.data, cfg.run, cfg.parallel
-    if m.model != "pcgan":
-        raise NotImplementedError(
-            f"--model {m.model} is not ported to pcgan_tpu_torch yet (pcgan)")
+    if m.model not in ("pcgan", "comparator"):
+        raise NotImplementedError(f"--model {m.model} not implemented "
+                                  f"(pcgan | comparator)")
     if t.gan_mode == "wgangp":
         raise NotImplementedError(
             "--gan_mode wgangp (and its gradient penalty) is not ported to "
@@ -166,7 +187,6 @@ def reject_unported_train(cfg: Config) -> None:
         "--metrics_lag": t.metrics_lag,
         "--log_grad_norm": t.log_grad_norm, "--log_memory": t.log_memory,
         "--init_g_from": bool(t.init_g_from),
-        "--comparator_path": bool(t.comparator_path),
         "--eval_fid_epoch_freq": t.eval_fid_epoch_freq > 0,
         "--eval_use_ema": t.eval_use_ema,
         "--remat": m.remat, "--no-no_dropout": not m.no_dropout,
@@ -192,25 +212,45 @@ def reject_unported_train(cfg: Config) -> None:
 
 def create_train_state(cfg: Config, G: nn.Module, D: nn.Module,
                        generator: torch.Generator,
-                       steps_per_epoch: int = 1) -> TrainState:
+                       steps_per_epoch: int = 1,
+                       C: Optional[nn.Module] = None,
+                       bin_anchors: Optional[Tuple] = None) -> TrainState:
     """Optimizers, lr schedules, pool and EMA around G and D (already on
     their device; the pool lives on G's device). ``generator`` is the
-    step's CPU generator."""
+    step's CPU generator. ``C`` is the frozen comparator (moved to G's
+    device, its parameters out of autograd) and ``bin_anchors`` its
+    ``(lo, hi, bin_means or None)``; without means the score range stays
+    (-1, 1), without anchors the intervals are [0, 0]
+    (``pcgan_tpu/train.py:216-227``)."""
     t = cfg.train
     dev = next(G.parameters()).device
     s = cfg.data.crop_size
+    nb = cfg.data.n_age_bins
     ema = ({n: p.detach().clone() for n, p in G.named_parameters()}
            if cfg.train.ema_decay > 0 else None)
     pool = image_pool.init_pool(cfg.train.pool_size,
                                 (s, s, cfg.data.output_nc), cfg.cond_nc,
                                 device=dev)
+    if C is not None:
+        C = C.to(dev).eval().requires_grad_(False)
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32).to(dev)
+    bin_lo = bin_hi = torch.zeros(nb, device=dev)
+    score_min, score_max = f32(-1.0), f32(1.0)
+    if bin_anchors is not None:
+        bin_lo, bin_hi = f32(bin_anchors[0]), f32(bin_anchors[1])
+        if len(bin_anchors) > 2 and bin_anchors[2] is not None:
+            means = f32(bin_anchors[2])
+            score_min, score_max = means[0], means[-1]
     return TrainState(
         step=0, G=G, D=D, opt_g=make_adam(G, t.beta1, t.beta2),
         opt_d=make_adam(D, t.beta1, t.beta2),
         sched_g=make_lr_schedule(cfg, steps_per_epoch),
         sched_d=make_lr_schedule(cfg, steps_per_epoch,
                                  t.lr_d if t.lr_d > 0 else None),
-        pool=pool, generator=generator, ema=ema)
+        pool=pool, generator=generator, ema=ema, C=C, bin_lo=bin_lo,
+        bin_hi=bin_hi, score_min=score_min, score_max=score_max)
 
 
 # --------------------------------------------------------------------------- #
@@ -218,31 +258,66 @@ def create_train_state(cfg: Config, G: nn.Module, D: nn.Module,
 # --------------------------------------------------------------------------- #
 
 
-def make_train_step(cfg: Config, G: nn.Module, D: nn.Module) -> Callable:
+def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
+                    C: Optional[nn.Module] = None) -> Callable:
     """The fused G/D step: ``train_step(state, batch) -> metrics`` updates
     ``state`` in place (params, optimizer moments, pool, EMA, step) and
     returns the 0-dim f32 losses on the device, under the JAX step's keys.
+    With ``C`` (``state.C``) and ``--lambda_cond > 0`` the G loss carries
+    the condition-consistency term.
 
     batch: {'image': (B,H,W,C) in [-1,1] on the device, 'bin': (B,) ints,
-    optional 'target_bin': (B,) ints (else drawn uniformly)}."""
+    optional 'target_bin': (B,) ints (else drawn uniformly); in score mode
+    optional 'target_score': (B,) in [-1, 1] (else from 'target_bin', else
+    drawn uniformly)}."""
     reject_unported_train(cfg)
     t = cfg.train
     nb = cfg.data.n_age_bins
     cd = DTYPES[cfg.model.dtype]
+    use_cond_loss = t.lambda_cond > 0.0 and C is not None
+    score_mode = cfg.model.cond_mode == "score"
     g_params = list(G.parameters())
     d_params = list(D.parameters())
+
+    def conditions(state: TrainState, batch: Dict, real: torch.Tensor):
+        """(cond_real, cond_target, cond_lo, cond_hi): G's conditions and
+        the target's raw score interval for the cond loss."""
+        bsz, dev = real.shape[0], real.device
+        if not score_mode:
+            if "target_bin" in batch:
+                target_bin = torch.as_tensor(batch["target_bin"]).to(dev)
+            else:
+                target_bin = torch.randint(
+                    0, nb, (bsz,), generator=state.generator).to(dev)
+            return (bin_to_onehot(batch["bin"], nb, cd, dev),
+                    bin_to_onehot(target_bin, nb, cd, dev),
+                    state.bin_lo[target_bin], state.bin_hi[target_bin])
+        if "target_score" in batch:
+            s_target = torch.as_tensor(batch["target_score"]).float()
+        elif "target_bin" in batch:
+            s_target = bin_to_score(batch["target_bin"], nb)
+        else:
+            s_target = torch.rand(bsz, generator=state.generator) * 2.0 - 1.0
+        s_target = s_target.to(dev)
+        if C is not None:
+            # the real image's own comparator score: label-free conditioning
+            with torch.no_grad():
+                mu_r, _ = C(real)
+            s_real = normalize_score(mu_r, state.score_min, state.score_max)
+        else:
+            s_real = bin_to_score(batch["bin"], nb).to(dev)
+        # score mode's interval is one point: the raw target score
+        raw_target = denormalize_score(s_target, state.score_min,
+                                       state.score_max)
+        return (s_real[:, None].to(cd), s_target[:, None].to(cd),
+                raw_target, raw_target)
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         real = batch["image"].to(cd)
         bsz = real.shape[0]
         dev = real.device
-        if "target_bin" in batch:
-            target_bin = torch.as_tensor(batch["target_bin"])
-        else:
-            target_bin = torch.randint(0, nb, (bsz,),
-                                       generator=state.generator)
-        cond_real = bin_to_onehot(batch["bin"], nb, cd, dev)
-        cond_target = bin_to_onehot(target_bin.to(dev), nb, cd, dev)
+        cond_real, cond_target, cond_lo, cond_hi = conditions(state, batch,
+                                                              real)
 
         # ---- one 2B generator forward, its graph kept for the G update ----
         out = G(torch.cat([real, real]), torch.cat([cond_target, cond_real]))
@@ -265,6 +340,15 @@ def make_train_step(cfg: Config, G: nn.Module, D: nn.Module) -> Callable:
         l_g_gan = gan_loss(pred, True, t.gan_mode, for_discriminator=False)
         l_g_l1 = torch.mean(torch.abs(idt.float() - real.float()))
         g_loss = l_g_gan + t.lambda_L1 * l_g_l1
+        if use_cond_loss:
+            # C is frozen (no parameter of it is differentiated): the
+            # gradient reaches G through fake only
+            mu, log_var = C(fake)
+            l_g_cond = condition_consistency_loss(mu, log_var, cond_lo,
+                                                  cond_hi)
+            g_loss = g_loss + t.lambda_cond * l_g_cond
+        else:
+            l_g_cond = torch.zeros((), device=dev)
         adam_step(state.opt_g, torch.autograd.grad(g_loss, g_params),
                   state.sched_g(state.step) * state.lr_scale)
 
@@ -278,9 +362,115 @@ def make_train_step(cfg: Config, G: nn.Module, D: nn.Module) -> Callable:
         state.step += 1
         metrics = {"loss_G": g_loss, "loss_G_GAN": l_g_gan,
                    "loss_G_L1": l_g_l1,
-                   "loss_G_cond": torch.zeros((), device=dev),
+                   "loss_G_cond": l_g_cond,
                    "loss_D": d_loss, "loss_D_real": l_d_real,
                    "loss_D_fake": l_d_fake}
         return {k: v.detach().float() for k, v in metrics.items()}
 
     return train_step
+
+
+# --------------------------------------------------------------------------- #
+# comparator pretraining (pcgan_tpu/train.py:626-751)
+# --------------------------------------------------------------------------- #
+
+
+@dataclass
+class ComparatorState:
+    step: int
+    C: nn.Module
+    opt: torch.optim.Adam
+    sched: Callable[[int], float]       # lr by step count
+    generator: torch.Generator          # CPU: crop offsets and flips
+
+
+def create_comparator_state(cfg: Config, C: nn.Module,
+                            generator: torch.Generator,
+                            steps_per_epoch: int = 1) -> ComparatorState:
+    """Adam over C (already on its device) at ``--lr`` on the
+    ``--lr_policy`` schedule, as ``make_optimizer`` builds it in the JAX
+    package; ``generator`` is the step's CPU generator."""
+    t = cfg.train
+    return ComparatorState(step=0, C=C, opt=make_adam(C, t.beta1, t.beta2),
+                           sched=make_lr_schedule(cfg, steps_per_epoch),
+                           generator=generator)
+
+
+def make_comparator_step(cfg: Config, C: nn.Module) -> Callable:
+    """One pretraining step on a pair batch {'image_a', 'image_b': (B,H,W,C)
+    in [-1,1], 'label': (B,) (0: a older, 1: b older, 2: tie)}: both members
+    in ONE 2B forward of the shared trunk, the Thurstone cross-entropy, one
+    Adam step. Updates ``state`` in place and returns {'loss_cmp',
+    'acc_cmp'} as 0-dim f32 tensors on the device."""
+    reject_unported_train(cfg)
+    margin = cfg.model.tie_margin
+    cd = DTYPES[cfg.model.dtype]
+    params = list(C.parameters())
+
+    def step(state: ComparatorState, batch: Dict) -> Dict[str, torch.Tensor]:
+        a = batch["image_a"].to(cd)
+        bsz = a.shape[0]
+        label = torch.as_tensor(batch["label"]).to(a.device)
+        mu, log_var = C(torch.cat([a, batch["image_b"].to(cd)]))
+        pair = (mu[:bsz], log_var[:bsz], mu[bsz:], log_var[bsz:], label,
+                margin)
+        loss = comparison_loss(*pair)
+        with torch.no_grad():
+            acc = comparison_accuracy(*pair)
+        adam_step(state.opt, torch.autograd.grad(loss, params),
+                  state.sched(state.step))
+        state.step += 1
+        return {"loss_cmp": loss.detach().float(), "acc_cmp": acc}
+
+    return step
+
+
+@torch.no_grad()
+def _scores(C: nn.Module, images: torch.Tensor) -> np.ndarray:
+    return C(images)[0].double().cpu().numpy()
+
+
+def compute_bin_anchors(C: nn.Module, images: torch.Tensor, bins,
+                        n_bins: int):
+    """Per-bin comparator score intervals from real data: (lo, hi, means),
+    each (n_bins,) f32 on the CPU. ``means`` are the per-bin mean scores;
+    empty bins are filled by linear interpolation over the bin index (and
+    edge extension), not by a spurious 0."""
+    mu = _scores(C, images)
+    b = np.asarray(bins)
+    means = np.full(n_bins, np.nan)
+    for k in range(n_bins):
+        sel = b == k
+        if sel.any():
+            means[k] = mu[sel].mean()
+    if np.isnan(means).all():
+        raise ValueError("no anchor images fell into any bin")
+    return _tile_anchor_intervals(means)
+
+
+def compute_quantile_anchors(C: nn.Module, images: torch.Tensor,
+                             n_bins: int):
+    """Score anchors with no age labels: the images split into ``n_bins``
+    equal-occupancy groups along the score axis, each bin anchored at its
+    group's mean score."""
+    mu = _scores(C, images)
+    if mu.size == 0:
+        raise ValueError("no images to fit score anchors on")
+    groups = np.array_split(np.argsort(mu), n_bins)
+    means = np.array([mu[g].mean() if len(g) else np.nan for g in groups])
+    return _tile_anchor_intervals(means)
+
+
+def _tile_anchor_intervals(means):
+    """(n_bins,) per-bin mean scores (possibly with NaN gaps) -> (lo, hi,
+    means): gap-filled sorted means, and intervals tiled at the midpoints
+    between neighbours with +-1e30 at the ends. float64 on the host."""
+    means = np.asarray(means, np.float64)
+    idx = np.arange(means.shape[0], dtype=np.float64)
+    ok = ~np.isnan(means)
+    means = np.interp(idx, idx[ok], means[ok])   # fill gaps + extend edges
+    means = np.sort(means)                # monotone for degenerate comparators
+    mid = 0.5 * (means[1:] + means[:-1])
+    lo = np.concatenate([[-1e30], mid])
+    hi = np.concatenate([mid, [1e30]])
+    return tuple(torch.from_numpy(v.astype(np.float32)) for v in (lo, hi, means))

@@ -12,9 +12,25 @@ console lines and ``metrics.jsonl`` rows (with ``imgs_per_sec`` and
 ``latest`` / ``epoch_N`` checkpoints (``--save_latest_freq``,
 ``--save_epoch_freq``, ``--max_ckpt_keep``) and ``--continue_train`` with
 exact resume: the loader replays the epoch's seeded permutation and skips
-the batches the restored step already consumed. Runs on cuda unless
-``--device cpu``. Flags the port does not implement raise
-``NotImplementedError``.
+the batches the restored step already consumed. With ``--comparator_path``
+(and ``--lambda_cond > 0`` or ``--cond_mode score``) the frozen comparator
+and its score anchors join the step.
+
+``--model comparator`` pretrains the comparator instead (root
+``train.py:654-827``): pairs drawn over the synthetic set (every
+``--dataset_mode`` but ``comparisons`` pretrains on ``pairwise``, as the
+reference does), B1 on both members of every
+pair, accuracy on a held-out split each epoch, ``cmp_latest`` /
+``cmp_epoch_N`` checkpoints with exact resume, and at the end the bundle
+``comparator.pt`` (C plus per-bin score anchors) a GAN run reads::
+
+    python -m pcgan_tpu_torch.train_main --model comparator \
+        --dataset_mode pairwise --name cmp
+    python -m pcgan_tpu_torch.train_main --dataset_mode synthetic \
+        --name gan --comparator_path ./checkpoints/cmp
+
+Runs on cuda unless ``--device cpu``. Flags the port does not implement
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,6 +65,13 @@ def main(argv=None) -> dict:
     run_dir = os.path.join(cfg.run.checkpoints_dir, cfg.run.name)
     os.makedirs(run_dir, exist_ok=True)
     cfg.save(os.path.join(run_dir, "opt.json"))
+    if cfg.model.model == "comparator":
+        # pretraining builds its own pair loaders (with a held-out split)
+        logger = MetricsLogger(run_dir)
+        try:
+            return _train_comparator(cfg, device, logger, run_dir)
+        finally:
+            logger.close()
     ds = data_loader.create_dataset(cfg, train=True)
     amend_run_opt(cfg.run.checkpoints_dir, cfg.run.name, "split", {
         "dataset_len": len(ds), "phase": cfg.run.phase, "phase_root": None,
@@ -82,11 +105,22 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir) -> dict:
     seed = t.seed
     G = define_G(cfg, torch.Generator().manual_seed(seed)).to(device)
     D = define_D(cfg, torch.Generator().manual_seed(seed + 1)).to(device)
+    C = bin_anchors = None
+    # score mode consumes the comparator even at lambda_cond 0: real images
+    # are conditioned on their own comparator score
+    if t.comparator_path and (t.lambda_cond > 0
+                              or cfg.model.cond_mode == "score"):
+        C, *bin_anchors = ckpt.load_comparator_bundle(cfg, device)
+        print(f"loaded frozen comparator from {t.comparator_path}",
+              flush=True)
     state = create_train_state(cfg, G, D,
                                torch.Generator().manual_seed(seed + 2),
-                               steps_per_epoch)
+                               steps_per_epoch, C=C, bin_anchors=bin_anchors)
     print("---------- Networks initialized -------------", flush=True)
-    for name, net in (("G", G), ("D", D)):
+    nets = [("G", G), ("D", D)]
+    if C is not None:
+        nets.append(("C (frozen)", C))
+    for name, net in nets:
         if cfg.run.verbose:
             print(net, flush=True)
         n = sum(p.numel() for p in net.parameters())
@@ -111,7 +145,7 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir) -> dict:
         if resume_skip:
             resume_losses = _read_host_sidecar(run_dir, state.step)
 
-    step_fn = make_train_step(cfg, G, D)
+    step_fn = make_train_step(cfg, G, D, state.C)
     pre = make_preprocess(cfg, train=True)
     timer = StepTimer()
     total_epochs = t.niter + t.niter_decay
@@ -212,6 +246,152 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir) -> dict:
     save("latest")
     return {"run_dir": run_dir, "step": state.step, "metrics": last_metrics,
             "epochs": epochs}
+
+
+def _train_comparator(cfg, device, logger, run_dir) -> dict:
+    """Comparator pretraining (root ``train.py:654-827``). Returns {'run_dir',
+    'step', 'metrics' (the last logged losses), 'epochs' (as ``main``),
+    'eval_acc' (the last held-out accuracy, or None), 'bundle' (the
+    ``comparator.pt`` path)}."""
+    import dataclasses
+    import torch
+    from pcgan_tpu_torch.data import loader as data_loader
+    from pcgan_tpu_torch.data.pairwise import held_out_split
+    from pcgan_tpu_torch.models import define_C
+    from pcgan_tpu_torch.models.comparator import comparison_accuracy
+    from pcgan_tpu_torch.ops.preprocess import make_pair_preprocess
+    from pcgan_tpu_torch.train import (create_comparator_state,
+                                       make_comparator_step)
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+
+    t, d = cfg.train, cfg.data
+    if d.dataset_mode == "comparisons":
+        ds = data_loader.create_dataset(cfg, train=True)
+    else:
+        # every other mode is an age-labelled source: pairs with synthesized
+        # labels over the easy base, as the reference does (pairwise_hard
+        # included)
+        ds = data_loader.create_dataset(dataclasses.replace(
+            cfg, data=dataclasses.replace(d, dataset_mode="pairwise")))
+    # held-out pairs (--cmp_eval_frac), never trained on: the epoch-end
+    # accuracy on them is the out-of-sample metric
+    train_ds, eval_ds = held_out_split(ds, t.cmp_eval_frac, t.seed)
+    n_eval = 0 if eval_ds is None else len(eval_ds)
+    ld = data_loader.Loader(train_ds, d.batch_size, shuffle=True,
+                            num_threads=d.num_threads, seed=t.seed)
+    steps_per_epoch = max(1, len(ld))
+    print(f"device: {device}; comparator pairs: {len(train_ds)} train / "
+          f"{n_eval} held out, {steps_per_epoch} steps/epoch", flush=True)
+
+    C = define_C(cfg, torch.Generator().manual_seed(t.seed)).to(device)
+    state = create_comparator_state(cfg, C,
+                                    torch.Generator().manual_seed(t.seed + 1),
+                                    steps_per_epoch)
+    print(f"[Network C] Total number of parameters : "
+          f"{sum(p.numel() for p in C.parameters()) / 1e6:.3f} M", flush=True)
+    if cfg.run.verbose:
+        print(C, flush=True)
+    epochs_done = resume_skip = 0
+    if t.continue_train and ckpt.state_exists(cfg.run.checkpoints_dir,
+                                              cfg.run.name, "cmp_latest"):
+        ckpt.restore_comparator_state(state, cfg.run.checkpoints_dir,
+                                      cfg.run.name, "cmp_latest")
+        epochs_done = state.step // steps_per_epoch
+        resume_skip = state.step % steps_per_epoch
+        ld.epoch = epochs_done
+        print(f"resumed comparator from step {state.step} (epoch "
+              f"{t.epoch_count + epochs_done})", flush=True)
+    step_fn = make_comparator_step(cfg, C)
+    pre = make_pair_preprocess(cfg, train=True)
+    eval_pre = make_pair_preprocess(cfg, train=False)   # center crop, no flip
+
+    def upload(raw):
+        return {k: torch.from_numpy(raw[k]).to(device)
+                for k in ("image_a", "image_b", "label")}
+
+    @torch.no_grad()
+    def eval_acc():
+        # per-pair accuracy over the whole split: drop_last=False leaves a
+        # partial last batch, so batch means are weighted by batch size
+        hits = total = 0.0
+        for raw in data_loader.Loader(eval_ds, min(d.batch_size, n_eval),
+                                      shuffle=False, drop_last=False,
+                                      num_threads=d.num_threads):
+            b = eval_pre(None, upload(raw))
+            bsz = b["label"].shape[0]
+            mu, log_var = C(torch.cat([b["image_a"], b["image_b"]]))
+            acc = float(comparison_accuracy(
+                mu[:bsz], log_var[:bsz], mu[bsz:], log_var[bsz:],
+                b["label"], cfg.model.tie_margin))
+            hits += acc * bsz
+            total += bsz
+        return hits / total if total else float("nan")
+
+    total_epochs = t.niter + t.niter_decay
+    gstep = state.step
+    epochs, last_metrics, acc = [], {}, None
+    for epoch in range(t.epoch_count + epochs_done, total_epochs + 1):
+        ld.skip_next, resume_skip = resume_skip, 0
+        steps, t_first = 0, None
+        for raw in data_loader.prefetch(iter(ld), d.prefetch):
+            if t_first is None:
+                t_first = time.perf_counter()
+            metrics = step_fn(state, pre(state.generator, upload(raw)))
+            gstep += 1
+            steps += 1
+            if gstep % t.print_freq == 0:
+                last_metrics = dict(zip(metrics, torch.stack(
+                    list(metrics.values())).cpu().tolist()))
+                logger.log(gstep, last_metrics, epoch=epoch)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        if steps:
+            epochs.append({"epoch": epoch, "steps": steps,
+                           "train_seconds": time.perf_counter() - t_first})
+        if eval_ds is not None:
+            acc = eval_acc()
+            logger.log(gstep, {"eval_acc_cmp": acc}, epoch=epoch)
+            print(f"comparator held-out accuracy: {acc:.4f}", flush=True)
+        ckpt.save_comparator_state(state, cfg.run.checkpoints_dir,
+                                   cfg.run.name, "cmp_latest")
+        if t.save_epoch_freq > 0 and epoch % t.save_epoch_freq == 0:
+            ckpt.save_comparator_state(state, cfg.run.checkpoints_dir,
+                                       cfg.run.name, f"cmp_epoch_{epoch}")
+        print(f"End of comparator epoch {epoch}/{total_epochs}", flush=True)
+    path = _save_anchor_bundle(cfg, ds.base, C, device)
+    print(f"saved comparator + bin anchors to {path}", flush=True)
+    return {"run_dir": run_dir, "step": state.step, "metrics": last_metrics,
+            "epochs": epochs, "eval_acc": acc, "bundle": path}
+
+
+def _save_anchor_bundle(cfg, base, C, device) -> str:
+    """Score anchors over the first min(len(base), 512) base images,
+    center-cropped by B1 and binned by age, then the bundle
+    ``comparator.pt``; returns its path."""
+    import torch
+    from pcgan_tpu_torch.data import loader as data_loader
+    from pcgan_tpu_torch.ops.preprocess import make_preprocess
+    from pcgan_tpu_torch.train import compute_bin_anchors
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    d = cfg.data
+    n_anchor = min(len(base), 512)
+    pre = make_preprocess(cfg, train=False)
+    imgs, bins, seen = [], [], 0
+    for b in data_loader.with_bins(iter(data_loader.Loader(
+            base, min(d.batch_size, n_anchor), shuffle=False,
+            drop_last=False, num_threads=d.num_threads)), d.n_age_bins,
+            d.max_age):
+        imgs.append(pre(None, {"image": torch.from_numpy(
+            b["image"]).to(device)})["image"])
+        bins.append(b["bin"])
+        seen += b["image"].shape[0]
+        if seen >= n_anchor:
+            break
+    lo, hi, means = compute_bin_anchors(
+        C, torch.cat(imgs)[:n_anchor], np.concatenate(bins)[:n_anchor],
+        d.n_age_bins)
+    return ckpt.save_comparator_bundle(C, lo, hi, means, cfg,
+                                       cfg.run.checkpoints_dir, cfg.run.name)
 
 
 def _write_host_sidecar(run_dir, step, epoch_losses):

@@ -3,7 +3,11 @@
 A G-only checkpoint is the module's ``state_dict`` saved with ``torch.save``
 at ``{checkpoints_dir}/{name}/{tag}_G.pt`` (``{tag}_G_ema.pt`` for the EMA
 twin); the sampler reads it. A full training state is ``{tag}.pt`` beside
-it. Both load with ``weights_only=True``: no pickled code runs.
+it. Comparator pretraining writes its state as ``cmp_latest.pt`` /
+``cmp_epoch_N.pt`` and, at its end, the bundle ``comparator.pt``: the
+frozen C and its score anchors, which a GAN run reads through
+``--comparator_path``. Every file loads with ``weights_only=True``: no
+pickled code runs.
 """
 
 from __future__ import annotations
@@ -15,6 +19,15 @@ import torch
 from torch import nn
 
 
+def _save(payload: dict, path: str) -> str:
+    """``torch.save`` to ``path`` atomically (tmp + rename)."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
 def generator_path(checkpoints_dir: str, name: str, tag: str = "latest",
                    use_ema: bool = False) -> str:
     suffix = "_G_ema" if use_ema else "_G"
@@ -24,14 +37,9 @@ def generator_path(checkpoints_dir: str, name: str, tag: str = "latest",
 def save_generator(G, checkpoints_dir: str, name: str,
                    tag: str = "latest", use_ema: bool = False) -> str:
     """``G``: the module, or a ``state_dict`` of it (the EMA twin)."""
-    path = generator_path(checkpoints_dir, name, tag, use_ema)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
     sd = G.state_dict() if isinstance(G, nn.Module) else G
-    state = {k: v.detach().cpu() for k, v in sd.items()}
-    tmp = path + ".tmp"
-    torch.save(state, tmp)
-    os.replace(tmp, path)
-    return path
+    return _save(_cpu(sd), generator_path(checkpoints_dir, name, tag,
+                                          use_ema))
 
 
 def restore_generator(G: nn.Module, checkpoints_dir: str, name: str,
@@ -61,10 +69,15 @@ def state_exists(checkpoints_dir: str, name: str, tag: str = "latest") -> bool:
     return os.path.isfile(state_path(checkpoints_dir, name, tag))
 
 
+def _cpu(sd: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in sd.items()}
+
+
 def adam_state(opt: torch.optim.Optimizer, module: nn.Module) -> dict:
     """A ``torch.optim.Adam`` over ``module``'s parameters in optax's terms,
     keyed by parameter name: {'count': steps taken, 'mu': {name: first
-    moment}, 'nu': {name: second moment}} (zeros before the first step)."""
+    moment}, 'nu': {name: second moment}} (zeros before the first step),
+    copied to the CPU."""
     count, mu, nu = 0, {}, {}
     for n, p in module.named_parameters():
         st = opt.state.get(p) or {}
@@ -72,7 +85,7 @@ def adam_state(opt: torch.optim.Optimizer, module: nn.Module) -> dict:
             count = int(st["step"])
         mu[n] = st.get("exp_avg", torch.zeros_like(p))
         nu[n] = st.get("exp_avg_sq", torch.zeros_like(p))
-    return {"count": count, "mu": mu, "nu": nu}
+    return {"count": count, "mu": _cpu(mu), "nu": _cpu(nu)}
 
 
 @torch.no_grad()
@@ -102,19 +115,12 @@ def save_state(state, checkpoints_dir: str, name: str,
     ``{checkpoints_dir}/{name}/{tag}.pt``: G, D, both optimizers, EMA, pool,
     step, the step generator's state, ``lr_scale`` and plateau memory.
     Written atomically (tmp + rename)."""
-    def cpu(d):
-        return {k: v.detach().cpu() for k, v in d.items()}
-
-    def opt(o, net):
-        sd = adam_state(o, net)
-        return {"count": sd["count"], "mu": cpu(sd["mu"]), "nu": cpu(sd["nu"])}
-
     payload = {
         "step": int(state.step),
-        "G": cpu(state.G.state_dict()), "D": cpu(state.D.state_dict()),
-        "opt_g": opt(state.opt_g, state.G),
-        "opt_d": opt(state.opt_d, state.D),
-        "ema": None if state.ema is None else cpu(state.ema),
+        "G": _cpu(state.G.state_dict()), "D": _cpu(state.D.state_dict()),
+        "opt_g": adam_state(state.opt_g, state.G),
+        "opt_d": adam_state(state.opt_d, state.D),
+        "ema": None if state.ema is None else _cpu(state.ema),
         "pool": {"imgs": state.pool.imgs.cpu(), "conds": state.pool.conds.cpu(),
                  "count": state.pool.count.cpu()},
         "rng": state.generator.get_state(),
@@ -122,12 +128,7 @@ def save_state(state, checkpoints_dir: str, name: str,
         "plateau_best": float(state.plateau_best),
         "plateau_bad": float(state.plateau_bad),
     }
-    path = state_path(checkpoints_dir, name, tag)
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
-    return path
+    return _save(payload, state_path(checkpoints_dir, name, tag))
 
 
 def restore_state(state, checkpoints_dir: str, name: str,
@@ -169,6 +170,89 @@ def load_state(state, sd: dict):
     state.plateau_best = float(sd["plateau_best"])
     state.plateau_bad = float(sd["plateau_bad"])
     return state
+
+
+# --------------------------------------------------------------------------- #
+# comparator: pretraining state and the frozen bundle
+# --------------------------------------------------------------------------- #
+
+
+def save_comparator_state(state, checkpoints_dir: str, name: str,
+                          tag: str = "cmp_latest") -> str:
+    """A ``pcgan_tpu_torch.train.ComparatorState`` (C, Adam, step, the step
+    generator) at ``{checkpoints_dir}/{name}/{tag}.pt``, atomically."""
+    return _save({"step": int(state.step), "C": _cpu(state.C.state_dict()),
+                  "opt": adam_state(state.opt, state.C),
+                  "rng": state.generator.get_state()},
+                 state_path(checkpoints_dir, name, tag))
+
+
+def restore_comparator_state(state, checkpoints_dir: str, name: str,
+                             tag: str = "cmp_latest"):
+    return load_comparator_state(state, torch.load(
+        state_path(checkpoints_dir, name, tag), map_location="cpu",
+        weights_only=True))
+
+
+def load_comparator_state(state, sd: dict):
+    """Loads a ``save_comparator_state`` payload (or
+    ``convert.convert_comparator_state``'s, which has no ``rng``) into
+    ``state`` in place and returns it."""
+    state.C.load_state_dict(sd["C"], strict=True)
+    load_adam_state(state.opt, state.C, sd["opt"])
+    if "rng" in sd:
+        state.generator.set_state(sd["rng"])
+    state.step = int(sd["step"])
+    return state
+
+
+BUNDLE = "comparator.pt"
+# the flags that fix the bundle's tensor shapes and trunk math
+_BUNDLE_FLAGS = ("cmp_nf", "cmp_n_down", "norm")
+
+
+def save_comparator_bundle(C: nn.Module, bin_lo, bin_hi, bin_means, cfg,
+                           checkpoints_dir: str, name: str) -> str:
+    """``{checkpoints_dir}/{name}/comparator.pt``: C's ``state_dict``, the
+    score anchors (``bin_means`` may be None) and the structural flags of
+    the run that wrote it (``cmp_nf``, ``cmp_n_down``, ``norm``, ``dtype``)."""
+    def f32(v):
+        return None if v is None else torch.as_tensor(
+            v, dtype=torch.float32).cpu()
+    return _save({
+        "C": _cpu(C.state_dict()),
+        "bin_lo": f32(bin_lo), "bin_hi": f32(bin_hi),
+        "bin_means": f32(bin_means),
+        **{k: getattr(cfg.model, k) for k in (*_BUNDLE_FLAGS, "dtype")}},
+        os.path.join(checkpoints_dir, name, BUNDLE))
+
+
+def load_comparator_bundle(cfg, device=None):
+    """``(C, bin_lo, bin_hi, bin_means)`` from ``--comparator_path`` (the
+    bundle's ``.pt`` file or the run directory that holds it); the eval-side
+    loader of ``pcgan_tpu/eval_lib.py:476-505``. ``cmp_nf``, ``cmp_n_down``
+    and ``norm`` must match ``cfg``; C computes in ``cfg``'s ``--dtype``
+    (the bundle's params are f32 whatever dtype pretrained them). A bundle
+    without bin means gives ``bin_means=None``."""
+    from pcgan_tpu_torch.models import define_C
+    path = cfg.train.comparator_path
+    if os.path.isdir(path):
+        path = os.path.join(path, BUNDLE)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"--comparator_path {cfg.train.comparator_path}: no comparator "
+            f"bundle (pretrain one with --model comparator)")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for k in _BUNDLE_FLAGS:
+        if k in sd and sd[k] != getattr(cfg.model, k):
+            raise ValueError(
+                f"comparator bundle {path} was pretrained with --{k} "
+                f"{sd[k]}, this run has {getattr(cfg.model, k)}: pass "
+                f"--{k} {sd[k]}")
+    C = define_C(cfg)
+    C.load_state_dict(sd["C"], strict=True)
+    return (C.to(device) if device is not None else C, sd["bin_lo"],
+            sd["bin_hi"], sd.get("bin_means"))
 
 
 def prune_epochs(checkpoints_dir: str, name: str, max_to_keep: int) -> list:

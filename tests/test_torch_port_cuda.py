@@ -171,3 +171,83 @@ def test_lowch_reflect_conv_dw_on_card_matches_cpu(cuda_device):
     for a, b in zip(*grads):
         np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4,
                                    atol=1e-4)
+
+
+# --------------------------------------------------------------------------- #
+# the comparator slice on the card (no hand kernel of its own: cuDNN convs)
+# --------------------------------------------------------------------------- #
+
+
+def _small_cfg(*extra):
+    from pcgan_tpu_torch.config import parse_config
+    return parse_config(["--netG", "resnet_6blocks", "--ngf", "8", "--ndf",
+                         "8", "--crop_size", "32", "--load_size", "32",
+                         "--batch_size", "2", "--n_age_bins", "4",
+                         "--pool_size", "0", "--cond_inject", "bottleneck",
+                         "--lr_policy", "constant", "--cmp_nf", "8",
+                         "--cmp_n_down", "3", "--lambda_cond", "5", *extra])
+
+
+def _seeded_comparator(cfg):
+    """A seeded C with its Dense kernels 20x their init (O(1) scores)."""
+    from pcgan_tpu_torch.models import define_C
+    C = define_C(cfg, torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        C.fc.weight.mul_(20.0)
+        C.head.weight.mul_(20.0)
+    return C
+
+
+def test_comparator_bf16_on_card_matches_f32(cuda_device):
+    """bf16 convs (8 mantissa bits) on the card against the f32 comparator
+    on the CPU: within 1e-2 of the largest f32 score and 5e-2 of the
+    batch's spread, the CPU tests' bf16 tolerance."""
+    x = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, (8, 32, 32, 3)).astype(np.float32))
+    C32 = _seeded_comparator(_small_cfg("--dtype", "float32"))
+    C16 = _seeded_comparator(_small_cfg("--dtype", "bfloat16")).to(
+        cuda_device)
+    with torch.no_grad():
+        want = C32(x)
+        got = C16(x.to(cuda_device))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.device.type == "cuda"
+        err = float((g.cpu() - w).abs().max())
+        assert err <= 1e-2 * float(w.abs().max())
+        assert err <= 5e-2 * float(w.max() - w.min())
+
+
+@pytest.mark.parametrize("cond_mode", ["onehot", "score"])
+def test_gan_step_with_comparator_on_card_matches_cpu(cuda_device,
+                                                      cond_mode):
+    """One f32 step with the cond loss, card against CPU from the same
+    seeded nets and pinned targets: every loss within 1e-4, the cond loss
+    non-zero, C bit-identical afterwards."""
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.train import create_train_state, make_train_step
+    cfg = _small_cfg("--dtype", "float32", "--cond_mode", cond_mode)
+    rng = np.random.default_rng(4)
+    batch = {"image": torch.from_numpy(
+                 rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)),
+             "bin": torch.from_numpy(rng.integers(0, 4, 2)),
+             "target_bin": torch.from_numpy(rng.integers(0, 4, 2)),
+             "target_score": torch.tensor([-0.5, 0.75])}
+    anchors = (torch.tensor([-1e30, -0.3, 0.0, 0.3]),
+               torch.tensor([-0.3, 0.0, 0.3, 1e30]),
+               torch.tensor([-0.5, -0.1, 0.1, 0.5]))
+    runs = {}
+    for dev in (torch.device("cpu"), cuda_device):
+        C = _seeded_comparator(cfg)
+        c0 = {k: v.clone() for k, v in C.state_dict().items()}
+        state = create_train_state(
+            cfg, define_G(cfg, torch.Generator().manual_seed(7)).to(dev),
+            define_D(cfg, torch.Generator().manual_seed(8)).to(dev),
+            torch.Generator().manual_seed(0), C=C, bin_anchors=anchors)
+        m = make_train_step(cfg, state.G, state.D, state.C)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        runs[dev.type] = {k: float(v) for k, v in m.items()}
+        assert all(torch.equal(v.cpu(), c0[k])
+                   for k, v in state.C.state_dict().items())
+    assert runs["cpu"]["loss_G_cond"] != 0.0
+    for k, v in runs["cpu"].items():
+        assert abs(runs["cuda"][k] - v) <= 1e-4, (k, v, runs["cuda"][k])

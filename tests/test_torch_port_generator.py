@@ -134,7 +134,7 @@ def test_define_G_warnings_fire():
 
 @pytest.mark.parametrize("flags", [
     ["--netG", "unet_128"], ["--netG", "resnet_9blocks@resize_conv"],
-    ["--norm", "batch"], ["--norm", "group"], ["--cond_mode", "score"],
+    ["--norm", "batch"], ["--norm", "group"], ["--netG", "unet_256"],
     ["--g_attn"], ["--quant_int8"], ["--dtype", "float16"]])
 def test_unported_flags_raise(flags):
     cfg = port_parse(SMALL + ["--cond_inject", "bottleneck"] + flags)

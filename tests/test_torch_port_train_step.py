@@ -202,17 +202,25 @@ def test_adam_matches_optax():
                                rtol=1e-6, atol=1e-7)
 
 
-def test_unported_training_flags_raise():
+def test_unported_training_flags_raise(tmp_path):
+    from pcgan_tpu_torch import train_main
     from pcgan_tpu_torch.train import reject_unported_train
     reject_unported_train(tcfg.parse_config([]))
+    reject_unported_train(tcfg.parse_config(["--model", "comparator"]))
+    reject_unported_train(tcfg.parse_config(["--comparator_path", "x"]))
     for argv, flag in ((["--gan_mode", "wgangp"], "wgangp"),
                        (["--lambda_r1", "1"], "--lambda_r1"),
                        (["--diff_augment", "color"], "--diff_augment"),
                        (["--grad_accum", "2"], "--grad_accum"),
-                       (["--comparator_path", "x"], "--comparator_path"),
-                       (["--model", "comparator"], "--model")):
+                       (["--lambda_feat", "10"], "--lambda_feat"),
+                       (["--skip_nonfinite", "3"], "--skip_nonfinite")):
         with pytest.raises(NotImplementedError, match=flag):
             reject_unported_train(tcfg.parse_config(argv))
+    # the human-annotation CSV source of comparator pretraining
+    with pytest.raises(NotImplementedError, match="comparisons"):
+        train_main.main(["--model", "comparator", "--dataset_mode",
+                         "comparisons", "--device", "cpu",
+                         "--checkpoints_dir", str(tmp_path)])
     for argv, flag in ((["--netD", "multiscale"], "multiscale"),
                        (["--netD", "pixel"], "pixel"),
                        (["--spectral_norm"], "--spectral_norm")):

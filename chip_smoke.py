@@ -3,17 +3,24 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; no phase's failure is caught):
+Phases (any failure exits non-zero; no phase's failure is caught, but for
+the one named in phase 2):
 
 1. device: the card's name and power limit from nvidia-smi;
 2. build: compile every CUDA kernel of the port from ``pcgan_tpu_torch/csrc``
-   (one nvcc per source, started together);
+   (one nvcc per source) and the host JPEG decoder (g++ against libjpeg),
+   all started together; libjpeg's ABI is printed, or, on a host without
+   libjpeg, the decoder's ``JpegUnavailable`` and the switch of phases
+   13-15 to PNG copies of the fixtures;
 3. B1 kernel check: the preprocessing kernel against its plain PyTorch
    version on the card (TF32 off) at the sampling shape (center crop), the
    training shape (random crops and flips), the comparator's 2B shapes
    (both pair members with random crops and flips; held-out pairs center
-   cropped), a ragged, an identity and an upscale shape with flips, in f32
-   and bf16 output, then timed (graph
+   cropped), the 250 px CACD canvas (B 32, 250 -> 286 -> 256) and the
+   ``--host_decode_m 6`` canvas (B 32, 150 -> 143 -> 128), the batches of
+   phases 14-15 (32 and 2 x 64 with random crops and flips; 64, 63 and 2
+   center cropped), a ragged, an identity and an upscale shape with flips,
+   in f32 and bf16 output, then timed (graph
    replay, eager, and with a cold L2) beside its plain version, one library
    yardstick and its bound;
 4. sampling path: ``pcgan_tpu_torch.test.main`` end to end (synthetic
@@ -41,12 +48,31 @@ Phases (any failure exits non-zero; no phase's failure is caught):
     epochs and 1 resumed, its bundle and anchors checked, pairs/s after the
     first epoch, and a fresh 2 x 4-step run under torch.profiler;
 11. path 1 with the comparator: the phase-8 GAN with ``--comparator_path``
-    at ``--lambda_cond 10`` (2 epochs of 8 steps, the cond loss non-zero, C
-    unchanged, steps/s and a profiled 2 x 4-step run beside phase 8's), then
+    at ``--lambda_cond 10`` (6 epochs of 8 steps, the cond loss non-zero, C
+    unchanged, steps/s over epochs 2-6 with their spread, and a profiled
+    2 x 4-step run beside phase 8's), then
     one epoch in ``--cond_mode score`` and its score-sweep grid from
     ``pcgan_tpu_torch.test.main``;
 12. comparator parity: one f32 comparator step and one f32 GAN step with
-    the cond loss, card against CPU.
+    the cond loss, card against CPU;
+13. the host decoder: the committed JPEG fixtures
+    (``tests/torch_port_data``) against their digests, or, without libjpeg,
+    a JPEG folder raising ``JpegUnavailable`` and PNG copies of the
+    fixtures' source canvases (the numpy PNG reader) against the canvases;
+    batch against single decodes over the 128-image folder (each fixture
+    under four age-shifted names), decode images/s at 1 and 8 threads;
+14. path 4, real images: ``train_main.main`` with
+    ``scripts/train_utkface_128.sh``'s flags over the folder (batch 32, the
+    frozen phase-10 comparator, bf16; 6 epochs, steps/s over epochs 2-6 with
+    their spread beside phase 11's, and 1 resumed on the seeded
+    permutation), ``test.main`` with ``test_aging_grid.sh``'s flags (50
+    grids, PNGs decoded), a profiled 2 x 4-step run, a pack of the folder
+    equal to the live decode and one packed epoch, ``sort_unlabeled`` with
+    phase 10's bundle and one sorted epoch;
+15. path 3 label-free: ``pretrain_comparator.sh``'s flags (batch 64, the
+    default comparator, 1 epoch) over a comparisons CSV of the folder
+    (anchors by score quantiles of its image pool, recomputed) and over the
+    folder's pairs.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -104,6 +130,11 @@ TIMING_NOTE = ("ms and library_ms: CUDA-graph replay, 200 calls on the same "
                "inputs, warm L2; cold_ms and library_cold_ms: one call after "
                "a 256 MB read evicts the L2, median of 30; eager_ms, plain_ms "
                "and library_eager_ms: back-to-back eager calls")
+
+
+def _jsonable(v):
+    """numpy values in the summary line."""
+    return v.tolist() if hasattr(v, "tolist") else str(v)
 
 
 def say(msg: str) -> None:
@@ -226,15 +257,34 @@ def phase_device(torch) -> str:
     return card
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from concurrent.futures import ThreadPoolExecutor
+    from pcgan_tpu_torch import native
     from pcgan_tpu_torch.ops import _build, cuda_preprocess, cuda_wgrad
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:      # one nvcc each, together
-        for f in [pool.submit(m.build) for m in (cuda_preprocess,
-                                                 cuda_wgrad)]:
+    with ThreadPoolExecutor(3) as pool:      # one nvcc each and g++, together
+        kernels = [pool.submit(m.build) for m in (cuda_preprocess, cuda_wgrad)]
+        decoder = pool.submit(native.load)
+        for f in kernels:
             f.result()
-    say(f"build (B1 + B2): {time.perf_counter() - t0:.2f} s")
+        try:
+            decoder.result()
+            jpeg = None
+        except native.JpegUnavailable as e:
+            # a host without libjpeg: the decoder raises, naming it; phases
+            # 13-15 then run over PNG copies of the fixtures (any other
+            # build failure is not caught)
+            jpeg = str(e)
+    out = {"build_s": time.perf_counter() - t0, "jpeg_unavailable": jpeg}
+    if jpeg is None:
+        out.update(libjpeg_abi=native.jpeg_abi(),
+                   libjpeg_turbo=native.jpeg_turbo_version())
+        say(f"build (B1 + B2 with nvcc, the JPEG decoder with g++): "
+            f"{out['build_s']:.2f} s; libjpeg ABI {out['libjpeg_abi']}, "
+            f"libjpeg-turbo {out['libjpeg_turbo'] or 'no'} (MMMmmmppp)")
+    else:
+        say(f"build (B1 + B2 with nvcc): {out['build_s']:.2f} s; NO JPEG "
+            f"DECODER on this host, phases 13-15 read PNGs: {jpeg}")
     # ptxas -v per kernel: its (mangled) name, then spills, then registers
     # and static shared memory
     for log in sorted(os.listdir(_build.BUILD_DIR)):
@@ -251,6 +301,7 @@ def phase_build() -> None:
                 kernel = re.search(r"(preprocess|wgrad_tc|wgrad_fma|"
                                    r"wgrad_reduce)_kernel(I.*?EE)?", name)
                 say(f"ptxas {kernel.group(0) if kernel else name}: {stats}")
+    return out
 
 
 def _preprocess_case(torch, rng, b, native, load, crop, center=False):
@@ -283,6 +334,19 @@ def phase_kernel_check(torch) -> dict:
              # images is the sampling shape)
              "comparator": (2 * MAIN_B, NATIVE, LOAD, CROP, False),
              "comparator_eval": (2 * MAIN_B, NATIVE, LOAD, CROP, True),
+             # train_256_fid.sh's CACD canvas, and the --host_decode_m 6
+             # canvas of a 200 px folder
+             "cacd_256": (32, 250, 286, 256, False),
+             "decode_m6": (32, 150, LOAD, CROP, False),
+             # path 4's batch of train_utkface_128.sh; label-free
+             # pretraining's 2 x 64 pair members; sort_unlabeled's and the
+             # anchors' center-cropped batches of 64, the last anchor batch
+             # of the 127-image pool, and the grid's last batch of 50 rows
+             "real_images": (REAL_B, NATIVE, LOAD, CROP, False),
+             "pairs_b64": (128, NATIVE, LOAD, CROP, False),
+             "center_b64": (64, NATIVE, LOAD, CROP, True),
+             "anchor_tail": (63, NATIVE, LOAD, CROP, True),
+             "grid_tail": (2, NATIVE, LOAD, CROP, True),
              "ragged": (4, 50, 43, 32, False),
              "identity": (2, CROP, CROP, CROP, False),
              "upscale": (3, 30, 64, 48, False)}
@@ -768,6 +832,23 @@ def _train_argv(tmp, name, niter, size=64, extra=()):
             "--checkpoints_dir", os.path.join(tmp, "train"), *extra]
 
 
+def _epoch_rates(epochs) -> dict:
+    """Steps/s over the epochs after the first (pooled), and each epoch's
+    with their min, median and max: the spread of the rate."""
+    later = epochs[1:]
+    each = [e["steps"] / e["train_seconds"] for e in later]
+    return {"pooled": sum(e["steps"] for e in later)
+            / sum(e["train_seconds"] for e in later),
+            "epochs": each, "min": min(each), "median": float(np.median(each)),
+            "max": max(each)}
+
+
+def _rates_str(r, batch) -> str:
+    return (f"{r['pooled']:.3f} steps/s = {batch * r['pooled']:.1f} images/s "
+            f"(per epoch min / median / max {r['min']:.3f} / "
+            f"{r['median']:.3f} / {r['max']:.3f})")
+
+
 def _train_run(torch, argv):
     """One run of path 1 with every launch count zeroed just before and
     read just after."""
@@ -890,7 +971,7 @@ def _profile_train(torch, tmp, steps: int = 4, argv=None,
                r[0] for r in rows if "preprocess_kernel" in r[2]),
            "top_kernels_ms_per_step": [[round(ms, 4), cnt, name[:100]]
                                        for ms, cnt, name in rows[:20]]}
-    say(f"{what} profile (bf16, 2 epochs of {steps} steps of batch 8, "
+    say(f"{what} profile (bf16, 2 epochs of {steps} steps, "
         f"every step traced, no checkpoint writes): device "
         f"{device_ms:.3f} ms of {window_ms:.3f} ms window per step, busy "
         f"share {device_ms / window_ms:.3f}, "
@@ -961,6 +1042,7 @@ def phase_train_parity(torch) -> dict:
 # base images: 160 pairs, 16 held out, 18 steps an epoch
 CMP_SIZE, CMP_STEPS, CMP_HELD_OUT = 160, 18, 16
 COND_TOL = 1e-4              # f32 comparator / cond-loss step, card vs CPU
+COND_EPOCHS = 6              # phase 11's rate: epochs 2-6, 40 steps
 
 
 def _cmp_argv(tmp, name, niter, size=CMP_SIZE, extra=()):
@@ -1070,7 +1152,7 @@ def phase_path1_cond(torch, tmp, bundle_dir, plain_profile) -> dict:
     bundle = torch.load(os.path.join(bundle_dir, "comparator.pt"),
                         weights_only=True)
     out = {}
-    for mode, niter in (("onehot", 2), ("score", 1)):
+    for mode, niter in (("onehot", COND_EPOCHS), ("score", 1)):
         name = f"smoke_cond_{mode}"
         loaded, restore = _capture_comparator()
         try:
@@ -1098,11 +1180,11 @@ def phase_path1_cond(torch, tmp, bundle_dir, plain_profile) -> dict:
         out[mode] = {"steps": steps, "b1_launches": b1, "b2_launches": b2,
                      "cli_wall_s": wall, "epochs": res["epochs"],
                      "loss_G_cond": conds, "last_metrics": res["metrics"]}
-    later = out["onehot"]["epochs"][1:]
-    out["onehot"]["steps_per_s"] = sum(e["steps"] for e in later) / sum(
-        e["train_seconds"] for e in later)
-    say(f"path 1 with C: epoch 2 (8 steps) {out['onehot']['steps_per_s']:.3f}"
-        f" steps/s (bf16, batch 8, lambda_cond 10); loss_G_cond "
+    rates = _epoch_rates(out["onehot"]["epochs"])
+    out["onehot"].update(steps_per_s=rates["pooled"], rates=rates)
+    say(f"path 1 with C: epochs 2-{COND_EPOCHS} ({8 * (COND_EPOCHS - 1)} "
+        f"steps) {_rates_str(rates, 8)} (bf16, batch 8, lambda_cond 10); "
+        f"loss_G_cond "
         f"{out['onehot']['loss_G_cond']}; score mode loss_G_cond "
         f"{out['score']['loss_G_cond']}; C bit-identical after both runs")
     prof = _profile_train(torch, tmp, argv=_train_argv(
@@ -1218,6 +1300,417 @@ def phase_cond_parity(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# real images: the host decoder (phase 13), path 4 (phase 14) and the
+# label-free comparator inputs (phase 15)
+# --------------------------------------------------------------------------- #
+
+FIXTURES = os.path.join(HERE, "tests", "torch_port_data")
+AGE_SHIFTS = (0, 7, 14, 21)      # four names per fixture: 128 images
+REAL_B, REAL_STEPS = 32, 4       # train_utkface_128.sh's batch: 4 steps/epoch
+REAL_EPOCHS = 6                  # path 4's rate: epochs 2-6, 20 steps
+
+
+def _fixture_canvases():
+    """``make_faces.canvases()``: each fixture's (UTKFace stem, source image,
+    kind), made from the port's seeded synthetic canvases without Pillow."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_faces", os.path.join(FIXTURES, "make_faces.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return list(mod.canvases())
+
+
+def _real_folder(tmp, png: bool):
+    """The 32 fixtures under four age-shifted UTKFace names each: the
+    committed JPEGs, or, on a host without libjpeg, their source canvases
+    written as PNGs by the port's encoder. Returns (folder, {file name: the
+    RGB image its decode must give} for the PNGs, else None)."""
+    from pcgan_tpu_torch.utils.visualizer import encode_png
+    folder = os.path.join(tmp, "faces")
+    os.makedirs(folder)
+    files, want = [], {} if png else None
+    if png:
+        for stem, img, _ in _fixture_canvases():
+            rgb = np.repeat(img[..., None], 3, 2) if img.ndim == 2 else img
+            files.append((stem, ".png", encode_png(img), rgb))
+    else:
+        for name in sorted(os.listdir(os.path.join(FIXTURES, "faces"))):
+            with open(os.path.join(FIXTURES, "faces", name), "rb") as f:
+                files.append((name[:-4], ".jpg", f.read(), None))
+    for stem, ext, data, rgb in files:
+        age, gender, race, stamp = stem.split("_")
+        for k, shift in enumerate(AGE_SHIFTS):
+            name = f"{int(age) + shift}_{gender}_{race}_{stamp[:-1]}{k}{ext}"
+            with open(os.path.join(folder, name), "wb") as f:
+                f.write(data)
+            if png:
+                want[name] = rgb
+    return folder, want
+
+
+def _check_jpeg_fixtures() -> dict:
+    """The committed JPEGs decode to their Pillow digests, bit for bit."""
+    import hashlib
+    from pcgan_tpu_torch import native
+    with open(os.path.join(FIXTURES, "digests.json")) as f:
+        meta = json.load(f)
+    names = sorted(meta["files"])
+    paths = [os.path.join(FIXTURES, "faces", n) for n in names]
+    imgs, st = native.decode_batch(paths, 200, 200, threads=8)
+    check(not st.any(), f"decoder: status {st.tolist()}")
+    differ = [n for n, img in zip(names, imgs) if hashlib.sha256(
+        img.tobytes()).hexdigest() != meta["files"][n]["sha256"]]
+    out = {"fixtures": len(names), "sha256_differ": differ,
+           "libjpeg_abi": native.jpeg_abi(),
+           "libjpeg_turbo": native.jpeg_turbo_version()}
+    check(not differ, f"decoder: {len(differ)} of {len(names)} fixtures "
+          f"decode to other bits than Pillow's (libjpeg ABI "
+          f"{out['libjpeg_abi']}, libjpeg-turbo {out['libjpeg_turbo'] or 'no'})"
+          f": {differ}")
+    say(f"decoder: {len(names)} JPEG fixtures bit-identical to their digests")
+    return out
+
+
+def _check_png_copies(ds, want) -> dict:
+    """No libjpeg: the port's JPEG decode raises, naming it, and every PNG
+    copy decodes to the canvas written into it."""
+    from pcgan_tpu_torch import native
+    from pcgan_tpu_torch.data.utkface import UTKFaceDataset
+    try:
+        UTKFaceDataset(os.path.join(FIXTURES, "faces")).get_raw_batch([0])
+        raised = ""
+    except native.JpegUnavailable as e:
+        raised = str(e)
+    check("libjpeg" in raised,
+          f"decoder: a JPEG folder without libjpeg gave {raised!r}")
+    imgs = ds.get_raw_batch(np.arange(len(ds)), num_threads=8)["image"]
+    for p, img in zip(ds.paths, imgs):
+        check(np.array_equal(img, want[os.path.basename(p)]),
+              f"decoder: {p} does not decode to the canvas written")
+    say(f"decoder: no libjpeg on this host, a JPEG folder raises "
+        f"JpegUnavailable; {len(want)} PNG copies of the fixtures decode to "
+        f"their canvases bit for bit")
+    return {"fixtures": len(want) // len(AGE_SHIFTS), "png_exact": True,
+            "jpeg_raises": raised}
+
+
+def phase_decoder(folder, want) -> dict:
+    """The fixtures against their committed digests (JPEG) or the canvases
+    written (PNG, ``want``), batch against single decodes, and the decode
+    rate over the 128 images at 1 and 8 threads."""
+    from pcgan_tpu_torch.data.utkface import UTKFaceDataset
+    ds = UTKFaceDataset(folder)
+    check(len(ds) == 32 * len(AGE_SHIFTS) and ds.native == 200,
+          f"decoder: folder of {len(ds)} at {ds.native} px")
+    out = _check_jpeg_fixtures() if want is None else _check_png_copies(
+        ds, want)
+    idx = np.arange(len(ds))
+    batch = ds.get_raw_batch(idx, num_threads=8)["image"]
+    for i in idx:
+        check(np.array_equal(batch[i], ds.get_raw(int(i))["image"]),
+              f"decoder: batch and single decode differ at {ds.paths[i]}")
+    rates = {}
+    for threads in (1, 8, 1, 8):
+        t0 = time.perf_counter()
+        ds.get_raw_batch(idx, num_threads=threads)
+        rates.setdefault(str(threads), []).append(
+            len(ds) / (time.perf_counter() - t0))
+    kind = "JPEG, libjpeg" if want is None else "PNG, numpy"
+    out.update(format=kind, images=len(ds), images_per_s=rates,
+               nproc=os.cpu_count(), affinity=len(os.sched_getaffinity(0)))
+    say(f"decoder: batch == single over {len(ds)} images; images/s (200 px "
+        f"{kind}, twice each) {json.dumps(rates)} on nproc {out['nproc']} "
+        f"(affinity {out['affinity']})")
+    return out
+
+
+def _real_argv(tmp, folder, name, niter, extra=()):
+    """train_utkface_128.sh's flags: only --dataroot, the epochs and the
+    cadences differ; bf16 as phase 8."""
+    return ["--dataroot", folder, "--name", name, "--model", "pcgan",
+            "--dataset_mode", "aging", "--netG", NETG, "--netD", "basic",
+            "--norm", "instance", "--load_size", str(LOAD), "--crop_size",
+            str(CROP), "--batch_size", str(REAL_B), "--n_age_bins", str(NB),
+            "--gan_mode", "lsgan", "--lambda_L1", "100", "--lambda_cond",
+            "10", "--lr", "0.0002", "--beta1", "0.5", "--pool_size", "64",
+            "--mesh_shape", "1", "--dtype", "bfloat16",
+            "--niter", str(niter), "--niter_decay", "0", "--print_freq", "2",
+            "--save_epoch_freq", "1",
+            "--checkpoints_dir", os.path.join(tmp, "real"), *extra]
+
+
+def _batches_drawn():
+    """Wraps the folder dataset's batch decode so the indices each run
+    draws can be read after it; returns (the list, the restore callable)."""
+    from pcgan_tpu_torch.data.utkface import UTKFaceDataset
+    drawn, orig = [], UTKFaceDataset.get_raw_batch
+
+    def spy(self, idx, num_threads=8):
+        drawn.append(np.asarray(idx).copy())
+        return orig(self, idx, num_threads)
+    UTKFaceDataset.get_raw_batch = spy
+
+    def restore():
+        UTKFaceDataset.get_raw_batch = orig
+    return drawn, restore
+
+
+def _check_cond_rows(run_dir, what):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    for r in rows:
+        for k in ("loss_G", "loss_D", "loss_G_cond"):
+            check(bool(np.isfinite(r[k])), f"{what}: {k} {r[k]}")
+        # a Gaussian NLL with 0.5 log_var: non-zero, of either sign
+        check(r["loss_G_cond"] != 0.0, f"{what}: loss_G_cond is 0")
+    return [r["loss_G_cond"] for r in rows]
+
+
+def phase_path4(torch, tmp, folder, bundle_dir, cond_rates) -> dict:
+    """Path 4, real images at full width: train_utkface_128.sh's run
+    (REAL_EPOCHS epochs and 1 resumed, then a profiled 2 x 4-step run),
+    test_aging_grid.sh's grids over the folder, a pack of the folder and
+    one packed epoch, sort_unlabeled with phase 10's bundle and one sorted
+    epoch."""
+    from pcgan_tpu_torch import test as port_test
+    from pcgan_tpu_torch.data.packed import PackedDataset
+    from pcgan_tpu_torch.data.utkface import UTKFaceDataset
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.tools import pack_dataset, sort_unlabeled
+    cond = ("--comparator_path", bundle_dir)
+    name = "real_utk128"
+    run = os.path.join(tmp, "real", name)
+    res, b1, b2, wall = _train_run(torch, _real_argv(
+        tmp, folder, name, REAL_EPOCHS, cond))
+    steps = res["step"]
+    check(steps == REAL_EPOCHS * REAL_STEPS and b1 == steps and b2 == 0
+          and [e["steps"] for e in res["epochs"]]
+          == [REAL_STEPS] * REAL_EPOCHS,
+          f"path 4: {steps} steps, {b1} B1 / {b2} B2 launches, epochs "
+          f"{res['epochs']}")
+    conds = _check_cond_rows(run, "path 4")
+    rates = _epoch_rates(res["epochs"])
+    ratio = rates["pooled"] / cond_rates["pooled"]
+    out = {"steps": steps, "b1_launches": b1, "cli_wall_s": wall,
+           "epochs": res["epochs"], "steps_per_s": rates["pooled"],
+           "images_per_s": REAL_B * rates["pooled"], "rates": rates,
+           "phase11_rates_batch8": cond_rates,
+           "steps_per_s_vs_phase11": ratio,
+           "loss_G_cond": conds, "last_metrics": res["metrics"]}
+    with open(os.path.join(run, "opt.json")) as f:
+        split = json.load(f)["split"]
+    check(split["phase_root"] == folder and split["dataset_len"] == 128,
+          f"path 4: split record {split}")
+    say(f"path 4: {steps} steps in {wall:.2f} s; epochs 2-{REAL_EPOCHS} "
+        f"({REAL_STEPS * (REAL_EPOCHS - 1)} steps of {REAL_B}) "
+        f"{_rates_str(rates, REAL_B)} (bf16, with C) beside phase 11's "
+        f"{_rates_str(cond_rates, 8)} at batch 8: {ratio:.3f}x its steps/s; "
+        f"loss_G_cond {conds}; B1 launches {b1}")
+
+    # resume one epoch: the loader replays the next epoch's seeded
+    # permutation (seed 0 + epoch index REAL_EPOCHS)
+    drawn, restore = _batches_drawn()
+    try:
+        res2, b1r, _, _ = _train_run(torch, _real_argv(
+            tmp, folder, name, REAL_EPOCHS + 1, cond + ("--continue_train",)))
+    finally:
+        restore()
+    order = np.arange(128)
+    np.random.default_rng(REAL_EPOCHS).shuffle(order)
+    want = [order[k * REAL_B:(k + 1) * REAL_B] for k in range(REAL_STEPS)]
+    check(res2["step"] == (REAL_EPOCHS + 1) * REAL_STEPS and b1r == REAL_STEPS
+          and [e["epoch"] for e in res2["epochs"]] == [REAL_EPOCHS + 1]
+          and len(drawn) == REAL_STEPS
+          and all(np.array_equal(a, b) for a, b in zip(drawn, want)),
+          f"path 4 resume: step {res2['step']}, {b1r} B1 launches, epochs "
+          f"{res2['epochs']}, batches not the next epoch's permutation")
+    out["resume"] = {"step": res2["step"], "b1_launches": b1r,
+                     "metrics": res2["metrics"]}
+    out["profile"] = _profile_train(
+        torch, tmp, steps=REAL_STEPS, what="path 4 (batch 32, with C)",
+        argv=_real_argv(tmp, folder, "real_profile", 2, cond))
+
+    # test_aging_grid.sh's flags over the folder
+    cp.launches = 0
+    argv = ["--dataroot", folder, "--name", name, "--dataset_mode", "aging",
+            "--netG", NETG, "--norm", "instance", "--load_size", str(LOAD),
+            "--crop_size", str(CROP), "--n_age_bins", str(NB), "--epoch",
+            "latest", "--num_test", "50", "--checkpoints_dir",
+            os.path.join(tmp, "real"), "--results_dir",
+            os.path.join(tmp, "real_res")]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # input injection
+        grid = port_test.main(argv)
+    torch.cuda.synchronize()
+    b1g = cp.launches
+    pngs = sorted(n for n in os.listdir(os.path.join(grid["web_dir"],
+                                                     "images"))
+                  if n.endswith(".png"))
+    check(grid["done"] == 50 and len(pngs) == 50 * (1 + NB) and b1g == 7,
+          f"path 4 grid: {grid['done']} rows, {len(pngs)} PNGs, {b1g} B1 "
+          f"launches")
+    for n in pngs:
+        img = read_png(os.path.join(grid["web_dir"], "images", n))
+        check(img.shape == (CROP, CROP, C), f"path 4 grid: {n} {img.shape}")
+    out["grid"] = {"rows": grid["done"], "pngs": len(pngs), "b1_launches": b1g,
+                   "batch_seconds": grid["batch_seconds"]}
+    say(f"path 4 grid: {grid['done']} rows x {NB} bins, {len(pngs)} PNGs "
+        f"decoded; B1 launches {b1g}")
+
+    # a pack of the folder: its rows are the live decode's, bit for bit
+    pack = os.path.join(tmp, "pack")
+    t0 = time.perf_counter()
+    meta = pack_dataset.main(["--dataroot", folder, "--out", pack,
+                              "--num_threads", "8"])
+    pack_s = time.perf_counter() - t0
+    live = UTKFaceDataset(folder)
+    rows = PackedDataset(pack)
+    check(meta["n"] == 128 and meta["size"] == 200
+          and np.array_equal(rows.imgs, live.get_raw_batch(
+              np.arange(128))["image"])
+          and np.array_equal(rows.ages, live.ages),
+          "path 4: the pack's rows differ from the live decode")
+    res3, b1p, _, _ = _train_run(torch, _real_argv(
+        tmp, pack, "real_packed", 1, cond + ("--dataset_mode", "packed")))
+    check(res3["step"] == REAL_STEPS and b1p == REAL_STEPS,
+          f"path 4 packed: {res3['step']} steps, {b1p} B1 launches")
+    _check_cond_rows(os.path.join(tmp, "real", "real_packed"), "packed")
+    out["packed"] = {"pack_s": pack_s, "step": res3["step"],
+                     "b1_launches": b1p, "epochs": res3["epochs"]}
+
+    # sort the folder with phase 10's bundle, then one sorted epoch
+    cp.launches = 0
+    labels = os.path.join(tmp, "labels.csv")
+    srt = sort_unlabeled.main(["--dataroot", folder, "--comparator_path",
+                               bundle_dir, "--n_age_bins", str(NB),
+                               "--out", labels])
+    torch.cuda.synchronize()
+    b1s = cp.launches
+    occ = srt["occupancy"]
+    with open(labels) as f:
+        lines = f.read().splitlines()
+    # quantile bins of 128 scores, each image four times (its age-shifted
+    # copies): 12 or 13 a bin, up to 16 where copies share a score
+    check(lines[0] == "path,bin,score" and len(lines) == 129
+          and [ln.split(",")[0] for ln in lines[1:]] == live.paths
+          and all(0 <= int(ln.split(",")[1]) < NB for ln in lines[1:])
+          and all(np.isfinite(float(ln.split(",")[2])) for ln in lines[1:])
+          and int(occ.sum()) == 128 and occ.min() >= 8 and occ.max() <= 16
+          and b1s == 2,
+          f"sort_unlabeled: {len(lines)} lines, occupancy {occ.tolist()}, "
+          f"{b1s} B1 launches")
+    res4, b1t, _, _ = _train_run(torch, _real_argv(
+        tmp, folder, "real_sorted", 1,
+        cond + ("--dataset_mode", "sorted", "--labels_csv", labels)))
+    check(res4["step"] == REAL_STEPS and b1t == REAL_STEPS,
+          f"path 4 sorted: {res4['step']} steps, {b1t} B1 launches")
+    _check_cond_rows(os.path.join(tmp, "real", "real_sorted"), "sorted")
+    out["sorted"] = {"occupancy": occ.tolist(), "b1_sort": b1s,
+                     "step": res4["step"], "b1_launches": b1t}
+    say(f"path 4 pack: 128 rows of 200 px in {pack_s:.2f} s, equal to the "
+        f"live decode; packed epoch {REAL_STEPS} steps; sort_unlabeled "
+        f"occupancy {occ.tolist()}; sorted epoch {REAL_STEPS} steps")
+    out["launches_per_run"] = {"train": b1, "resume": b1r,
+                               "profile": out["profile"]["launches"],
+                               "grid": b1g, "packed": b1p,
+                               "sort_unlabeled": b1s, "sorted": b1t}
+    return out
+
+
+def _comparisons_csv(folder, rows=320, seed=0) -> str:
+    """pathA,pathB,label rows over the folder, labelled from the names'
+    ages (all three labels), one header row, paths relative to the CSV."""
+    from pcgan_tpu_torch.data.utkface import list_images, parse_age
+    paths = list_images(folder)
+    rng = np.random.default_rng(seed)
+    lines, seen = ["image_a,image_b,label"], set()
+    while len(lines) <= rows or len(seen) < 3:
+        a, b = (paths[i] for i in rng.integers(0, len(paths), 2))
+        gap = parse_age(a) - parse_age(b)
+        lab = 2 if abs(gap) <= 3 else (0 if gap > 0 else 1)
+        seen.add(lab)
+        lines.append(f"{os.path.relpath(a, os.path.dirname(folder))},"
+                     f"{os.path.relpath(b, os.path.dirname(folder))},"
+                     f"{('0', 'b', 'tie')[lab]}")
+    path = os.path.join(os.path.dirname(folder), "comparisons.csv")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def phase_path3_label_free(torch, tmp, folder) -> dict:
+    """pretrain_comparator.sh's flags at the default comparator's width, 1
+    epoch: over a comparisons CSV (anchors by score quantiles over its image
+    pool) and over the folder's pairs (anchors by age bins)."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.data import loader as data_loader
+    from pcgan_tpu_torch.data.pairwise import ComparisonsCSVDataset
+    from pcgan_tpu_torch.ops.preprocess import make_preprocess
+    from pcgan_tpu_torch.train import compute_quantile_anchors
+    from pcgan_tpu_torch.utils.checkpoint import load_comparator_bundle
+    csv = _comparisons_csv(folder)
+    script = ["--model", "comparator", "--load_size", str(LOAD),
+              "--crop_size", str(CROP), "--batch_size", "64", "--n_age_bins",
+              str(NB), "--niter", "1", "--niter_decay", "0", "--lr", "0.0002",
+              "--print_freq", "2", "--checkpoints_dir",
+              os.path.join(tmp, "cmp_real")]
+    ds = ComparisonsCSVDataset(csv)
+    n_rows, pool = len(ds), ds.image_pool_dataset()
+    argv = script + ["--dataset_mode", "comparisons", "--comparisons_csv",
+                     csv, "--name", "cmp_csv"]
+    res, b1, b2, wall = _train_run(torch, argv)
+    n_eval = n_rows // 10
+    steps = (n_rows - n_eval) // 64
+    want_b1 = steps + 1 + -(-len(pool) // 64)
+    check(res["step"] == steps and b1 == want_b1 and b2 == 0,
+          f"label-free: {res['step']} steps (want {steps}), {b1} B1 launches "
+          f"(want {want_b1})")
+    check(res["eval_acc"] is not None and np.isfinite(res["eval_acc"]),
+          f"label-free: held-out accuracy {res['eval_acc']}")
+    bundle = torch.load(res["bundle"], weights_only=True)
+    lo, hi, means = (bundle[k] for k in ("bin_lo", "bin_hi", "bin_means"))
+    check(bool((means[1:] >= means[:-1]).all()) and lo[0] == -1e30
+          and hi[-1] == 1e30 and torch.equal(lo[1:], hi[:-1]),
+          f"label-free: anchors do not tile the score axis: {lo} {hi}")
+    # the anchors are the score quantiles of the CSV's image pool
+    cfg = parse_config(argv + ["--comparator_path", res["bundle"]])
+    C = load_comparator_bundle(cfg, DEV)[0].eval()
+    pre = make_preprocess(cfg, train=False)
+    imgs = torch.cat([pre(None, {"image": torch.from_numpy(b["image"]).to(
+        DEV)})["image"] for b in data_loader.Loader(
+        pool, 64, shuffle=False, drop_last=False, num_threads=8)])
+    qlo, qhi, qmeans = compute_quantile_anchors(C, imgs, NB)
+    err = float((qmeans - means).abs().max())
+    check(err <= 1e-3 * float(means.abs().max()) + 1e-6,
+          f"label-free: bundle means differ from the pool's quantile means "
+          f"by {err}")
+    first = res["epochs"][0]
+    out = {"rows": n_rows, "pool": len(pool), "steps": res["step"],
+           "b1_launches": b1, "cli_wall_s": wall, "eval_acc": res["eval_acc"],
+           "pairs_per_s_first_epoch": 64 * first["steps"]
+           / first["train_seconds"],
+           "bin_means": means.tolist(), "quantile_means_err": err}
+    say(f"label-free: {n_rows} CSV rows ({n_eval} held out), {res['step']} "
+        f"steps of 64 pairs in {wall:.2f} s, held-out accuracy "
+        f"{res['eval_acc']}; quantile anchors over {len(pool)} images, means "
+        f"{[round(m, 4) for m in means.tolist()]} (recomputed within {err:.3g})"
+        f"; B1 launches {b1}")
+    # the script's default data source: pairs over the folder
+    res2, b1f, _, _ = _train_run(torch, script + [
+        "--dataset_mode", "pairwise", "--dataroot", folder, "--name",
+        "cmp_pairs"])
+    check(res2["step"] == (128 - 12) // 64 and b1f == res2["step"] + 1 + 2
+          and np.isfinite(res2["eval_acc"]),
+          f"folder pairs: {res2['step']} steps, {b1f} B1 launches, accuracy "
+          f"{res2['eval_acc']}")
+    out["folder_pairs"] = {"steps": res2["step"], "b1_launches": b1f,
+                           "eval_acc": res2["eval_acc"]}
+    out["launches_per_run"] = {"csv": b1, "folder_pairs": b1f}
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "pcgan_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository "
@@ -1231,7 +1724,7 @@ def main() -> None:
     resolve_device("cuda")                     # TF32 off for every phase
     t_start = time.perf_counter()
     card = phase_device(torch)
-    phase_build()
+    build = phase_build()
     b1 = phase_kernel_check(torch)
     b2 = phase_wgrad_check(torch)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1244,24 +1737,33 @@ def main() -> None:
         cond = phase_path1_cond(torch, tmp, path3["bundle_dir"],
                                 path1["profile"])
         cond_parity = phase_cond_parity(torch)
+        folder, want = _real_folder(
+            tmp, png=build["jpeg_unavailable"] is not None)
+        decoder = phase_decoder(folder, want)
+        path4 = phase_path4(torch, tmp, folder, path3["bundle_dir"],
+                            cond["onehot"]["rates"])
+        label_free = phase_path3_label_free(torch, tmp, folder)
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
         "training": path1["launches_per_run"], "bench_lowch": 0,
         "comparator": path3["launches_per_run"],
-        "training_cond": cond["launches_per_run"]}
+        "training_cond": cond["launches_per_run"],
+        "real_images": path4["launches_per_run"],
+        "label_free": label_free["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
     b2["launches_per_path"] = {"bench_lowch": path2["launches"],
                                "training": path1["b2_launches"],
                                "sampling": 0, "comparator": 0,
-                               "training_cond": 0}
+                               "training_cond": 0, "real_images": 0,
+                               "label_free": 0}
     b2["launches"] = path2["launches"] + path1["b2_launches"]
     check(b1["launches"] > 0 and b2["launches"] > 0
-          and per_path["comparator"] > 0 and per_path["training_cond"] > 0,
+          and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity})}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)

@@ -1,10 +1,13 @@
-"""Host data loader (counterpart of ``pcgan_tpu/data/loader.py:42-49, 92-105, 215-316``).
+"""Host data loader (counterpart of ``pcgan_tpu/data/loader.py:31-113, 169-316``).
 
 The loader emits RAW batches (native-size u8 + integer labels) as numpy;
-all image math happens on the device (ops/preprocess.py). Only the
-synthetic dataset modes and the pairs drawn over them are ported; the JPEG
-folder modes (native decoder), the comparisons CSV and ``--host_resize``
-(PIL) are later work and raise.
+all image math happens on the device (ops/preprocess.py), unless
+``--host_resize`` resizes to ``--load_size`` on the host first.
+``create_dataset`` follows the reference's ``--dataset_mode`` dispatch:
+the synthetic sets, UTKFace-style folders (``aging``, ``single``), packs,
+comparator-sorted labels, the comparisons CSV and pairs over any of the
+age-labelled sources. Multi-process sharding and the held-out row split
+are not ported (ROADMAP.md A10, A7).
 """
 
 from __future__ import annotations
@@ -21,7 +24,15 @@ import numpy as np
 from pcgan_tpu_torch.config import Config
 from pcgan_tpu_torch.data.binning import age_to_bin
 from pcgan_tpu_torch.data.pairwise import PairwiseComparisonDataset
+from pcgan_tpu_torch.data.resample import pil_resize_np
 from pcgan_tpu_torch.data.synthetic import SyntheticAgingDataset
+
+
+def phase_root(dataroot: str, phase: str) -> str:
+    """``{dataroot}/{phase}`` when that folder exists (train/val/test splits
+    side by side), else ``dataroot`` itself."""
+    sub = os.path.join(dataroot, phase)
+    return sub if phase and os.path.isdir(sub) else dataroot
 
 
 def create_dataset(cfg: Config, train: bool = True):
@@ -32,48 +43,91 @@ def create_dataset(cfg: Config, train: bool = True):
         return SyntheticAgingDataset(
             size=size, seed=cfg.train.seed, max_age=cfg.data.max_age,
             variant=("hard" if mode == "synthetic_hard" else "easy"))
+    if mode in ("aging", "single"):
+        from pcgan_tpu_torch.data.utkface import UTKFaceDataset
+        # --native_size 0 probes the folder's own canvas (UTKFace 200, CACD
+        # 250); the cap bounds mixed folders of large photos at 2x load_size
+        ds = UTKFaceDataset(phase_root(cfg.data.dataroot, cfg.run.phase),
+                            max_size=ms, native=cfg.data.native_size,
+                            native_cap=max(200, 2 * cfg.data.load_size),
+                            require_age=(mode == "aging"),
+                            decode_m=cfg.data.host_decode_m)
+        if ds.out_size < min(ds.native, cfg.data.load_size):
+            # the DCT downscale (--host_decode_m < 8) left less resolution
+            # than a full decode gives this load_size
+            raise ValueError(
+                f"--host_decode_m {cfg.data.host_decode_m} decodes to a "
+                f"{ds.out_size}px canvas but --load_size {cfg.data.load_size} "
+                f"needs {min(ds.native, cfg.data.load_size)}px of source "
+                f"resolution; raise host_decode_m or lower load_size")
+        return ds
+    if mode == "packed":
+        from pcgan_tpu_torch.data.packed import PackedDataset
+        ds = PackedDataset(cfg.data.dataroot, max_size=ms)
+        if ds.resized and cfg.data.load_size > ds.out_size:
+            raise ValueError(
+                f"pack at {cfg.data.dataroot} was pre-resized to "
+                f"{ds.out_size}px but --load_size {cfg.data.load_size} wants "
+                f"more source resolution; re-pack without --resize_to (or "
+                f"with --resize_to >= load_size)")
+        return ds
+    if mode == "sorted":
+        from pcgan_tpu_torch.data.sorted_labels import SortedLabelsDataset
+        return SortedLabelsDataset(cfg.data.labels_csv, max_size=ms)
     if mode in ("pairwise", "pairwise_hard"):
-        # comparisons synthesized over the synthetic set (the hard one for
-        # pairwise_hard); an existing --dataroot would make the JAX package
-        # pair its JPEG folder instead
+        # pairs over the folder at --dataroot when it exists, else over the
+        # synthetic set (the hard one for pairwise_hard)
         if cfg.data.dataroot and os.path.isdir(cfg.data.dataroot):
-            raise NotImplementedError(
-                f"--dataset_mode {mode} over the JPEG folder "
-                f"{cfg.data.dataroot} is not ported to pcgan_tpu_torch yet "
-                f"(the folder modes, ROADMAP.md A4); point --dataroot "
-                f"elsewhere to pair the synthetic set")
-        base_mode = "synthetic_hard" if mode == "pairwise_hard" else "synthetic"
+            base_mode = "aging"
+        else:
+            base_mode = ("synthetic_hard" if mode == "pairwise_hard"
+                         else "synthetic")
         base = create_dataset(dataclasses.replace(
             cfg, data=dataclasses.replace(cfg.data, dataset_mode=base_mode)),
             train)
         return PairwiseComparisonDataset(base, tie_years=3, seed=cfg.train.seed)
-    raise NotImplementedError(
-        f"dataset_mode [{mode}] is not ported to pcgan_tpu_torch yet "
-        f"(synthetic | synthetic_hard | pairwise | pairwise_hard; the JPEG "
-        f"folder and CSV modes are ROADMAP.md A4)")
+    if mode == "comparisons":
+        # human pairwise annotations: no ages anywhere
+        from pcgan_tpu_torch.data.pairwise import ComparisonsCSVDataset
+        return ComparisonsCSVDataset(cfg.data.comparisons_csv,
+                                     dataroot=cfg.data.dataroot, max_size=ms)
+    raise NotImplementedError(f"dataset_mode [{mode}] not implemented")
+
+
+def host_resize_size(cfg: Config) -> int:
+    """Loader ``resize_to`` for --host_resize: load_size when the preprocess
+    mode includes a resize, else 0 (off)."""
+    d = cfg.data
+    return d.load_size if (d.host_resize and "resize" in d.preprocess) else 0
 
 
 class Loader:
-    """Iterable over stacked numpy batches, threaded ``get_raw``, optional
-    shuffle (the JAX ``Loader``, ``pcgan_tpu/data/loader.py:215-287``,
-    single process, no host resize).
+    """Iterable over stacked numpy batches, optional shuffle (the JAX
+    ``Loader``, ``pcgan_tpu/data/loader.py:215-303``, single process).
 
     Each epoch yields len(ds)//batch (``drop_last``) or ceil(len(ds)/batch)
-    batches of {'image': (B,H,W,C) u8, 'age': (B,) i64}. A shuffled epoch
-    permutes with ``np.random.default_rng(seed + epoch)``, so the port's
-    batches are the JAX loader's, row for row. ``skip_next`` drops the
-    first N batches of the next epoch at the index level (exact mid-epoch
-    resume replays the epoch's permutation and skips what was consumed).
+    batches of {'image': (B,H,W,C) u8, 'age': (B,) i64} (or the dataset's
+    own keys). A shuffled epoch permutes with
+    ``np.random.default_rng(seed + epoch)``, so the port's batches are the
+    JAX loader's, row for row. A dataset with ``get_raw_batch`` (a folder:
+    one native decode call a batch; a pack: one gather) serves whole
+    batches; others go through ``get_raw`` on a thread pool.
+    ``skip_next`` drops the first N batches of the next epoch at the index
+    level (exact mid-epoch resume). ``resize_to`` > 0 resizes every u8
+    image key on the host to (resize_to, resize_to) with Pillow's bicubic
+    (``pil_resize_np``, ``--host_resize``).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 num_threads: int = 4, seed: int = 0, drop_last: bool = True):
+                 num_threads: int = 4, seed: int = 0, drop_last: bool = True,
+                 resize_to: int = 0):
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_last = drop_last
         self.num_threads = max(1, num_threads)
+        self.resize_to = int(resize_to)
         self.epoch = 0
         self.skip_next = 0
 
@@ -88,15 +142,39 @@ class Loader:
         self.epoch += 1
         nb = len(self)
         start, self.skip_next = min(self.skip_next, nb), 0
+        get_batch = getattr(self.ds, "get_raw_batch", None)
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             for b in range(start, nb):
                 idx = order[b * self.bs:(b + 1) * self.bs]
-                items = list(pool.map(self.ds.get_raw, idx))
-                yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+                if get_batch is not None:
+                    batch = get_batch(idx, num_threads=self.num_threads)
+                else:
+                    items = list(pool.map(self.ds.get_raw, idx))
+                    batch = {k: np.stack([it[k] for it in items])
+                             for k in items[0]}
+                yield self._host_resize(batch, pool)
+
+    def _host_resize(self, batch: Dict[str, np.ndarray],
+                     pool: ThreadPoolExecutor) -> Dict[str, np.ndarray]:
+        if self.resize_to <= 0:
+            return batch
+        size = self.resize_to
+
+        def one(a):
+            return pil_resize_np(a, size, "bicubic")
+
+        out = dict(batch)
+        for k, v in batch.items():
+            # both spatial sizes must match to skip
+            if (v.ndim == 4 and v.dtype == np.uint8
+                    and v.shape[1:3] != (size, size)):
+                out[k] = np.stack(list(pool.map(one, v)))
+        return out
 
 
 def with_bins(it: Iterator[Dict], n_bins: int, max_age: int = 116):
-    """Attach integer age-bin labels host-side."""
+    """Attach integer age-bin labels host-side (a batch that already has
+    ``bin``s, as sorted mode's, and no ages passes through)."""
     for batch in it:
         if "age" in batch:
             batch = dict(batch)

@@ -86,10 +86,9 @@ def make_preprocess(cfg, train: bool = True):
             "incompatible with the static-square device pipeline; use "
             "resize_and_crop (square datasets like aligned UTKFace are "
             "unaffected) or pre-resize your data offline")
-    if d.host_resize:
-        raise NotImplementedError(
-            "--host_resize is not ported to pcgan_tpu_torch yet (the resize "
-            "runs on the device)")
+    # --host_resize needs nothing here: the loader delivers load_size
+    # canvases, and the device resize of a batch already at load_size is
+    # the identity
     if not d.pallas_pipeline:
         raise NotImplementedError(
             "--no-pallas_pipeline is not ported to pcgan_tpu_torch: a CUDA "

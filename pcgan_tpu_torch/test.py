@@ -3,10 +3,18 @@
 Loads a generator checkpoint and writes aging-progression grids
 [input | aged@bin0 | ... | aged@binK] as PNGs + an HTML index under
 ``{results_dir}/{name}/{phase}_{epoch}/``. All bins render in one batched
-forward per input batch. Runs on cuda unless ``--device cpu``::
+forward per input batch. The inputs come from any ported
+``--dataset_mode``: a UTKFace-style folder in ``aging`` mode reads
+``{dataroot}/{phase}`` when that folder exists (``--phase test`` by
+default), and ``--host_resize`` resizes on the host. Runs on cuda unless
+``--device cpu``::
 
     python -m pcgan_tpu_torch.test --dataset_mode synthetic --name run \\
         --checkpoints_dir ./checkpoints --results_dir ./results
+    python -m pcgan_tpu_torch.test --dataroot ./datasets/utkface \\
+        --dataset_mode aging --name utk128 --netG resnet_9blocks \\
+        --norm instance --load_size 143 --crop_size 128 --n_age_bins 10 \\
+        --epoch latest --num_test 50
 """
 
 from __future__ import annotations
@@ -69,7 +77,8 @@ def main(argv=None) -> dict:
     ds = data_loader.create_dataset(cfg, train=False)
     bs = min(cfg.data.batch_size, cfg.run.num_test)
     ld = data_loader.Loader(ds, bs, shuffle=False, drop_last=False,
-                            num_threads=cfg.data.num_threads)
+                            num_threads=cfg.data.num_threads,
+                            resize_to=data_loader.host_resize_size(cfg))
     pre = make_preprocess(cfg, train=False)   # center crop, no flip
     sampler = make_sampler(cfg, G)
 

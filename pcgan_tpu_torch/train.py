@@ -199,7 +199,8 @@ def reject_unported_train(cfg: Config) -> None:
         "--debug_nans": r.debug_nans,
         "--compile_cache": bool(r.compile_cache),
         "--xla_opt": bool(r.xla_opt),
-        "--mesh_shape/--mesh_axes": (p.mesh_shape != (-1,)
+        # one card: a one-device data axis (1, or -1 for all of one)
+        "--mesh_shape/--mesh_axes": (p.mesh_shape not in ((-1,), (1,))
                                      or p.mesh_axes != ("data",)),
         "--spatial_shards": p.spatial_shards != 1, "--zero1": p.zero1,
         "--dcn_data": p.dcn_data != 1,

@@ -3,9 +3,12 @@
     python -m pcgan_tpu_torch.train_main --dataset_mode synthetic \\
         --name run --checkpoints_dir ./checkpoints [--device cpu]
 
-Per step: a host u8 batch (synthetic data, generated on a background
-thread) goes to the device, kernel B1 random-crops, flips and normalizes it,
-and the fused G/D step (``pcgan_tpu_torch/train.py``) updates both nets.
+Per step: a host u8 batch (synthetic data, a UTKFace-style JPEG folder
+decoded by the native libjpeg thread pool, a pack, or comparator-sorted
+labels; made on a background thread, resized on the host under
+``--host_resize``) goes to the device, kernel B1 random-crops, flips and
+normalizes it, and the fused G/D step (``pcgan_tpu_torch/train.py``)
+updates both nets.
 The loop keeps the reference loop's surface: epochs, ``--print_freq``
 console lines and ``metrics.jsonl`` rows (with ``imgs_per_sec`` and
 ``lr``), ``--display_freq`` preview grids, ``loss_curves.svg`` every epoch,
@@ -17,12 +20,14 @@ the batches the restored step already consumed. With ``--comparator_path``
 and its score anchors join the step.
 
 ``--model comparator`` pretrains the comparator instead (root
-``train.py:654-827``): pairs drawn over the synthetic set (every
-``--dataset_mode`` but ``comparisons`` pretrains on ``pairwise``, as the
-reference does), B1 on both members of every
-pair, accuracy on a held-out split each epoch, ``cmp_latest`` /
-``cmp_epoch_N`` checkpoints with exact resume, and at the end the bundle
-``comparator.pt`` (C plus per-bin score anchors) a GAN run reads::
+``train.py:654-827``): pairs drawn over the folder at ``--dataroot`` or
+the synthetic set (every ``--dataset_mode`` but ``comparisons`` pretrains
+on ``pairwise``, as the reference does), or the human pairs of
+``--comparisons_csv``; B1 on both members of every pair, accuracy on a
+held-out split each epoch, ``cmp_latest`` / ``cmp_epoch_N`` checkpoints
+with exact resume, and at the end the bundle ``comparator.pt`` (C plus
+per-bin score anchors: by age bins, or by score quantiles of the CSV's
+images when no ages exist) a GAN run reads::
 
     python -m pcgan_tpu_torch.train_main --model comparator \
         --dataset_mode pairwise --name cmp
@@ -74,12 +79,16 @@ def main(argv=None) -> dict:
             logger.close()
     ds = data_loader.create_dataset(cfg, train=True)
     amend_run_opt(cfg.run.checkpoints_dir, cfg.run.name, "split", {
-        "dataset_len": len(ds), "phase": cfg.run.phase, "phase_root": None,
+        "dataset_len": len(ds), "phase": cfg.run.phase,
+        "phase_root": (
+            data_loader.phase_root(cfg.data.dataroot, cfg.run.phase)
+            if cfg.data.dataset_mode in ("aging", "single") else None),
         "holdout_frac": cfg.data.holdout_frac, "seed": cfg.train.seed})
     ld = data_loader.Loader(ds, cfg.data.batch_size,
                             shuffle=not cfg.data.serial_batches,
                             num_threads=cfg.data.num_threads,
-                            seed=cfg.train.seed)
+                            seed=cfg.train.seed,
+                            resize_to=data_loader.host_resize_size(cfg))
     steps_per_epoch = max(1, len(ld))
     print(f"device: {device}; dataset [{cfg.data.dataset_mode}] size "
           f"{len(ds)}, {steps_per_epoch} steps/epoch", flush=True)
@@ -277,8 +286,10 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
     # accuracy on them is the out-of-sample metric
     train_ds, eval_ds = held_out_split(ds, t.cmp_eval_frac, t.seed)
     n_eval = 0 if eval_ds is None else len(eval_ds)
+    resize_to = data_loader.host_resize_size(cfg)
     ld = data_loader.Loader(train_ds, d.batch_size, shuffle=True,
-                            num_threads=d.num_threads, seed=t.seed)
+                            num_threads=d.num_threads, seed=t.seed,
+                            resize_to=resize_to)
     steps_per_epoch = max(1, len(ld))
     print(f"device: {device}; comparator pairs: {len(train_ds)} train / "
           f"{n_eval} held out, {steps_per_epoch} steps/epoch", flush=True)
@@ -316,7 +327,8 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
         hits = total = 0.0
         for raw in data_loader.Loader(eval_ds, min(d.batch_size, n_eval),
                                       shuffle=False, drop_last=False,
-                                      num_threads=d.num_threads):
+                                      num_threads=d.num_threads,
+                                      resize_to=resize_to):
             b = eval_pre(None, upload(raw))
             bsz = b["label"].shape[0]
             mu, log_var = C(torch.cat([b["image_a"], b["image_b"]]))
@@ -358,38 +370,50 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
             ckpt.save_comparator_state(state, cfg.run.checkpoints_dir,
                                        cfg.run.name, f"cmp_epoch_{epoch}")
         print(f"End of comparator epoch {epoch}/{total_epochs}", flush=True)
-    path = _save_anchor_bundle(cfg, ds.base, C, device)
+    path = _save_anchor_bundle(cfg, ds, C, device)
     print(f"saved comparator + bin anchors to {path}", flush=True)
     return {"run_dir": run_dir, "step": state.step, "metrics": last_metrics,
             "epochs": epochs, "eval_acc": acc, "bundle": path}
 
 
-def _save_anchor_bundle(cfg, base, C, device) -> str:
-    """Score anchors over the first min(len(base), 512) base images,
-    center-cropped by B1 and binned by age, then the bundle
-    ``comparator.pt``; returns its path."""
+def _save_anchor_bundle(cfg, ds, C, device) -> str:
+    """Score anchors, then the bundle ``comparator.pt``; returns its path
+    (root ``train.py:789-827``). The anchors are fitted on the first
+    min(len, 512) images, center-cropped by B1: by age bins over the pairs'
+    base dataset, or, for a comparisons CSV (no ages anywhere), by score
+    quantiles over its unlabeled image pool."""
     import torch
     from pcgan_tpu_torch.data import loader as data_loader
     from pcgan_tpu_torch.ops.preprocess import make_preprocess
-    from pcgan_tpu_torch.train import compute_bin_anchors
+    from pcgan_tpu_torch.train import (compute_bin_anchors,
+                                       compute_quantile_anchors)
     from pcgan_tpu_torch.utils import checkpoint as ckpt
     d = cfg.data
+    label_free = hasattr(ds, "image_pool_dataset")
+    base = ds.image_pool_dataset() if label_free else ds.base
     n_anchor = min(len(base), 512)
     pre = make_preprocess(cfg, train=False)
+    it = iter(data_loader.Loader(
+        base, min(d.batch_size, n_anchor), shuffle=False, drop_last=False,
+        num_threads=d.num_threads,
+        resize_to=data_loader.host_resize_size(cfg)))
+    if not label_free:
+        it = data_loader.with_bins(it, d.n_age_bins, d.max_age)
     imgs, bins, seen = [], [], 0
-    for b in data_loader.with_bins(iter(data_loader.Loader(
-            base, min(d.batch_size, n_anchor), shuffle=False,
-            drop_last=False, num_threads=d.num_threads)), d.n_age_bins,
-            d.max_age):
+    for b in it:
         imgs.append(pre(None, {"image": torch.from_numpy(
             b["image"]).to(device)})["image"])
-        bins.append(b["bin"])
+        if not label_free:
+            bins.append(b["bin"])
         seen += b["image"].shape[0]
         if seen >= n_anchor:
             break
-    lo, hi, means = compute_bin_anchors(
-        C, torch.cat(imgs)[:n_anchor], np.concatenate(bins)[:n_anchor],
-        d.n_age_bins)
+    imgs = torch.cat(imgs)[:n_anchor]
+    if label_free:
+        lo, hi, means = compute_quantile_anchors(C, imgs, d.n_age_bins)
+    else:
+        lo, hi, means = compute_bin_anchors(
+            C, imgs, np.concatenate(bins)[:n_anchor], d.n_age_bins)
     return ckpt.save_comparator_bundle(C, lo, hi, means, cfg,
                                        cfg.run.checkpoints_dir, cfg.run.name)
 

@@ -62,7 +62,12 @@ def test_held_out_split_matches_jax(n, frac, seed):
 
 
 def test_jpeg_folder_and_csv_modes_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="JPEG folder"):
-        tloader.create_dataset(_cfg(tcfg, "pairwise", 8, 0, str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="comparisons"):
-        tloader.create_dataset(_cfg(tcfg, "comparisons", 8, 0))
+    """Pairs over an existing --dataroot read its folder (an empty one has
+    no labeled images), and the CSV mode needs --comparisons_csv, as in
+    the JAX package (the modes themselves: test_torch_port_folder_data.py)."""
+    for mod in (tcfg, jcfg):
+        loader = tloader if mod is tcfg else jloader
+        with pytest.raises(FileNotFoundError, match="no labeled images"):
+            loader.create_dataset(_cfg(mod, "pairwise", 8, 0, str(tmp_path)))
+        with pytest.raises(FileNotFoundError, match="comparisons_csv"):
+            loader.create_dataset(_cfg(mod, "comparisons", 8, 0))

@@ -126,7 +126,7 @@ def test_prune_epochs(tmp_path):
     (["--netD", "multiscale"], "multiscale"),
     (["--skip_nonfinite", "3"], "--skip_nonfinite"),
     (["--tb_logdir", "tb"], "--tb_logdir"),
-    (["--dataset_mode", "aging"], "dataset_mode")])
+    (["--dataset_mode", "celeba"], "dataset_mode")])
 def test_unported_flags_raise(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         _run(tmp_path, "x", "--niter", "1", *flags)

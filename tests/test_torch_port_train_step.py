@@ -216,8 +216,9 @@ def test_unported_training_flags_raise(tmp_path):
                        (["--skip_nonfinite", "3"], "--skip_nonfinite")):
         with pytest.raises(NotImplementedError, match=flag):
             reject_unported_train(tcfg.parse_config(argv))
-    # the human-annotation CSV source of comparator pretraining
-    with pytest.raises(NotImplementedError, match="comparisons"):
+    # the human-annotation CSV source of comparator pretraining needs its
+    # CSV
+    with pytest.raises(FileNotFoundError, match="comparisons_csv"):
         train_main.main(["--model", "comparator", "--dataset_mode",
                          "comparisons", "--device", "cpu",
                          "--checkpoints_dir", str(tmp_path)])

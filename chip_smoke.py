@@ -8,10 +8,12 @@ the one named in phase 2):
 
 1. device: the card's name and power limit from nvidia-smi;
 2. build: compile every CUDA kernel of the port from ``pcgan_tpu_torch/csrc``
-   (one nvcc per source) and the host JPEG decoder (g++ against libjpeg),
-   all started together; libjpeg's ABI is printed, or, on a host without
-   libjpeg, the decoder's ``JpegUnavailable`` and the switch of phases
-   13-15 to PNG copies of the fixtures;
+   (one nvcc per source) and the host JPEG decoder (g++ against the host's
+   libjpeg, or against the vendored ABI-62 headers and the libjpeg of
+   Pillow's wheel), all started together; libjpeg's ABI and the route are
+   printed, or, on a host with neither libjpeg, the decoder's
+   ``JpegUnavailable`` and the switch of phases 13-15 to PNG copies of the
+   fixtures;
 3. B1 kernel check: the preprocessing kernel against its plain PyTorch
    version on the card (TF32 off) at the sampling shape (center crop), the
    training shape (random crops and flips), the comparator's 2B shapes
@@ -56,11 +58,12 @@ the one named in phase 2):
 12. comparator parity: one f32 comparator step and one f32 GAN step with
     the cond loss, card against CPU;
 13. the host decoder: the committed JPEG fixtures
-    (``tests/torch_port_data``) against their digests, or, without libjpeg,
-    a JPEG folder raising ``JpegUnavailable`` and PNG copies of the
-    fixtures' source canvases (the numpy PNG reader) against the canvases;
-    batch against single decodes over the 128-image folder (each fixture
-    under four age-shifted names), decode images/s at 1 and 8 threads;
+    (``tests/torch_port_data``) against their digests, and PNG copies of the
+    fixtures' source canvases (the numpy PNG reader) against the canvases
+    (without libjpeg: a JPEG folder raising ``JpegUnavailable``, and the
+    PNGs only); batch against single decodes over each 128-image folder
+    (each fixture under four age-shifted names), decode images/s at 1 and 8
+    threads for each format;
 14. path 4, real images: ``train_main.main`` with
     ``scripts/train_utkface_128.sh``'s flags over the folder (batch 32, the
     frozen phase-10 comparator, bf16; 6 epochs, steps/s over epochs 2-6 with
@@ -68,11 +71,24 @@ the one named in phase 2):
     permutation), ``test.main`` with ``test_aging_grid.sh``'s flags (50
     grids, PNGs decoded), a profiled 2 x 4-step run, a pack of the folder
     equal to the live decode and one packed epoch, ``sort_unlabeled`` with
-    phase 10's bundle and one sorted epoch;
+    phase 10's bundle and one sorted epoch; with libjpeg the folder holds
+    the JPEGs, and the rate is read again over the PNG copies;
 15. path 3 label-free: ``pretrain_comparator.sh``'s flags (batch 64, the
     default comparator, 1 epoch) over a comparisons CSV of the folder
     (anchors by score quantiles of its image pool, recomputed) and over the
-    folder's pairs.
+    folder's pairs;
+16. evaluation at ``scripts/train_256_fid.sh``'s width (resnet_9blocks,
+    250 px CACD canvases -> 286 -> 256, batch 32, bf16, 10 bins) over a
+    pack of 1,024 synthetic canvases: ``pcgan_tpu_torch.evaluate`` with
+    every metric of the random feature space (finite, B1 launches), the
+    eval rate after a one-batch warm-up and the shares of G, the feature
+    nets and the epilogue, the same pass with TF32 allowed;
+    ``compute_fid_stats`` then ``evaluate --fid_stats`` (``fid`` equal to
+    ``fid_stream`` on the same rows); a seeded InceptionV3 ``.pth`` made
+    here (its images/s at 299 px and its card-vs-CPU features) and phase
+    10's comparator as feature spaces; ``train_main`` with the script's
+    list (one epoch, holdout 0.1, EMA eval), its ``eval_*`` / ``eval_h_*``
+    rows; the evaluator's f32 moments, card against CPU.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -277,11 +293,17 @@ def phase_build() -> dict:
             jpeg = str(e)
     out = {"build_s": time.perf_counter() - t0, "jpeg_unavailable": jpeg}
     if jpeg is None:
+        # the loaded library's name says which libjpeg it was linked to
+        route = ("wheel: " + os.path.basename(_build.wheel_libjpeg())
+                 if "_wheel_" in os.path.basename(native.load()._name)
+                 else "system -ljpeg")
         out.update(libjpeg_abi=native.jpeg_abi(),
-                   libjpeg_turbo=native.jpeg_turbo_version())
+                   libjpeg_turbo=native.jpeg_turbo_version(),
+                   libjpeg_route=route)
         say(f"build (B1 + B2 with nvcc, the JPEG decoder with g++): "
             f"{out['build_s']:.2f} s; libjpeg ABI {out['libjpeg_abi']}, "
-            f"libjpeg-turbo {out['libjpeg_turbo'] or 'no'} (MMMmmmppp)")
+            f"headers' libjpeg-turbo {out['libjpeg_turbo'] or 'no'} "
+            f"(MMMmmmppp), linked to {route}")
     else:
         say(f"build (B1 + B2 with nvcc): {out['build_s']:.2f} s; NO JPEG "
             f"DECODER on this host, phases 13-15 read PNGs: {jpeg}")
@@ -1328,7 +1350,7 @@ def _real_folder(tmp, png: bool):
     written as PNGs by the port's encoder. Returns (folder, {file name: the
     RGB image its decode must give} for the PNGs, else None)."""
     from pcgan_tpu_torch.utils.visualizer import encode_png
-    folder = os.path.join(tmp, "faces")
+    folder = os.path.join(tmp, "faces_png" if png else "faces")
     os.makedirs(folder)
     files, want = [], {} if png else None
     if png:
@@ -1373,30 +1395,32 @@ def _check_jpeg_fixtures() -> dict:
     return out
 
 
-def _check_png_copies(ds, want) -> dict:
-    """No libjpeg: the port's JPEG decode raises, naming it, and every PNG
-    copy decodes to the canvas written into it."""
+def _check_png_copies(ds, want, jpeg_ok) -> dict:
+    """Every PNG copy decodes to the canvas written into it; without
+    libjpeg (``jpeg_ok`` False) the port's JPEG decode raises, naming it."""
     from pcgan_tpu_torch import native
     from pcgan_tpu_torch.data.utkface import UTKFaceDataset
-    try:
-        UTKFaceDataset(os.path.join(FIXTURES, "faces")).get_raw_batch([0])
-        raised = ""
-    except native.JpegUnavailable as e:
-        raised = str(e)
-    check("libjpeg" in raised,
-          f"decoder: a JPEG folder without libjpeg gave {raised!r}")
+    raised = None
+    if not jpeg_ok:
+        try:
+            UTKFaceDataset(os.path.join(FIXTURES, "faces")).get_raw_batch([0])
+            raised = ""
+        except native.JpegUnavailable as e:
+            raised = str(e)
+        check("libjpeg" in raised,
+              f"decoder: a JPEG folder without libjpeg gave {raised!r}")
     imgs = ds.get_raw_batch(np.arange(len(ds)), num_threads=8)["image"]
     for p, img in zip(ds.paths, imgs):
         check(np.array_equal(img, want[os.path.basename(p)]),
               f"decoder: {p} does not decode to the canvas written")
-    say(f"decoder: no libjpeg on this host, a JPEG folder raises "
-        f"JpegUnavailable; {len(want)} PNG copies of the fixtures decode to "
-        f"their canvases bit for bit")
+    say(("" if jpeg_ok else "decoder: no libjpeg on this host, a JPEG folder "
+         "raises JpegUnavailable; ") + f"{len(want)} PNG copies of the "
+        f"fixtures decode to their canvases bit for bit")
     return {"fixtures": len(want) // len(AGE_SHIFTS), "png_exact": True,
             "jpeg_raises": raised}
 
 
-def phase_decoder(folder, want) -> dict:
+def phase_decoder(folder, want, jpeg_ok=False) -> dict:
     """The fixtures against their committed digests (JPEG) or the canvases
     written (PNG, ``want``), batch against single decodes, and the decode
     rate over the 128 images at 1 and 8 threads."""
@@ -1405,7 +1429,7 @@ def phase_decoder(folder, want) -> dict:
     check(len(ds) == 32 * len(AGE_SHIFTS) and ds.native == 200,
           f"decoder: folder of {len(ds)} at {ds.native} px")
     out = _check_jpeg_fixtures() if want is None else _check_png_copies(
-        ds, want)
+        ds, want, jpeg_ok)
     idx = np.arange(len(ds))
     batch = ds.get_raw_batch(idx, num_threads=8)["image"]
     for i in idx:
@@ -1619,6 +1643,22 @@ def phase_path4(torch, tmp, folder, bundle_dir, cond_rates) -> dict:
     return out
 
 
+def phase_path4_png(torch, tmp, png_folder, bundle_dir, jpeg_rates) -> dict:
+    """Path 4's rate over the PNG copies of the same faces (the format every
+    earlier card run of path 4 read), beside the JPEG folder's in the same
+    call."""
+    res, b1, _, _ = _train_run(torch, _real_argv(
+        tmp, png_folder, "real_png", REAL_EPOCHS,
+        ("--comparator_path", bundle_dir)))
+    check(res["step"] == REAL_EPOCHS * REAL_STEPS and b1 == res["step"],
+          f"path 4 PNG: {res['step']} steps, {b1} B1 launches")
+    rates = _epoch_rates(res["epochs"])
+    ratio = jpeg_rates["pooled"] / rates["pooled"]
+    say(f"path 4 PNG folder: {_rates_str(rates, REAL_B)}; the JPEG folder "
+        f"{_rates_str(jpeg_rates, REAL_B)}: {ratio:.3f}x")
+    return {"rates": rates, "b1_launches": b1, "jpeg_vs_png": ratio}
+
+
 def _comparisons_csv(folder, rows=320, seed=0) -> str:
     """pathA,pathB,label rows over the folder, labelled from the names'
     ages (all three labels), one header row, paths relative to the CSV."""
@@ -1711,6 +1751,325 @@ def phase_path3_label_free(torch, tmp, folder) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# evaluation (phase 16)
+# --------------------------------------------------------------------------- #
+
+EVAL_N, EVAL_B, EVAL_NATIVE = 1024, 32, 250      # the CACD canvas
+EVAL_LOAD, EVAL_CROP = 286, 256                  # train_256_fid.sh
+EVAL_FID_RTOL = 2e-3     # fid vs fid_stream on equal real rows (CPU tests')
+EVAL_SUB = 256           # images of the pth: and comparator feature runs
+FID256 = ["--name", "cacd256", "--model", "pcgan", "--netG",
+          "resnet_9blocks", "--netD", "basic", "--norm", "instance",
+          "--load_size", "286", "--crop_size", "256", "--batch_size", "32",
+          "--dtype", "bfloat16", "--n_age_bins", "10", "--gan_mode", "lsgan",
+          "--lambda_L1", "100", "--pool_size", "64", "--niter", "100",
+          "--niter_decay", "100", "--lr", "0.0002", "--beta1", "0.5",
+          "--eval_fid_epoch_freq", "5", "--eval_fid_images", "1024",
+          "--max_ckpt_keep", "5", "--print_freq", "100", "--save_epoch_freq",
+          "5"]
+
+
+def _eval_argv(tmp, pack, *extra):
+    """train_256_fid.sh's structural flags for the eval CLIs over the pack
+    of 250 px canvases."""
+    return ["--dataroot", pack, "--dataset_mode", "packed", "--name",
+            "cacd256", "--netG", "resnet_9blocks", "--norm", "instance",
+            "--load_size", str(EVAL_LOAD), "--crop_size", str(EVAL_CROP),
+            "--batch_size", str(EVAL_B), "--dtype", "bfloat16",
+            "--n_age_bins", str(NB), "--checkpoints_dir",
+            os.path.join(tmp, "eval_ck"), "--results_dir",
+            os.path.join(tmp, "eval_res"), *extra]
+
+
+def _seeded_inception_pth(torch, path, seed=0):
+    """A torchvision-named inception_v3 state dict with seeded weights (conv,
+    BN, fc), made here: nothing is downloaded."""
+    from pcgan_tpu_torch.models.inception import (BasicConv2d,
+                                                  InceptionV3Features)
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for prefix, mod in InceptionV3Features().named_modules():
+        if isinstance(mod, BasicConv2d):
+            co, ci, kh, kw = mod.conv.weight.shape
+            sd[f"{prefix}.conv.weight"] = torch.from_numpy(rng.normal(
+                0, np.sqrt(2.0 / (ci * kh * kw)), (co, ci, kh, kw)).astype(
+                    np.float32))
+            for k, v in (("weight", rng.uniform(0.5, 1.5, co)),
+                         ("bias", rng.normal(0, 0.1, co)),
+                         ("running_mean", rng.normal(0, 0.1, co)),
+                         ("running_var", rng.uniform(0.5, 1.5, co))):
+                sd[f"{prefix}.bn.{k}"] = torch.from_numpy(v.astype(np.float32))
+    sd["fc.weight"] = torch.from_numpy(
+        rng.normal(0, 0.02, (1000, 2048)).astype(np.float32))
+    sd["fc.bias"] = torch.zeros(1000)
+    torch.save(sd, path)
+    return path
+
+
+def _eval_cli(torch, argv):
+    """``pcgan_tpu_torch.evaluate.main`` with B1's count zeroed just before
+    and read just after; (record, B1 launches, wall s)."""
+    from pcgan_tpu_torch import evaluate
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    cp.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # input injection
+        rec = evaluate.main(argv)
+    torch.cuda.synchronize()
+    return rec, cp.launches, time.perf_counter() - t0
+
+
+def _finite(rec, what):
+    bad = {k: v for k, v in rec.items()
+           if isinstance(v, float) and not np.isfinite(v)}
+    check(not bad, f"{what}: non-finite metrics {bad}")
+
+
+def _eval_timed(torch, cfg, G, pack, tf32=False):
+    """One direct evaluator pass over the pack with its wall-time split:
+    images/s after a one-batch warm-up, and the shares of G, the feature
+    nets and the epilogue in the whole pass."""
+    from pcgan_tpu_torch.data import loader as data_loader
+    from pcgan_tpu_torch.data.packed import PackedDataset
+    from pcgan_tpu_torch.eval_lib import make_fid_evaluator
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        run = make_fid_evaluator(cfg, None, DEV)
+        times = {}
+        cp.launches = 0
+        ld = data_loader.Loader(PackedDataset(pack), EVAL_B, shuffle=False)
+        rec = run(G, data_loader.with_bins(iter(ld), NB), max_images=EVAL_N,
+                  seed=0, times=times)
+        launches = cp.launches
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    total = sum(times["batch"]) + times["epilogue"]
+    return rec, {
+        "images_per_s": (EVAL_N - EVAL_B) / sum(times["batch"][1:]),
+        "batches": len(times["batch"]),
+        "share_g": times["g"] / total,
+        "share_features": times["features"] / total,
+        "share_epilogue": times["epilogue"] / total,
+        "share_other": times["other"] / total,
+        "seconds": total, "b1_launches": launches}
+
+
+def _inception_rate(torch, pth):
+    """The Inception feature net's images/s at 299 px, batch 32 (f32, TF32
+    off), from CUDA events; and card-vs-CPU features on 4 images."""
+    from pcgan_tpu_torch.models.inception import make_inception_feature_fn
+    f_card, _ = make_inception_feature_fn(pth, device=DEV)
+    x = torch.rand(EVAL_B, 299, 299, 3, generator=torch.Generator()
+                   .manual_seed(0)) * 2 - 1
+    xc = x.to(DEV)
+    with torch.inference_mode():
+        ms = cuda_ms(torch, lambda: f_card(xc), iters=10, warmup=3)
+        card = f_card(xc[:4]).cpu().numpy()
+        f_cpu, _ = make_inception_feature_fn(pth)
+        cpu = f_cpu(x[:4]).numpy()
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    check(np.isfinite(card).all() and err <= PARITY_TOL,
+          f"Inception card vs CPU (f32, 4 images): relative error {err}")
+    return {"ms_per_batch32": ms, "images_per_s": EVAL_B / ms * 1e3,
+            "card_vs_cpu_rel_err": err}
+
+
+def _eval_parity(torch) -> dict:
+    """The evaluator in f32 on the card against the CPU at the CPU tests'
+    small shape (32 px from 36, ngf 8, resnet_6blocks, 4 bins): the
+    streamed moments within 1e-4 of their largest entry."""
+    from pcgan_tpu_torch import config as tcfg
+    from pcgan_tpu_torch import eval_lib
+    from pcgan_tpu_torch.models import define_G
+    from pcgan_tpu_torch.ops import fid as fid_ops
+    cfg = tcfg.Config(
+        data=tcfg.DataConfig(n_age_bins=4, crop_size=32, load_size=36,
+                             batch_size=4),
+        model=tcfg.ModelConfig(netG="resnet_6blocks", ngf=8, dtype="float32",
+                               cond_inject="bottleneck"),
+        run=tcfg.RunConfig(kid=True, kid_subsets=1, ssim=True))
+    G = define_G(cfg, torch.Generator().manual_seed(3)).eval()
+    rng = np.random.default_rng(0)
+    batches = [{"image": rng.integers(0, 256, (4, 36, 36, 3), np.uint8),
+                "bin": rng.integers(0, 4, 4)} for _ in range(6)]
+    seen, real = [], fid_ops.fid_from_stats
+
+    def spy(a, b):
+        seen.append((a, b))
+        return real(a, b)
+    fid_ops.fid_from_stats = spy
+    try:
+        recs = [eval_lib.make_fid_evaluator(cfg, None, dev)(
+            G.to(dev), iter(batches), max_images=24) for dev in (DEV, "cpu")]
+    finally:
+        fid_ops.fid_from_stats = real
+    err = 0.0
+    for card, cpu in zip(seen[0], seen[1]):
+        check(float(card.count) == float(cpu.count) == 24.0,
+              "eval parity: counts differ")
+        for k in ("s", "ss"):
+            a, b = getattr(card, k).numpy(), getattr(cpu, k).numpy()
+            err = max(err, float(np.abs(a - b).max() / np.abs(b).max()))
+    check(err <= PARITY_TOL, f"eval parity: moments differ by {err} of their "
+          f"largest entry")
+    return {"moments_rel_err": err, "tol": PARITY_TOL,
+            "fid_card": recs[0]["fid"], "fid_cpu": recs[1]["fid"],
+            "kid_card": recs[0]["kid"], "kid_cpu": recs[1]["kid"],
+            "ssim_card": recs[0]["ssim"], "ssim_cpu": recs[1]["ssim"]}
+
+
+def phase_eval(torch, tmp, bundle_dir) -> dict:
+    """Phase 16: the evaluation workflow at train_256_fid.sh's width (B1's
+    CACD shape, 250 -> 286 -> 256, batch 32, bf16, 10 bins) over 1,024
+    synthetic 250 px canvases in a pack."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.data.packed import write_pack
+    from pcgan_tpu_torch.data.synthetic import SyntheticAgingDataset
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.tools import compute_fid_stats
+    from pcgan_tpu_torch.utils.checkpoint import save_generator
+    t_phase = time.perf_counter()
+    pack = os.path.join(tmp, "eval_pack")
+    t0 = time.perf_counter()
+    write_pack(SyntheticAgingDataset(size=EVAL_N, native=EVAL_NATIVE, seed=4),
+               pack, num_threads=8)
+    pack_s = time.perf_counter() - t0
+    argv = _eval_argv(tmp, pack)
+    G = _seeded_G(torch, argv, seed=2)
+    save_generator(G, os.path.join(tmp, "eval_ck"), "cacd256")
+    out = {"pack_s": pack_s}
+
+    # evaluate with every metric of the random feature space
+    metrics = ["--fid_features", "random", "--kid", "--fid_per_bin",
+               "--prdc", "--ssim", "--is_score", "--num_test", str(EVAL_N)]
+    rec, b1, wall = _eval_cli(torch, argv + metrics)
+    _finite(rec, "evaluate")
+    want = {"fid", "kid", "kid_std", "fid_per_bin_mean", "precision",
+            "recall", "density", "coverage", "ssim", "is_mean", "is_std"}
+    check(want <= set(rec) and rec["fid_images"] == EVAL_N
+          and b1 == EVAL_N // EVAL_B
+          and sum(k.startswith("fid_bin_") for k in rec) >= 2,
+          f"evaluate: {sorted(rec)}, {rec['fid_images']} images, {b1} B1 "
+          f"launches")
+    out["evaluate"] = {"record": rec, "b1_launches": b1, "wall_s": wall}
+    cfg = parse_config(argv + metrics, is_train=False)
+    G = G.to(DEV)
+    rec_t, timing = _eval_timed(torch, cfg, G, pack)
+    check(rec_t["fid"] == rec["fid"] or abs(rec_t["fid"] - rec["fid"])
+          <= EVAL_FID_RTOL * rec["fid"],
+          f"evaluator vs evaluate CLI: fid {rec_t['fid']} vs {rec['fid']}")
+    rec_tf32, timing_tf32 = _eval_timed(torch, cfg, G, pack, tf32=True)
+    out["timing"] = timing
+    out["tf32"] = {"fid_tf32": rec_tf32["fid"], "fid_f32": rec_t["fid"],
+                   "fid_rel_diff": abs(rec_tf32["fid"] - rec_t["fid"])
+                   / rec_t["fid"], "kid_tf32": rec_tf32["kid"],
+                   "kid_f32": rec_t["kid"],
+                   "images_per_s_tf32": timing_tf32["images_per_s"]}
+    say(f"evaluate (train_256_fid.sh width, {EVAL_N} x {EVAL_NATIVE} px "
+        f"canvases -> 256, batch {EVAL_B}, bf16 G, f32 random features): "
+        f"fid {rec['fid']:.6g}, kid {rec['kid']:.6g}, ssim "
+        f"{rec['ssim']:.6g}, is {rec['is_mean']:.6g}, prdc "
+        f"{rec['precision']:.3f}/{rec['recall']:.3f}; CLI {wall:.2f} s; "
+        f"eval rate {timing['images_per_s']:.1f} images/s after one batch; "
+        f"time shares G {timing['share_g']:.3f}, features "
+        f"{timing['share_features']:.3f}, epilogue "
+        f"{timing['share_epilogue']:.3f}, rest {timing['share_other']:.3f}; "
+        f"B1 launches {b1}; TF32 on: fid {rec_tf32['fid']:.6g} "
+        f"({out['tf32']['fid_rel_diff']:.3g} relative), "
+        f"{timing_tf32['images_per_s']:.1f} images/s")
+
+    # compute_fid_stats over the same rows, then --fid_stats
+    stats = os.path.join(tmp, "eval_stats.npz")
+    cp.launches = 0
+    srec = compute_fid_stats.main(argv + ["--fid_features", "random",
+                                          "--out", stats])
+    torch.cuda.synchronize()
+    b1s = cp.launches
+    rec2, b1f, wall2 = _eval_cli(torch, argv + [
+        "--fid_features", "random", "--num_test", str(EVAL_N),
+        "--fid_stats", stats])
+    gap = abs(rec2["fid"] - rec2["fid_stream"]) / rec2["fid_stream"]
+    check(srec["images"] == EVAL_N and b1s == EVAL_N // EVAL_B
+          and rec2["fid_stats_images"] == EVAL_N and gap <= EVAL_FID_RTOL,
+          f"--fid_stats: {srec}, {b1s} B1 launches, fid {rec2['fid']} vs "
+          f"fid_stream {rec2['fid_stream']}")
+    out["fid_stats"] = {"images": srec["images"], "b1_launches": b1s,
+                        "fid": rec2["fid"], "fid_stream": rec2["fid_stream"],
+                        "rel_gap": gap, "b1_launches_eval": b1f}
+    say(f"compute_fid_stats: {EVAL_N} images, B1 launches {b1s}; evaluate "
+        f"--fid_stats: fid {rec2['fid']:.6g} vs fid_stream "
+        f"{rec2['fid_stream']:.6g} ({gap:.2g} relative)")
+
+    # an InceptionV3 .pth made here, and the comparator of phase 10
+    pth = _seeded_inception_pth(torch, os.path.join(tmp, "inception.pth"))
+    inc = _inception_rate(torch, pth)
+    rec3, b1i, wall3 = _eval_cli(torch, argv + [
+        "--fid_features", f"pth:{pth}", "--is_score", "--num_test",
+        str(EVAL_SUB)])
+    _finite(rec3, "evaluate pth:")
+    rec4, b1c, wall4 = _eval_cli(torch, argv + [
+        "--fid_features", "comparator", "--comparator_path", bundle_dir,
+        "--kid", "--num_test", str(EVAL_SUB)])
+    _finite(rec4, "evaluate comparator")
+    check(b1i == b1c == EVAL_SUB // EVAL_B and "cond_accuracy" in rec4
+          and "is_mean" in rec3,
+          f"pth / comparator evals: {b1i} / {b1c} B1 launches, {rec3}, {rec4}")
+    out["inception"] = {**inc, "record": rec3, "wall_s": wall3,
+                        "b1_launches": b1i}
+    out["comparator"] = {"record": rec4, "wall_s": wall4, "b1_launches": b1c}
+    say(f"Inception (seeded .pth, f32): {inc['images_per_s']:.1f} images/s "
+        f"at 299 px batch 32, card vs CPU {inc['card_vs_cpu_rel_err']:.3g}; "
+        f"evaluate pth: fid {rec3['fid']:.6g} is {rec3['is_mean']:.6g} in "
+        f"{wall3:.2f} s; comparator features: fid {rec4['fid']:.6g} "
+        f"cond_accuracy {rec4['cond_accuracy']:.3f} in {wall4:.2f} s")
+
+    # train_256_fid.sh's list: data, epochs and the eval cadence cut
+    res, b1t, _, twall = _train_run(torch, ["--dataroot", pack,
+                                           "--dataset_mode", "packed"]
+                                    + FID256 + [
+        "--niter", "1", "--niter_decay", "0", "--eval_fid_epoch_freq", "1",
+        "--holdout_frac", "0.1", "--ema_decay", "0.999", "--eval_use_ema",
+        "--checkpoints_dir", os.path.join(tmp, "eval_train")])
+    with open(os.path.join(res["run_dir"], "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ev = [r for r in rows if "eval_fid" in r]
+    n_train = EVAL_N - round(EVAL_N * 0.1)
+    steps = n_train // EVAL_B
+    check(res["step"] == steps and len(ev) == 1
+          and np.isfinite(ev[0]["eval_fid"]) and np.isfinite(ev[0]["eval_h_fid"])
+          and ev[0]["eval_fid_images"] == steps * EVAL_B
+          and b1t == steps + steps + (EVAL_N - n_train) // EVAL_B,
+          f"train_256_fid: {res['step']} steps, eval rows {ev}, B1 {b1t}")
+    ep = res["epochs"][0]
+    out["train"] = {"steps": res["step"], "steps_per_s": ep["steps"]
+                    / ep["train_seconds"], "epoch": ep, "eval": res["evals"],
+                    "b1_launches": b1t, "wall_s": twall,
+                    "eval_row": ev[0]}
+    say(f"train_256_fid.sh (1 epoch of {steps} steps, 256 px batch 32 bf16, "
+        f"holdout 0.1, EMA eval): {out['train']['steps_per_s']:.3f} steps/s "
+        f"over epoch 1 (first step included); in-training eval "
+        f"{res['evals'][0]['seconds']:.2f} s (eval_fid {ev[0]['eval_fid']:.6g}"
+        f" over {ev[0]['eval_fid_images']:.0f}, eval_h_fid "
+        f"{ev[0]['eval_h_fid']:.6g} over {ev[0]['eval_h_fid_images']:.0f}); "
+        f"B1 launches {b1t}")
+
+    out["parity"] = _eval_parity(torch)
+    say(f"eval parity (f32, card vs CPU, small shape): {out['parity']}")
+    out["launches_per_run"] = {"evaluate": b1, "timed": timing["b1_launches"],
+                               "timed_tf32": timing_tf32["b1_launches"],
+                               "compute_fid_stats": b1s, "fid_stats": b1f,
+                               "inception": b1i, "comparator": b1c,
+                               "train_256_fid": b1t}
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 16: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "pcgan_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository "
@@ -1737,19 +2096,30 @@ def main() -> None:
         cond = phase_path1_cond(torch, tmp, path3["bundle_dir"],
                                 path1["profile"])
         cond_parity = phase_cond_parity(torch)
-        folder, want = _real_folder(
-            tmp, png=build["jpeg_unavailable"] is not None)
+        jpeg_ok = build["jpeg_unavailable"] is None
+        folder, want = _real_folder(tmp, png=not jpeg_ok)
         decoder = phase_decoder(folder, want)
+        if jpeg_ok:
+            # the same faces as PNGs: the decode rate of each format
+            png_folder, png_want = _real_folder(tmp, png=True)
+            decoder["png"] = phase_decoder(png_folder, png_want, jpeg_ok)
         path4 = phase_path4(torch, tmp, folder, path3["bundle_dir"],
                             cond["onehot"]["rates"])
+        if jpeg_ok:
+            path4["png_folder"] = phase_path4_png(
+                torch, tmp, png_folder, path3["bundle_dir"], path4["rates"])
+            path4["launches_per_run"]["png_folder"] = \
+                path4["png_folder"]["b1_launches"]
         label_free = phase_path3_label_free(torch, tmp, folder)
+        evaluation = phase_eval(torch, tmp, path3["bundle_dir"])
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
         "training": path1["launches_per_run"], "bench_lowch": 0,
         "comparator": path3["launches_per_run"],
         "training_cond": cond["launches_per_run"],
         "real_images": path4["launches_per_run"],
-        "label_free": label_free["launches_per_run"]}
+        "label_free": label_free["launches_per_run"],
+        "evaluation": evaluation["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
@@ -1757,13 +2127,13 @@ def main() -> None:
                                "training": path1["b2_launches"],
                                "sampling": 0, "comparator": 0,
                                "training_cond": 0, "real_images": 0,
-                               "label_free": 0}
+                               "label_free": 0, "evaluation": 0}
     b2["launches"] = path2["launches"] + path1["b2_launches"]
     check(b1["launches"] > 0 and b2["launches"] > 0
           and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free}, default=_jsonable)}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)

@@ -2,7 +2,7 @@
 
 The PyTorch port's own copy of ``pcgan_tpu/config.py`` (the port imports
 nothing of the JAX package). It differs only by the ``--device {cuda,cpu}``
-run flag; the flag surface and the opt.json layering are otherwise
+and ``--allow_pickle`` run flags; the flag surface and the opt.json layering are otherwise
 identical, so a run trained by either package samples with the same flags.
 
 The reference uses layered argparse options (``options/base_options.py`` +
@@ -408,6 +408,10 @@ class RunConfig:
     # torch device the port runs on: cuda (default) or cpu. cuda never
     # falls back to the CPU (pcgan_tpu_torch/device.py)
     device: str = "cuda"
+    # read user-supplied .pth files (--fid_features pth:, --lpips_vgg16,
+    # --lpips_lins) with torch.load(weights_only=False) when weights_only
+    # refuses them: executes the file's pickled code (utils/pth.py)
+    allow_pickle: bool = False
     # numerics sanitizer (SURVEY.md SS6): jax_debug_nans raises at the
     # producing primitive. checkify was evaluated and rejected: float_checks
     # through the doubly-differentiated GAN step exploded compile time
@@ -690,6 +694,7 @@ _FLAG_MAP = {
     "xla_opt": ("run", "xla_opt"),
     "debug_nans": ("run", "debug_nans"),
     "device": ("run", "device"),
+    "allow_pickle": ("run", "allow_pickle"),
     # parallel
     "spatial_shards": ("parallel", "spatial_shards"),
     "zero1": ("parallel", "zero1"),
@@ -931,6 +936,10 @@ _FLAG_HELP = {
                "same convention as lowch_matmul)",
     "device": "torch device to run on: cuda (default; raises when no card "
               "is present, never falls back) or cpu",
+    "allow_pickle": "load a user-supplied .pth (--fid_features pth:, "
+                    "--lpips_vgg16, --lpips_lins) with weights_only=False "
+                    "when it is a full-module save: EXECUTES the file's "
+                    "pickled code, so only for files you trust",
     "init_g_from": "warm-start G from a G-only checkpoint "
                    "('<run_name>/<tag>'), e.g. an imported reference .pth",
     "device_cache": "upload the whole dataset to HBM once and gather "

@@ -267,3 +267,76 @@ def convert_comparator_bundle(payload: Mapping) -> dict:
             "cmp_nf": int(sd["convs.0.weight"].shape[0]),
             "cmp_n_down": n_down,
             "norm": "none" if "convs.1.bias" in sd else "instance"}
+
+
+# --------------------------------------------------------------------------- #
+# evaluation feature nets
+# --------------------------------------------------------------------------- #
+
+
+def convert_random_features_params(flax_params: Mapping
+                                   ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``RandomConvFeatures`` params (``Conv_i`` HWIO + bias,
+    ``Dense_0``) -> a ``state_dict`` for the port's ``RandomConvFeatures``
+    (``convs.i``, ``fc``). Every flax tensor must be consumed."""
+    flat = flatten_params(flax_params)
+    n = _count(flat, r"Conv_\d+/")
+    if n < 1 or "Dense_0/kernel" not in flat:
+        raise ValueError(f"not a RandomConvFeatures tree: {sorted(flat)}")
+    sd, used = _walk(flat, [(f"Conv_{i}", f"convs.{i}", "conv")
+                            for i in range(n)])
+    sd["fc.weight"] = torch.from_numpy(np.ascontiguousarray(
+        np.asarray(flat["Dense_0/kernel"], np.float32).T))
+    sd["fc.bias"] = torch.from_numpy(
+        np.asarray(flat["Dense_0/bias"], np.float32).copy())
+    used |= {"Dense_0/kernel", "Dense_0/bias"}
+    left = sorted(set(flat) - used)
+    if left:
+        raise ValueError(f"flax tensors with no place in the port's random "
+                         f"feature net: {left}")
+    return sd
+
+
+def convert_inception_params(flax_params: Mapping
+                             ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``InceptionV3Features`` params (BN already folded: per unit
+    ``kernel`` HWIO, ``scale``, ``bias``) -> a ``state_dict`` for the port's
+    ``InceptionV3Features``: ``Mixed_5b/branch1x1/kernel`` ->
+    ``Mixed_5b.branch1x1.conv.weight`` (OIHW), ``scale``/``bias`` by name."""
+    flat = flatten_params(flax_params)
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for key, v in flat.items():
+        unit, leaf = key.rsplit("/", 1)
+        name = unit.replace("/", ".")
+        v = np.asarray(v, np.float32)
+        if leaf == "kernel":
+            sd[f"{name}.conv.weight"] = torch.from_numpy(
+                conv_weight_from_flax(v))
+        elif leaf in ("scale", "bias"):
+            sd[f"{name}.{leaf}"] = torch.from_numpy(v.copy())
+        else:
+            raise ValueError(f"flax tensor with no place in the port's "
+                             f"Inception: {key}")
+    return sd
+
+
+def convert_vgg16_params(flax_params: Mapping
+                         ) -> "OrderedDict[str, torch.Tensor]":
+    """Flax ``VGG16Taps`` params (``conv_<i>`` HWIO + bias) -> a
+    ``state_dict`` for the port's ``VGG16Taps`` (``features.<i>``)."""
+    flat = flatten_params(flax_params)
+    order = sorted({int(m.group(1)) for k in flat
+                    if (m := re.match(r"conv_(\d+)/", k))})
+    sd, used = _walk(flat, [(f"conv_{i}", f"features.{i}", "conv")
+                            for i in order])
+    left = sorted(set(flat) - used)
+    if left:
+        raise ValueError(f"flax tensors with no place in the port's VGG16: "
+                         f"{left}")
+    return sd
+
+
+def convert_lpips_lins(lins) -> Tuple[torch.Tensor, ...]:
+    """The JAX package's LPIPS calibration (a tuple of (C_k,) arrays) ->
+    the port's tuple of f32 tensors."""
+    return tuple(torch.from_numpy(np.array(w, np.float32)) for w in lins)

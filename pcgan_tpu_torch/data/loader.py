@@ -6,8 +6,9 @@ all image math happens on the device (ops/preprocess.py), unless
 ``create_dataset`` follows the reference's ``--dataset_mode`` dispatch:
 the synthetic sets, UTKFace-style folders (``aging``, ``single``), packs,
 comparator-sorted labels, the comparisons CSV and pairs over any of the
-age-labelled sources. Multi-process sharding and the held-out row split
-are not ported (ROADMAP.md A10, A7).
+age-labelled sources. ``split_holdout`` carves ``--holdout_frac``'s seeded
+held-out rows, the JAX package's split index for index. Multi-process
+sharding is not ported (ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -92,6 +93,57 @@ def create_dataset(cfg: Config, train: bool = True):
         return ComparisonsCSVDataset(cfg.data.comparisons_csv,
                                      dataroot=cfg.data.dataroot, max_size=ms)
     raise NotImplementedError(f"dataset_mode [{mode}] not implemented")
+
+
+class SubsetDataset:
+    """Index-remapped view over a raw dataset (the JAX ``SubsetDataset``,
+    ``pcgan_tpu/data/loader.py:120-152``): the same ``get_raw`` / ``ages``
+    protocol, and ``get_raw_batch`` passes through with remapped indices
+    when the base has it, so a folder's native batch decode serves
+    subsets."""
+
+    def __init__(self, base, indices):
+        self.ds = base
+        self.indices = np.asarray(indices, np.int64)
+        self.ages = (np.asarray(base.ages)[self.indices]
+                     if hasattr(base, "ages") else None)
+        for attr in ("native", "out_size", "max_age"):
+            if hasattr(base, attr):
+                setattr(self, attr, getattr(base, attr))
+        if hasattr(base, "get_raw_batch"):
+            self.get_raw_batch = self._get_raw_batch
+
+    def __len__(self):
+        return len(self.indices)
+
+    def get_raw(self, i: int):
+        return self.ds.get_raw(int(self.indices[int(i)]))
+
+    def _get_raw_batch(self, idx, num_threads: int = 8):
+        return self.ds.get_raw_batch(self.indices[np.asarray(idx, np.int64)],
+                                     num_threads=num_threads)
+
+
+def split_holdout(ds, frac: float, seed: int = 0):
+    """(train view, held-out view) for ``--holdout_frac``: the permutation
+    ``np.random.default_rng(seed ^ 0x42D).permutation(len(ds))``, its first
+    round(n * frac) rows held out, both sides sorted (the JAX
+    ``split_holdout``, ``pcgan_tpu/data/loader.py:155-166``). It depends
+    only on (len(ds), frac, seed), so evaluation reproduces it. frac <= 0
+    returns (ds, None)."""
+    if frac <= 0:
+        return ds, None
+    if not 0 < frac < 1:
+        raise ValueError(f"--holdout_frac must be in (0, 1); got {frac}")
+    n = len(ds)
+    n_hold = max(1, int(round(n * frac)))
+    if n_hold >= n:
+        raise ValueError(
+            f"--holdout_frac {frac} leaves no training rows (dataset size "
+            f"{n}); lower the fraction or enlarge the dataset")
+    perm = np.random.default_rng(seed ^ 0x42D).permutation(n)
+    return (SubsetDataset(ds, np.sort(perm[n_hold:])),
+            SubsetDataset(ds, np.sort(perm[:n_hold])))
 
 
 def host_resize_size(cfg: Config) -> int:

@@ -4,9 +4,12 @@
 decodes a batch of files straight into one contiguous u8 numpy buffer, with
 the GIL released. It is built at first use by ``g++`` into
 ``build/pcgan_tpu_torch/`` (``ops/_build.py``), under the build's file
-lock. A missing compiler or libjpeg raises (``JpegUnavailable`` for
-libjpeg): the port keeps no JPEG decode path without it
-(``PCGAN_NO_NATIVE`` is not read). Folders of PNGs never reach it.
+lock, against the host's libjpeg or, where the host has none, against the
+libjpeg in Pillow's wheel with the ABI-62 headers vendored in
+``native/include``. A missing compiler raises, and so does a host with
+neither libjpeg (``JpegUnavailable``): the port keeps no JPEG decode path
+without it (``PCGAN_NO_NATIVE`` is not read). Folders of PNGs never reach
+it.
 
 A full-scale decode is bit-identical to ``PIL.Image.open(p).convert("RGB")``
 for baseline, progressive and greyscale JPEGs; what it cannot serve exactly
@@ -30,8 +33,6 @@ JCS_GRAYSCALE, JCS_RGB, JCS_YCbCr, JCS_CMYK, JCS_YCCK = 1, 2, 3, 4, 5
 
 _lock = threading.Lock()
 _lib = None
-# what g++ says when libjpeg's header or library is not installed
-_NO_LIBJPEG = ("jpeglib.h: No such file", "cannot find -ljpeg")
 
 
 class JpegUnavailable(RuntimeError):
@@ -47,16 +48,17 @@ def load() -> ctypes.CDLL:
         return _lib
     with _lock:
         if _lib is None:
-            from pcgan_tpu_torch.ops._build import build_host
+            from pcgan_tpu_torch.ops._build import NO_LIBJPEG, build_host
             try:
                 path = build_host("pcgan_jpeg", "native/jpeg_decoder.cc")
             except RuntimeError as e:
-                if any(s in str(e) for s in _NO_LIBJPEG):
+                if any(s in str(e) for s in NO_LIBJPEG):
                     raise JpegUnavailable(
-                        "JPEG decoding needs libjpeg's header and library "
-                        "(jpeglib.h, libjpeg.so; e.g. the libjpeg-turbo "
-                        "development package), which this host lacks; "
-                        f"folders of PNGs decode without it. {e}") from None
+                        "JPEG decoding needs libjpeg (the host's jpeglib.h "
+                        "and libjpeg.so, e.g. the libjpeg-turbo development "
+                        "package, or the libjpeg in Pillow's wheel), which "
+                        "this host lacks; folders of PNGs decode without "
+                        f"it. {e}") from None
                 raise
             try:
                 lib = ctypes.CDLL(path)
@@ -66,22 +68,25 @@ def load() -> ctypes.CDLL:
                         f"the JPEG decoder {path} cannot load libjpeg on this "
                         f"host: {e}") from None
                 raise
-            u8p, ip = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(
-                ctypes.c_int)
-            lib.pcgan_decode_batch.restype = ctypes.c_int
-            lib.pcgan_decode_batch.argtypes = [
-                ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, u8p,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ip, ctypes.c_int]
-            lib.pcgan_decode_file.restype = ctypes.c_int
-            lib.pcgan_decode_file.argtypes = [
-                ctypes.c_char_p, u8p, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int]
-            lib.pcgan_probe_file.restype = ctypes.c_int
-            lib.pcgan_probe_file.argtypes = [ctypes.c_char_p, ip, ip, ip]
-            lib.pcgan_jpeg_abi.restype = ctypes.c_int
-            lib.pcgan_jpeg_turbo_version.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(lib)
     return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the decoder's C signatures on a loaded library."""
+    u8p, ip = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int)
+    lib.pcgan_decode_batch.restype = ctypes.c_int
+    lib.pcgan_decode_batch.argtypes = [
+        ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, u8p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ip, ctypes.c_int]
+    lib.pcgan_decode_file.restype = ctypes.c_int
+    lib.pcgan_decode_file.argtypes = [
+        ctypes.c_char_p, u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.pcgan_probe_file.restype = ctypes.c_int
+    lib.pcgan_probe_file.argtypes = [ctypes.c_char_p, ip, ip, ip]
+    lib.pcgan_jpeg_abi.restype = ctypes.c_int
+    lib.pcgan_jpeg_turbo_version.restype = ctypes.c_int
+    return lib
 
 
 def jpeg_abi() -> int:

@@ -25,6 +25,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 GXX_FLAGS = ("-O2", "-shared", "-fPIC")
 GXX_LIBS = ("-ljpeg", "-lpthread")
+VENDORED_JPEG_INCLUDE = os.path.join(_PKG_DIR, "native", "include")
+# what g++ says when the host has no libjpeg header or library
+NO_LIBJPEG = ("jpeglib.h: No such file", "cannot find -ljpeg")
 
 
 def find_nvcc() -> str:
@@ -82,11 +85,51 @@ def build(name: str, source: str) -> str:
                     NVCC_FLAGS)
 
 
-def build_host(name: str, path: str) -> str:
+def wheel_libjpeg() -> str:
+    """The libjpeg of Pillow's wheel (``<site>/pillow.libs/libjpeg-*.so.62*``),
+    found without importing PIL; "" when there is none."""
+    import glob
+    import importlib.util
+    spec = importlib.util.find_spec("PIL")
+    if spec is None or not spec.submodule_search_locations:
+        return ""
+    libs = os.path.join(os.path.dirname(
+        list(spec.submodule_search_locations)[0]), "pillow.libs")
+    found = sorted(glob.glob(os.path.join(libs, "libjpeg-*.so.62*")))
+    return found[0] if found else ""
+
+
+def wheel_jpeg_args(lib: str):
+    """(flags, libs) that build against the vendored ABI-62 headers and link
+    ``lib`` (a file name with no ``lib*.so`` alias) by its full name, found
+    at run time through an rpath."""
+    d = os.path.dirname(lib)
+    return ((*GXX_FLAGS, "-I", VENDORED_JPEG_INCLUDE),
+            ("-L", d, f"-l:{os.path.basename(lib)}", f"-Wl,-rpath,{d}",
+             "-lpthread"))
+
+
+def build_host(name: str, path: str, libjpeg: str = "auto") -> str:
     """Compile the host C++ file ``path`` (relative to the package) with
-    g++ against libjpeg; returns the library path."""
-    return _compile(name, os.path.join(_PKG_DIR, path), find_gxx, GXX_FLAGS,
-                    GXX_LIBS)
+    g++ against libjpeg; returns the library path. ``libjpeg="auto"``
+    links the host's (``-ljpeg``), or Pillow's wheel copy behind the
+    vendored headers where g++ reports no libjpeg (g++'s error is raised
+    when neither exists); ``"wheel"`` links the wheel's copy directly."""
+    src = os.path.join(_PKG_DIR, path)
+    if libjpeg not in ("auto", "wheel"):
+        raise ValueError(f"libjpeg={libjpeg!r}: want auto or wheel")
+    if libjpeg == "auto":
+        try:
+            return _compile(name, src, find_gxx, GXX_FLAGS, GXX_LIBS)
+        except RuntimeError as e:
+            if not any(s in str(e) for s in NO_LIBJPEG) or not wheel_libjpeg():
+                raise
+    lib = wheel_libjpeg()
+    if not lib:
+        raise RuntimeError("cannot find -ljpeg: no libjpeg-*.so.62* in "
+                           "Pillow's wheel (pillow.libs) either")
+    flags, libs = wheel_jpeg_args(lib)
+    return _compile(name + "_wheel", src, find_gxx, flags, libs)
 
 
 def load(name: str, source: str) -> ctypes.CDLL:

@@ -187,10 +187,7 @@ def reject_unported_train(cfg: Config) -> None:
         "--metrics_lag": t.metrics_lag,
         "--log_grad_norm": t.log_grad_norm, "--log_memory": t.log_memory,
         "--init_g_from": bool(t.init_g_from),
-        "--eval_fid_epoch_freq": t.eval_fid_epoch_freq > 0,
-        "--eval_use_ema": t.eval_use_ema,
         "--remat": m.remat, "--no-no_dropout": not m.no_dropout,
-        "--holdout_frac": d.holdout_frac > 0,
         "--device_cache": d.device_cache,
         "--device_cache_sharded": d.device_cache_sharded,
         "--tb_logdir": bool(r.tb_logdir),

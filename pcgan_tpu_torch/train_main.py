@@ -17,7 +17,12 @@ console lines and ``metrics.jsonl`` rows (with ``imgs_per_sec`` and
 exact resume: the loader replays the epoch's seeded permutation and skips
 the batches the restored step already consumed. With ``--comparator_path``
 (and ``--lambda_cond > 0`` or ``--cond_mode score``) the frozen comparator
-and its score anchors join the step.
+and its score anchors join the step. ``--eval_fid_epoch_freq N`` scores G
+(or, with ``--eval_use_ema``, its EMA twin) every N epochs through the
+streaming FID evaluator (``eval_lib.py``) over ``--eval_fid_images`` rows
+of the training data, writing ``eval_*`` rows to ``metrics.jsonl``;
+``--holdout_frac`` holds a seeded share of the rows out of training and
+adds ``eval_h_*`` rows for them.
 
 ``--model comparator`` pretrains the comparator instead (root
 ``train.py:654-827``): pairs drawn over the folder at ``--dataroot`` or
@@ -49,9 +54,10 @@ import numpy as np
 
 def main(argv=None) -> dict:
     """Runs the CLI; returns {'run_dir', 'step', 'metrics' (the last logged
-    losses), 'epochs': [{'epoch', 'steps', 'train_seconds'}]}, where
-    ``train_seconds`` is an epoch's wall time from its first batch to its
-    last step finished on the device (checkpoints and plots excluded)."""
+    losses), 'epochs': [{'epoch', 'steps', 'train_seconds'}], 'evals': the
+    in-training FID records}, where ``train_seconds`` is an epoch's wall
+    time from its first batch to its last step finished on the device
+    (checkpoints, evals and plots excluded)."""
     from pcgan_tpu_torch.config import amend_run_opt, parse_config
     # under --continue_train, structural flags and the state-tree togglers
     # default from the run's own opt.json, as in train.py
@@ -84,6 +90,14 @@ def main(argv=None) -> dict:
             data_loader.phase_root(cfg.data.dataroot, cfg.run.phase)
             if cfg.data.dataset_mode in ("aging", "single") else None),
         "holdout_frac": cfg.data.holdout_frac, "seed": cfg.train.seed})
+    # the held-out rows are carved before any loader sees the dataset:
+    # training and the train-side eval only touch the remainder
+    ds, holdout_ds = data_loader.split_holdout(ds, cfg.data.holdout_frac,
+                                               seed=cfg.train.seed)
+    if holdout_ds is not None:
+        print(f"holdout: {len(holdout_ds)} rows held out "
+              f"({cfg.data.holdout_frac:.0%}), {len(ds)} train rows",
+              flush=True)
     ld = data_loader.Loader(ds, cfg.data.batch_size,
                             shuffle=not cfg.data.serial_batches,
                             num_threads=cfg.data.num_threads,
@@ -94,12 +108,14 @@ def main(argv=None) -> dict:
           f"{len(ds)}, {steps_per_epoch} steps/epoch", flush=True)
     logger = MetricsLogger(run_dir)
     try:
-        return _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir)
+        return _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
+                          holdout_ds)
     finally:
         logger.close()
 
 
-def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir) -> dict:
+def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
+               holdout_ds=None) -> dict:
     import torch
     from pcgan_tpu_torch.data.loader import prefetch, with_bins
     from pcgan_tpu_torch.models import define_D, define_G
@@ -180,9 +196,12 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir) -> dict:
             torch.cuda.synchronize(device)
 
     display = _make_display(cfg, G, run_dir, device)
+    fid_eval = (_make_fid_eval(cfg, device, G, state, bin_anchors, ld,
+                               holdout_ds, logger)
+                if t.eval_fid_epoch_freq > 0 else None)
     last_latest_save = 0
     gstep = state.step
-    epochs, last_metrics = [], {}
+    epochs, evals, last_metrics = [], [], {}
     for epoch in range(t.epoch_count + epochs_done, total_epochs + 1):
         epoch_t0 = time.time()
         epoch_losses, resume_losses = resume_losses, []
@@ -249,12 +268,74 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir) -> dict:
                                         t.max_ckpt_keep)
             if removed:
                 print(f"pruned old checkpoints: {removed}", flush=True)
+        if fid_eval is not None and epoch % t.eval_fid_epoch_freq == 0:
+            evals.append(fid_eval(epoch))
         write_loss_plot(run_dir)
         print(f"End of epoch {epoch}/{total_epochs} \t "
               f"({time.time() - epoch_t0:.1f}s)", flush=True)
     save("latest")
     return {"run_dir": run_dir, "step": state.step, "metrics": last_metrics,
-            "epochs": epochs}
+            "epochs": epochs, "evals": evals}
+
+
+def _make_fid_eval(cfg, device, G, state, bin_anchors, ld, holdout_ds,
+                   logger):
+    """In-training FID (root ``train.py:298-372``): the startup guards, the
+    evaluator over the train split's rows in loader order, and over the
+    held-out rows when ``--holdout_frac`` is set. Returns f(epoch) -> {'epoch',
+    'seconds', 'eval_fid', ...}, which also logs the ``eval_*`` and
+    ``eval_h_*`` row."""
+    import copy
+    import torch
+    from pcgan_tpu_torch.data import loader as data_loader
+    from pcgan_tpu_torch.eval_lib import check_eval_budget, make_fid_evaluator
+    t, d = cfg.train, cfg.data
+    # fail at startup, not hours in at the first epoch-end eval
+    check_eval_budget(cfg, t.eval_fid_images, "--eval_fid_images")
+    if t.eval_use_ema and state.ema is None:
+        raise SystemExit("--eval_use_ema needs --ema_decay > 0 (there is no "
+                         "EMA twin to evaluate)")
+    bundle = (state.C, *bin_anchors) if state.C is not None else None
+    run_fid = make_fid_evaluator(cfg, bundle, device)
+
+    def loader(rows):
+        return data_loader.Loader(rows, d.batch_size, shuffle=False,
+                                  num_threads=d.num_threads,
+                                  resize_to=data_loader.host_resize_size(cfg))
+
+    sources = [("eval_", loader(ld.ds))]
+    if holdout_ds is not None:
+        h_ld = loader(holdout_ds)
+        if len(h_ld) == 0:
+            raise SystemExit(
+                f"--holdout_frac {d.holdout_frac} leaves fewer than one batch "
+                f"({len(holdout_ds)} rows < --batch_size {d.batch_size}) for "
+                f"eval")
+        sources.append(("eval_h_", h_ld))
+    # --eval_use_ema scores the EMA twin (what ships): a copy of G whose
+    # parameters take the EMA values before each eval
+    twin = copy.deepcopy(G) if t.eval_use_ema else None
+
+    def fid_eval(epoch: int) -> dict:
+        net = G
+        if twin is not None:
+            with torch.no_grad():
+                for n, p in twin.named_parameters():
+                    p.copy_(state.ema[n])
+            net = twin
+        t0 = time.perf_counter()
+        out = {}
+        for prefix, eval_ld in sources:
+            rec = run_fid(net, data_loader.with_bins(
+                iter(eval_ld), d.n_age_bins, d.max_age),
+                max_images=t.eval_fid_images, seed=t.seed)
+            out.update({prefix + k: float(v) for k, v in rec.items()})
+        logger.log(state.step, out, epoch=epoch)
+        print(f"eval (epoch {epoch}): " + ", ".join(
+            f"{k} {v:.4g}" for k, v in out.items()), flush=True)
+        return {"epoch": epoch, "seconds": time.perf_counter() - t0, **out}
+
+    return fid_eval
 
 
 def _train_comparator(cfg, device, logger, run_dir) -> dict:

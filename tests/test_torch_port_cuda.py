@@ -9,7 +9,8 @@ where no card is present. On the card (this file imports no jax, and
 Tolerances: B1 f32 output 2e-5 (summation order only); bf16 output one
 bf16 ulp of the plain value (magnitudes below 2^-7 count as 2^-7). B2:
 1e-5 of the largest entry (exact products, f32 sums in another order), the
-gate ``chip_smoke.py`` holds it to.
+gate ``chip_smoke.py`` holds it to. The evaluator and the Inception
+feature net in f32, card against CPU: 1e-4 of the largest entry.
 """
 
 import numpy as np
@@ -251,3 +252,74 @@ def test_gan_step_with_comparator_on_card_matches_cpu(cuda_device,
     assert runs["cpu"]["loss_G_cond"] != 0.0
     for k, v in runs["cpu"].items():
         assert abs(runs["cuda"][k] - v) <= 1e-4, (k, v, runs["cuda"][k])
+
+
+def test_evaluator_on_card_matches_cpu(cuda_device):
+    """The streaming FID evaluator in f32 (B1 on the card, G, the random
+    features, the moments) against the same pass on the CPU: the moments
+    within 1e-4 of their largest entry, each batch through the kernel."""
+    from pcgan_tpu_torch import config as tcfg
+    from pcgan_tpu_torch import eval_lib
+    from pcgan_tpu_torch.models import define_G
+    from pcgan_tpu_torch.ops import fid as fid_ops
+    cfg = tcfg.Config(
+        data=tcfg.DataConfig(n_age_bins=4, crop_size=32, load_size=36,
+                             batch_size=4),
+        model=tcfg.ModelConfig(netG="resnet_6blocks", ngf=8, dtype="float32",
+                               cond_inject="bottleneck"),
+        run=tcfg.RunConfig(kid=True, kid_subsets=1, ssim=True))
+    G = define_G(cfg, torch.Generator().manual_seed(3)).eval()
+    rng = np.random.default_rng(0)
+    batches = [{"image": rng.integers(0, 256, (4, 36, 36, 3), np.uint8),
+                "bin": rng.integers(0, 4, 4)} for _ in range(4)]
+    seen, real = [], fid_ops.fid_from_stats
+
+    def spy(a, b):
+        seen.append((a, b))
+        return real(a, b)
+    fid_ops.fid_from_stats = spy
+    try:
+        before = cp.launches
+        card = eval_lib.make_fid_evaluator(cfg, None, cuda_device)(
+            G.to(cuda_device), iter(batches), max_images=16)
+        assert cp.launches == before + 4
+        cpu = eval_lib.make_fid_evaluator(cfg, None, "cpu")(
+            G.cpu(), iter(batches), max_images=16)
+    finally:
+        fid_ops.fid_from_stats = real
+    for a, b in zip(seen[0], seen[1]):
+        assert float(a.count) == float(b.count) == 16.0
+        for k in ("s", "ss"):
+            x, y = getattr(a, k).numpy(), getattr(b, k).numpy()
+            np.testing.assert_allclose(x, y, rtol=0,
+                                       atol=1e-4 * np.abs(y).max())
+    assert set(card) == set(cpu) and np.isfinite(card["fid"])
+    assert card["ssim"] == pytest.approx(cpu["ssim"], abs=1e-5)
+
+
+def test_inception_on_card_matches_cpu(cuda_device, tmp_path):
+    """The InceptionV3 feature net (a seeded torchvision-named .pth) in f32
+    on the card against the CPU: within 1e-4 of the largest feature."""
+    from pcgan_tpu_torch.models import inception as tinc
+    rng = np.random.default_rng(0)
+    sd = {}
+    for prefix, mod in tinc.InceptionV3Features().named_modules():
+        if isinstance(mod, tinc.BasicConv2d):
+            co, ci, kh, kw = mod.conv.weight.shape
+            sd[f"{prefix}.conv.weight"] = torch.from_numpy(rng.normal(
+                0, np.sqrt(2.0 / (ci * kh * kw)), (co, ci, kh, kw)).astype(
+                    np.float32))
+            for k in ("weight", "running_var"):
+                sd[f"{prefix}.bn.{k}"] = torch.ones(co)
+            for k in ("bias", "running_mean"):
+                sd[f"{prefix}.bn.{k}"] = torch.zeros(co)
+    torch.save(sd, tmp_path / "inc.pth")
+    x = torch.rand(2, 256, 256, 3, generator=torch.Generator()
+                   .manual_seed(1)) * 2 - 1
+    f_card, _ = tinc.make_inception_feature_fn(str(tmp_path / "inc.pth"),
+                                               device=cuda_device)
+    f_cpu, _ = tinc.make_inception_feature_fn(str(tmp_path / "inc.pth"))
+    with torch.inference_mode():
+        a = f_card(x.to(cuda_device)).cpu().numpy()
+        b = f_cpu(x).numpy()
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())

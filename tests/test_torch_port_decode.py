@@ -293,6 +293,53 @@ def test_missing_libjpeg_raises_naming_it_and_pngs_need_none(tmp_path,
         utkface.UTKFaceDataset(str(jpegs)).get_raw_batch([0])
 
 
+def test_wheel_libjpeg_route_decodes_the_fixtures_to_their_digests(
+        monkeypatch):
+    """A host without libjpeg builds the decoder against the ABI-62 headers
+    vendored in ``native/include`` and links the libjpeg of Pillow's wheel
+    (a newer libjpeg-turbo behind the same 6.2 API: its struct-size and
+    version check in ``jpeg_CreateDecompress`` must pass). The fixtures then
+    decode to ``digests.json`` bit for bit, and ``auto`` takes this route
+    when g++ reports no libjpeg."""
+    import ctypes
+    import shutil
+    from pcgan_tpu_torch.ops import _build
+    if shutil.which("g++") is None:
+        pytest.skip("no g++ on this host")
+    lib = _build.wheel_libjpeg()
+    if not lib:
+        pytest.skip("Pillow's wheel carries no libjpeg-*.so.62* here")
+    assert os.path.basename(lib).startswith("libjpeg-")
+    flags, libs = _build.wheel_jpeg_args(lib)
+    assert _build.VENDORED_JPEG_INCLUDE in flags and "-ljpeg" not in libs
+    for h in ("jpeglib.h", "jmorecfg.h", "jconfig.h", "LICENSE.md"):
+        assert os.path.isfile(os.path.join(_build.VENDORED_JPEG_INCLUDE, h))
+    path = _build.build_host("pcgan_jpeg", "native/jpeg_decoder.cc",
+                             libjpeg="wheel")
+    assert path.endswith(".so") and "_wheel_" in os.path.basename(path)
+    monkeypatch.setattr(native, "_lib", native.bind(ctypes.CDLL(path)))
+    assert native.jpeg_abi() == 62
+    meta, paths = _fixtures()
+    port, st = native.decode_batch(list(paths.values()), 200, 200, threads=4)
+    assert not st.any()
+    for img, name in zip(port, paths):
+        assert (hashlib.sha256(img.tobytes()).hexdigest()
+                == meta["files"][name]["sha256"]), name
+    # auto: the system build fails on a missing libjpeg -> the wheel route
+    real = _build._compile
+
+    def no_system_libjpeg(name, src, compiler, fl, lb=()):
+        if "-ljpeg" in lb:
+            raise RuntimeError("g++ failed: fatal error: jpeglib.h: No such "
+                               "file or directory")
+        return real(name, src, compiler, fl, lb)
+    monkeypatch.setattr(_build, "_compile", no_system_libjpeg)
+    assert _build.build_host("pcgan_jpeg", "native/jpeg_decoder.cc") == path
+    monkeypatch.setattr(_build, "wheel_libjpeg", lambda: "")
+    with pytest.raises(RuntimeError, match="jpeglib.h"):
+        _build.build_host("pcgan_jpeg", "native/jpeg_decoder.cc")
+
+
 def test_no_port_module_imports_pil_at_module_level():
     """PIL is imported only inside the functions that need it."""
     files = sorted(glob.glob(os.path.join(ROOT, "pcgan_tpu_torch", "**",

@@ -13,7 +13,8 @@
   weights (scores within 1e-5).
 - The scripts' argument lists (``scripts/train_utkface_128.sh``,
   ``test_aging_grid.sh``, ``pretrain_comparator.sh`` over a folder and over
-  a CSV) run through the port's CLIs, with only the data, the widths, the
+  a CSV, ``train_256_fid.sh`` with its in-training FID) run through the
+  port's CLIs, with only the data, the widths, the
   epochs and the cadences cut to a CPU's size.
 Skips only where g++ or libjpeg is missing on this host.
 """
@@ -279,6 +280,15 @@ TRAIN = ["--name", "utk128", "--model", "pcgan", "--dataset_mode", "aging",
          "--lr", "0.0002", "--beta1", "0.5", "--pool_size", "64",
          "--print_freq", "100", "--save_epoch_freq", "5", "--mesh_shape",
          "1"]
+FID256 = ["--name", "cacd256", "--model", "pcgan", "--netG",
+          "resnet_9blocks", "--netD", "basic", "--norm", "instance",
+          "--load_size", "286", "--crop_size", "256", "--batch_size", "32",
+          "--dtype", "bfloat16", "--n_age_bins", "10", "--gan_mode", "lsgan",
+          "--lambda_L1", "100", "--pool_size", "64", "--niter", "100",
+          "--niter_decay", "100", "--lr", "0.0002", "--beta1", "0.5",
+          "--eval_fid_epoch_freq", "5", "--eval_fid_images", "1024",
+          "--max_ckpt_keep", "5", "--print_freq", "100", "--save_epoch_freq",
+          "5"]
 TEST = ["--name", "utk128", "--dataset_mode", "aging", "--netG",
         "resnet_9blocks", "--norm", "instance", "--load_size", "143",
         "--crop_size", "128", "--n_age_bins", "10", "--epoch", "latest",
@@ -310,6 +320,24 @@ def test_the_scripts_argument_lists_run_through_the_port(decoders, tmp_path):
     assert out["done"] == 3
     pngs = os.listdir(os.path.join(out["web_dir"], "images"))
     assert len(pngs) == 3 * (1 + 10)
+
+
+def test_train_256_fid_argument_list_runs_through_the_port(decoders,
+                                                           tmp_path):
+    """``scripts/train_256_fid.sh``'s list (bf16, in-training FID) over the
+    folder, cut to a CPU's size; the FID cadence and budget are cut with
+    the epochs."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # input injection
+        res = train_main.main(["--dataroot", FACES] + FID256 + CPU + [
+            "--checkpoints_dir", str(tmp_path), "--eval_fid_epoch_freq",
+            "1", "--eval_fid_images", "8", "--save_epoch_freq", "1"])
+    assert res["step"] == 2 and len(res["evals"]) == 1
+    with open(os.path.join(res["run_dir"], "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    ev = [r for r in rows if "eval_fid" in r]
+    assert len(ev) == 1 and ev[0]["eval_fid_images"] == 8
+    assert np.isfinite(ev[0]["eval_fid"])
 
 
 @pytest.mark.parametrize("extra", [[], ["--host_resize"]])

@@ -88,7 +88,21 @@ the one named in phase 2):
     here (its images/s at 299 px and its card-vs-CPU features) and phase
     10's comparator as feature spaces; ``train_main`` with the script's
     list (one epoch, holdout 0.1, EMA eval), its ``eval_*`` / ``eval_h_*``
-    rows; the evaluator's f32 moments, card against CPU.
+    rows; the evaluator's f32 moments, card against CPU;
+17. serving at full width, ``scripts/export_and_serve.sh`` through the
+    port: ``tools.export_serving`` with the script's export list and
+    ``--verify`` on phase 14's checkpoint in bf16, again with
+    ``--quant_int8 --calib_dataroot`` over phase 14's folder, phase 10's
+    comparator with ``--comparator_path``, and an f32 export; the int8
+    conv's s32 accumulators card vs CPU bit for bit at every trunk shape;
+    the f32 artifact card vs CPU; rows/s of direct calls at batch 8 and 80
+    (bf16, int8) with device ms and launches a call and the int8/bf16
+    ratio; the HTTP host in-process with the script's serve flags
+    (``--warmup_batch 8 --batch_window_ms 5``) under the port's loadtest
+    (concurrency 8 x batch 8; its JSON line, then with window 0) beside
+    phase 4's grid rate; the image routes over a fixture JPEG, the abuse
+    battery, ``POST /reload`` to the int8 artifact under load; B1 on
+    ``test.main --quant_int8 --anim 24``.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -2070,6 +2084,405 @@ def phase_eval(torch, tmp, bundle_dir) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: serving at full width
+# --------------------------------------------------------------------------- #
+
+SERVE_BATCHES = (8, 80)          # a direct call of 8 rows; one 8-input grid
+SERVE_CALLS = 10                 # timed calls after 3 warm-up calls
+SERVE_F32_TOL = 1e-4             # f32 artifact, card vs CPU
+ANIM_FRAMES = 24
+# (B, Cin, H, Cout, k, stride, padding, dilation) of the full-width G's
+# trunk: the down convs, a block conv (its reflect pad done), the
+# bottleneck projection at 10 bins (K = 266; not on an input-injection G,
+# so a shape check), the deconvs as zero-inserted convs
+TRUNK_SHAPES = {
+    "down_64_128_s2": (2, NGF, CROP, 2 * NGF, 3, 2, ((1, 1), (1, 1)), 1),
+    "down_128_256_s2": (2, 2 * NGF, CROP // 2, 4 * NGF, 3, 2,
+                        ((1, 1), (1, 1)), 1),
+    "block_256_256": (2, 4 * NGF, CROP // 4 + 2, 4 * NGF, 3, 1,
+                      ((0, 0), (0, 0)), 1),
+    "bottleneck_1x1_k266": (2, 4 * NGF + NB, CROP // 4, 4 * NGF, 1, 1,
+                            ((0, 0), (0, 0)), 1),
+    "deconv_256_128": (2, 4 * NGF, CROP // 4, 2 * NGF, 3, 1,
+                       ((1, 2), (1, 2)), 2),
+    "deconv_128_64": (2, 2 * NGF, CROP // 2, NGF, 3, 1, ((1, 2), (1, 2)), 2),
+}
+
+
+def _export_cli(argv) -> dict:
+    """``tools.export_serving.main`` with its log kept: the artifact dir and
+    the --verify numbers it printed."""
+    import contextlib
+    import io
+    from pcgan_tpu_torch.tools import export_serving
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        out_dir = export_serving.main(argv)
+    text = log.getvalue()
+    for line in text.splitlines():
+        say(f"  export: {line}")
+    m = re.search(r"verify: max\|exported - live\| = (\S+)"
+                  r"(?: \(mean (\S+)\))?", text)
+    check(m is not None, f"export {argv}: no verify line")
+    return {"dir": out_dir, "wall_s": time.perf_counter() - t0,
+            "verify_max": float(m.group(1)),
+            "verify_mean": float(m.group(2)) if m.group(2) else None,
+            "mb": os.path.getsize(os.path.join(
+                out_dir, "comparator.pt2" if "--comparator_path" in argv
+                else "generator.pt2")) / 1e6}
+
+
+def _int8_accum_check(torch) -> dict:
+    """s32 accumulators of the int8 conv, card against CPU, at every trunk
+    shape of the full-width G: random int8 activations, a seeded weight
+    quantized as the G's are."""
+    from pcgan_tpu_torch.ops import quant as tq
+    rng = np.random.default_rng(17)
+    out = {}
+    for name, (b, ci, h, co, k, s, pads, dil) in TRUNK_SHAPES.items():
+        xq = torch.from_numpy(rng.integers(-127, 128, (b, ci, h, h))
+                              .astype(np.int8))
+        w = torch.from_numpy(rng.normal(0, 0.02, (co, ci, k, k))
+                             .astype(np.float32))
+        wmat, _ = tq.quantize_conv_weight(w)
+        acc_cpu, geom = tq.int8_conv_accum(xq, wmat, (k, k), s, pads, dil)
+        acc_dev, _ = tq.int8_conv_accum(xq.to(DEV), wmat.to(DEV), (k, k), s,
+                                        pads, dil)
+        equal = bool(torch.equal(acc_cpu, acc_dev.cpu()))
+        check(equal, f"int8 accumulators {name}: card differs from the CPU")
+        out[name] = {"M": int(acc_cpu.shape[0]), "K": int(wmat.shape[1]),
+                     "N": int(co), "out": list(geom), "bit_identical": equal}
+    say(f"int8 s32 accumulators card == CPU bit for bit at "
+        f"{ {n: (v['M'], v['K'], v['N']) for n, v in out.items()} }")
+    return out
+
+
+def _artifact_rate(torch, served, batch: int, what: str) -> dict:
+    """rows/s of direct calls (numpy in, numpy out) after warm-up on the
+    host's clock, then device ms and launches per call from a profiled
+    run of the same calls."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(batch)
+    x = rng.uniform(-1, 1, (batch, CROP, CROP, C)).astype(np.float32)
+    c = np.eye(NB, dtype=np.float32)[rng.integers(0, NB, batch)]
+    for _ in range(3):
+        served(x, c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_CALLS):
+        y = served(x, c)
+    wall = (time.perf_counter() - t0) / SERVE_CALLS
+    check(y.shape == (batch, CROP, CROP, C) and bool(np.isfinite(y).all()),
+          f"{what} batch {batch}: output {y.shape}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(SERVE_CALLS):
+            served(x, c)
+        torch.cuda.synchronize()
+    rows = _device_rows(torch, prof, SERVE_CALLS)
+    device_ms = sum(r[0] for r in rows)
+    check(device_ms > 0, f"{what}: no device time traced")
+    out = {"rows_per_s": batch / wall, "ms_per_call": wall * 1e3,
+           "device_ms_per_call": device_ms,
+           "launches_per_call": sum(r[1] for r in rows),
+           "device_busy_share": device_ms / (wall * 1e3),
+           "top_kernels_ms_per_call": [[round(ms, 4), cnt, name[:90]]
+                                       for ms, cnt, name in rows[:8]]}
+    say(f"artifact {what} batch {batch}: {out['rows_per_s']:.1f} rows/s "
+        f"({out['ms_per_call']:.3f} ms a call), device "
+        f"{device_ms:.3f} ms and {out['launches_per_call']:.1f} launches a "
+        f"call, busy {out['device_busy_share']:.3f}")
+    for ms, cnt, name in rows[:8]:
+        say(f"  {ms:9.4f} ms/call {cnt:6.1f} launches/call  {name[:90]}")
+    return out
+
+
+def _start_host(artifact_dir, warm=(), **kw):
+    """The port's host in-process on 127.0.0.1:0 (serve_http.main's
+    warm-up included, then one call at each batch size of ``warm``: the
+    coalesced buckets a timed run will reach); returns (httpd, base
+    url)."""
+    import threading
+    from pcgan_tpu_torch.tools import serve_http
+    httpd, served = serve_http.make_server(artifact_dir, "127.0.0.1", 0,
+                                           device=DEV, **kw)
+    for b in (kw.get("warmup_batch", 0), *warm):
+        serve_http._warmup(served, b)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def _stop_host(httpd):
+    httpd.watch_stop.set()
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def _served_rate_cli(artifact_dir, window: float) -> dict:
+    """export_and_serve.sh's serve list as its own process
+    (``python -m pcgan_tpu_torch.tools.serve_http --warmup_batch 8
+    --batch_window_ms W``), the port's loadtest from this one: a warm-up
+    pass over the coalesced batch sizes, then the timed pass. The host
+    process is stopped at the end."""
+    import socket
+    import threading
+    from pcgan_tpu_torch.tools import loadtest
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pcgan_tpu_torch.tools.serve_http",
+         "--artifact_dir", artifact_dir, "--port", str(port),
+         "--warmup_batch", "8", "--batch_window_ms", f"{window:g}",
+         "--device", DEV], cwd=HERE, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        t0 = time.perf_counter()
+        log = []
+        for line in proc.stdout:
+            log.append(line.rstrip())
+            if line.startswith("serving "):
+                break
+        check(proc.poll() is None and log and log[-1].startswith("serving"),
+              f"serve_http (window {window}) did not start: {log[-5:]}")
+        start_s = time.perf_counter() - t0
+        threading.Thread(target=lambda: [None for _ in proc.stdout],
+                         daemon=True).start()
+        url = f"http://127.0.0.1:{port}"
+        loadtest.run_loadtest(url, concurrency=8, requests=64, batch=8)
+        rec = loadtest.run_loadtest(url, concurrency=8, requests=64, batch=8)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    print(json.dumps(rec), flush=True)
+    check(rec["requests_err"] == 0 and rec["requests_ok"] == 64,
+          f"loadtest against the serve_http process, window {window}: {rec}")
+    rec["host_start_s"] = start_s
+    return rec
+
+
+def _image_routes(url, face: bytes) -> dict:
+    """The raw-image routes over one fixture JPEG: 200, a PNG/GIF that
+    decodes at the right size and frame count."""
+    from PIL import Image
+    from pcgan_tpu_torch.client import ServingClient
+    cl = ServingClient(url)
+    import io
+    out = {}
+    for route, body, size, frames in (
+            ("generate_image", cl.generate_image(face, bin=3),
+             (CROP, CROP), 1),
+            ("progression_image", cl.progression_image(face),
+             (CROP * (NB + 1), CROP), 1),
+            ("progression_gif", cl.progression_gif(face, frames=8),
+             (CROP, CROP), 8)):
+        with Image.open(io.BytesIO(body)) as im:
+            got = (im.size, getattr(im, "n_frames", 1), im.format)
+            im.seek(0)
+            px = np.asarray(im.convert("RGB"))
+        check(got[:2] == (size, frames) and px.std() > 0,
+              f"{route}: {got}, want {size} and {frames} frames")
+        out[route] = {"bytes": len(body), "size": list(got[0]),
+                      "frames": got[1], "format": got[2]}
+    say(f"image routes over a fixture JPEG: {out}")
+    return out
+
+
+def _reload_under_load(url, int8_dir) -> dict:
+    """POST /reload to the int8 artifact while a loadtest runs: no request
+    fails, and /healthz names the new directory."""
+    import threading
+    from pcgan_tpu_torch.client import ServingClient
+    from pcgan_tpu_torch.tools import loadtest
+    box = {}
+    t = threading.Thread(target=lambda: box.update(loadtest.run_loadtest(
+        url, concurrency=4, requests=48, batch=8)))
+    t.start()
+    time.sleep(0.3)
+    cl = ServingClient(url)
+    t0 = time.perf_counter()
+    rec = cl.reload(int8_dir)
+    reload_s = time.perf_counter() - t0
+    t.join()
+    health = cl.healthz()
+    check(rec["status"] == "reloaded" and box.get("requests_err") == 0
+          and box.get("requests_ok") == 48
+          and health["artifact_dir"] == os.path.abspath(int8_dir),
+          f"reload under load: {rec.get('status')}, loadtest {box}, "
+          f"healthz names {health.get('artifact_dir')}")
+    say(f"reload to the int8 artifact under load: {reload_s:.2f} s, "
+        f"loadtest {json.dumps(box)}")
+    return {"reload_s": reload_s, "loadtest": box,
+            "artifact_dir": health["artifact_dir"]}
+
+
+def _anim_run(torch, tmp, folder) -> dict:
+    """test.main --quant_int8 --anim 24 on phase 14's checkpoint over the
+    folder, B1's launches counted around it; the GIFs decode to 24 frames."""
+    from PIL import Image
+    from pcgan_tpu_torch import test as port_test
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.ops import cuda_wgrad as cw
+    argv = ["--dataroot", folder, "--name", "real_utk128", "--dataset_mode",
+            "aging", "--netG", NETG, "--norm", "instance", "--load_size",
+            str(LOAD), "--crop_size", str(CROP), "--n_age_bins", str(NB),
+            "--num_test", "16", "--checkpoints_dir",
+            os.path.join(tmp, "real"), "--results_dir",
+            os.path.join(tmp, "anim_res"), "--quant_int8", "--anim",
+            str(ANIM_FRAMES), "--device", DEV]
+    cp.launches = cw.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        res = port_test.main(argv)
+    torch.cuda.synchronize()
+    b1 = cp.launches
+    img_dir = os.path.join(res["web_dir"], "images")
+    gifs = sorted(n for n in os.listdir(img_dir) if n.endswith(".gif"))
+    for n in gifs:
+        with Image.open(os.path.join(img_dir, n)) as im:
+            check(getattr(im, "n_frames", 1) == ANIM_FRAMES
+                  and im.size == (CROP, CROP),
+                  f"anim {n}: {getattr(im, 'n_frames', 1)} frames {im.size}")
+    check(res["done"] == 16 and len(gifs) == 16 and b1 == 2
+          and cw.launches == 0,
+          f"anim run: {res['done']} rows, {len(gifs)} GIFs, {b1} B1 / "
+          f"{cw.launches} B2 launches")
+    say(f"test.main --quant_int8 --anim {ANIM_FRAMES}: {len(gifs)} GIFs of "
+        f"{ANIM_FRAMES} frames, batch s "
+        f"{[round(s, 3) for s in res['batch_seconds']]}; B1 launches {b1}")
+    return {"b1_launches": b1, "gifs": len(gifs),
+            "batch_seconds": res["batch_seconds"]}
+
+
+def phase_serving(torch, tmp, folder, bundle_dir, grid_rate) -> dict:
+    """Phase 17: export_and_serve.sh through the port at full width: phase
+    14's checkpoint exported bf16 and int8 (calibrated on the folder) and
+    phase 10's comparator, each verified against the live model on the
+    card; the int8 conv's accumulators card vs CPU; an f32 artifact card
+    vs CPU; the artifacts' rates; the HTTP host under loadtest (window 5
+    and 0), its image routes, the abuse battery and a reload under load;
+    B1 on test.main --quant_int8 --anim 24."""
+    from pcgan_tpu_torch.serving import load_exported
+    from pcgan_tpu_torch.tools import loadtest
+    t_phase = time.perf_counter()
+    srv = os.path.join(tmp, "serving")
+    base = ["--name", "real_utk128", "--checkpoints_dir",
+            os.path.join(tmp, "real"), "--netG", NETG, "--crop_size",
+            str(CROP), "--n_age_bins", str(NB), "--device", DEV]
+    out = {"exports": {}}
+    ex = out["exports"]
+    ex["bf16"] = _export_cli(base + ["--out_dir", os.path.join(srv, "bf16"),
+                                     "--verify"])
+    ex["int8"] = _export_cli(base + ["--out_dir", os.path.join(srv, "int8"),
+                                     "--verify", "--quant_int8",
+                                     "--calib_dataroot", folder])
+    ex["comparator"] = _export_cli(["--comparator_path", bundle_dir,
+                                    "--out_dir", os.path.join(srv, "cmp"),
+                                    "--verify", "--device", DEV])
+    ex["f32"] = _export_cli(base + ["--out_dir", os.path.join(srv, "f32"),
+                                    "--dtype", "float32", "--verify"])
+    check(ex["bf16"]["verify_max"] <= 5e-2
+          and ex["int8"]["verify_max"] <= 0.3
+          and ex["int8"]["verify_mean"] <= 0.03
+          and ex["comparator"]["verify_max"] <= 5e-2
+          and ex["f32"]["verify_max"] <= 5e-2,
+          f"export verify limits: {ex}")
+    say(f"exports: " + ", ".join(
+        f"{k} {v['mb']:.1f} MB in {v['wall_s']:.1f} s (verify max "
+        f"{v['verify_max']:.2e}, mean {v['verify_mean']})"
+        for k, v in ex.items()))
+
+    out["int8_accumulators"] = _int8_accum_check(torch)
+
+    # the f32 artifact: card against CPU on real rows
+    rows = np.stack([_face_row(folder, i) for i in range(4)])
+    cond = np.eye(NB, dtype=np.float32)[[0, 3, 6, 9]]
+    a = load_exported(ex["f32"]["dir"], device=DEV)(rows, cond)
+    b = load_exported(ex["f32"]["dir"], device="cpu")(rows, cond)
+    f32_err = float(np.abs(a - b).max())
+    check(f32_err <= SERVE_F32_TOL, f"f32 artifact card vs CPU {f32_err}")
+    out["f32_card_vs_cpu"] = f32_err
+    say(f"f32 artifact card vs CPU on 4 face rows: max |diff| {f32_err:.3e}")
+
+    rates = {}
+    for kind in ("bf16", "int8"):
+        served = load_exported(ex[kind]["dir"], device=DEV)
+        for b in SERVE_BATCHES:
+            rates[f"{kind}_b{b}"] = _artifact_rate(torch, served, b, kind)
+    out["artifact_rates"] = rates
+    out["int8_over_bf16"] = {
+        f"b{b}": rates[f"int8_b{b}"]["rows_per_s"]
+        / rates[f"bf16_b{b}"]["rows_per_s"] for b in SERVE_BATCHES}
+    out["int8_over_bf16_device"] = {
+        f"b{b}": rates[f"bf16_b{b}"]["device_ms_per_call"]
+        / rates[f"int8_b{b}"]["device_ms_per_call"] for b in SERVE_BATCHES}
+    say(f"int8/bf16 rows/s: {out['int8_over_bf16']}; bf16/int8 device ms "
+        f"(>1: int8 faster): {out['int8_over_bf16_device']}")
+
+    # the host, with export_and_serve.sh's serve flags, then window 0
+    out["http"] = {}
+    for window in (5.0, 0.0):
+        httpd, url = _start_host(ex["bf16"]["dir"], warm=(16, 32, 64),
+                                 warmup_batch=8, batch_window_ms=window)
+        try:
+            rec = loadtest.run_loadtest(url, concurrency=8, requests=64,
+                                        batch=8)
+            print(json.dumps(rec), flush=True)
+            check(rec["requests_err"] == 0 and rec["requests_ok"] == 64,
+                  f"loadtest window {window}: {rec}")
+            out["http"][f"window_{window:g}"] = rec
+            if window:
+                faces = os.path.join(FIXTURES, "faces")
+                with open(os.path.join(faces, sorted(os.listdir(faces))[0]),
+                          "rb") as f:
+                    out["image_routes"] = _image_routes(url, f.read())
+                out["reload"] = _reload_under_load(url, ex["int8"]["dir"])
+        finally:
+            _stop_host(httpd)
+    # the served rate: the host as its own process, as the script runs it
+    out["served_rate"] = {f"window_{w:g}": _served_rate_cli(
+        ex["bf16"]["dir"], w) for w in (5.0, 0.0)}
+    for where, recs in (("host process", out["served_rate"]),
+                        ("in-process host", out["http"])):
+        say(f"served rate, {where} (bf16, concurrency 8 x batch 8): "
+            + "; ".join(f"window {k[7:]} ms {r['value']} rows/s (p50 "
+                        f"{r['p50_ms']} / p99 {r['p99_ms']} ms, "
+                        f"{r['device_dispatches']} dispatches)"
+                        for k, r in recs.items())
+            + f"; phase 4's grid {grid_rate['grid_images_per_s']:.1f} "
+              f"images/s in this call")
+    out["grid_images_per_s_phase4"] = grid_rate["grid_images_per_s"]
+
+    token = "smoke-token"
+    httpd, url = _start_host(ex["bf16"]["dir"], auth_token=token,
+                             request_timeout=2.0)
+    try:
+        ab = loadtest.run_abuse(url, auth_token=token, slow_wait=3.0)
+    finally:
+        _stop_host(httpd)
+    check(not ab["failed"] and ab["value"] == 6, f"abuse battery: {ab}")
+    out["abuse"] = ab["cases"]
+    say(f"abuse battery: {ab['cases']}")
+
+    out["anim"] = _anim_run(torch, tmp, folder)
+    out["launches_per_run"] = {"anim": out["anim"]["b1_launches"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 17: {out['phase_s']:.1f} s")
+    return out
+
+
+def _face_row(folder, i) -> np.ndarray:
+    """Image i of the folder as the host's image routes give it to G: f32
+    [-1, 1] at the crop size (the folder's 200 px canvas resized)."""
+    from pcgan_tpu_torch.data.resample import pil_resize_np
+    from pcgan_tpu_torch.data.utkface import UTKFaceDataset
+    img = UTKFaceDataset(folder).get_raw(i)["image"]
+    return pil_resize_np(img, CROP).astype(np.float32) / 127.5 - 1.0
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(HERE, "pcgan_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository "
@@ -2112,6 +2525,8 @@ def main() -> None:
                 path4["png_folder"]["b1_launches"]
         label_free = phase_path3_label_free(torch, tmp, folder)
         evaluation = phase_eval(torch, tmp, path3["bundle_dir"])
+        serving = phase_serving(torch, tmp, folder, path3["bundle_dir"],
+                                sampling["rate"])
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
         "training": path1["launches_per_run"], "bench_lowch": 0,
@@ -2119,7 +2534,8 @@ def main() -> None:
         "training_cond": cond["launches_per_run"],
         "real_images": path4["launches_per_run"],
         "label_free": label_free["launches_per_run"],
-        "evaluation": evaluation["launches_per_run"]}
+        "evaluation": evaluation["launches_per_run"],
+        "serving": serving["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
@@ -2127,13 +2543,14 @@ def main() -> None:
                                "training": path1["b2_launches"],
                                "sampling": 0, "comparator": 0,
                                "training_cond": 0, "real_images": 0,
-                               "label_free": 0, "evaluation": 0}
+                               "label_free": 0, "evaluation": 0,
+                               "serving": 0}
     b2["launches"] = path2["launches"] + path1["b2_launches"]
     check(b1["launches"] > 0 and b2["launches"] > 0
           and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation}, default=_jsonable)}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)

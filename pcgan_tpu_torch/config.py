@@ -904,10 +904,11 @@ _FLAG_HELP = {
     "remat": "rematerialize G resnet/unet blocks in the backward pass "
              "(HBM relief for 256px large batches)",
     "quant_int8": "int8 post-training quantization of the G trunk convs "
-                  "for INFERENCE (test/export/bench --infer): rides the "
-                  "MXU's ~1.6x int8 rate. Beyond-reference NON-parity "
-                  "lever (outputs differ at quantization-noise level); "
-                  "rejected by train.py",
+                  "for INFERENCE (test/export): each trunk conv becomes an "
+                  "im2col and one s8 x s8 -> s32 product (cuBLASLt on the "
+                  "card), dequantized to the compute dtype. "
+                  "Beyond-reference NON-parity lever (outputs differ at "
+                  "quantization-noise level); rejected by training",
     "use_ema": "sample from the {tag}_G_ema twin (needs --ema_decay "
                "training)",
     "anim": "N > 0: also render an N-frame SMOOTH aging animation per test "

@@ -29,6 +29,13 @@ and a JAX comparator bundle (``<run>/comparator``, written by ``train.py
                               flatten_dict(c_vars["params"], sep="/").items()})
     np.savez("C_anchors.npz", bin_lo=lo, bin_hi=hi, bin_means=means)
 
+A JAX generator calibrated for int8 (``calibrate_quant``) carries a
+``quant`` collection beside its params: one ``act_absmax`` per trunk site
+(``TorchConv_1/act_absmax``, ``ResnetBlock_0/TorchConv_0/act_absmax``,
+``TorchConvTranspose_0/act_absmax``, ...). ``convert_generator_quant``
+maps it onto the port's site names for ``ops.quant.set_act_absmaxes``, and
+``generator_quant_to_flax`` maps the port's calibrated absmaxes back.
+
 then, on the port's side, write the port's bundle::
 
     a = np.load("C_anchors.npz")
@@ -161,6 +168,54 @@ def convert_generator_params(flax_params: Mapping
     the downsampling depth and the injection site are read off the tree;
     every flax tensor must be consumed."""
     return _convert(flax_params, _generator_order, "generator")
+
+
+def _quant_order(flat: Mapping):
+    """(flax path, port site) of a resnet G's ``quant`` collection: the
+    param walk without the stem and the tail, which never quantize."""
+    n_blocks = _count(flat, r"ResnetBlock_\d+/")
+    n_down = _count(flat, r"TorchConvTranspose_\d+/")
+    inject = ("bottleneck" if f"TorchConv_{n_down + 1}/act_absmax" in flat
+              else "input")
+    order = resnet_param_map(n_blocks, n_down, inject)
+    return [(path, name) for path, name, _ in order[1:-1]]
+
+
+def convert_generator_quant(flax_quant: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX G's ``quant`` collection (nested or '/'-flat; a ``{'quant':
+    ...}`` variables dict is unwrapped) -> ``{port site name: 0-d f32
+    absmax}`` (``down.0``, ``blocks.0.conv1``, ``up.1``, ...). Every
+    entry must be consumed."""
+    if "quant" in flax_quant and isinstance(flax_quant["quant"], Mapping):
+        flax_quant = flax_quant["quant"]
+    flat = flatten_params(flax_quant)
+    out, used = {}, set()
+    for path, name in _quant_order(flat):
+        key = f"{path}/act_absmax"
+        out[name] = torch.tensor(float(np.asarray(flat[key])),
+                                 dtype=torch.float32)
+        used.add(key)
+    left = sorted(set(flat) - used)
+    if left:
+        raise ValueError(f"quant entries with no site in the port's "
+                         f"generator: {left}")
+    return out
+
+
+def generator_quant_to_flax(absmaxes: Mapping, n_blocks: int,
+                            n_downsampling: int = 2,
+                            cond_inject: str = "input") -> dict:
+    """The port's ``{site name: absmax}`` (``ops.quant.act_absmaxes``) ->
+    a nested flax ``quant`` collection of f32 numpy scalars."""
+    order = resnet_param_map(n_blocks, n_downsampling, cond_inject)[1:-1]
+    tree: dict = {}
+    for path, name, _ in order:
+        node = tree
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node["act_absmax"] = np.asarray(
+            torch.as_tensor(absmaxes[name]).float().cpu().numpy())
+    return tree
 
 
 def convert_discriminator_params(flax_params: Mapping

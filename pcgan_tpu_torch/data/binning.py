@@ -56,6 +56,33 @@ def all_bins_onehot(n_bins: int, dtype=torch.float32,
     return torch.eye(n_bins, dtype=dtype, device=device)
 
 
+def ramp_f32(stop: float, n: int) -> np.ndarray:
+    """``jnp.linspace(0, stop, n)`` in f32 as XLA computes it, bit for bit:
+    ``i * (stop * (1 / (n - 1)))``, the last point ``stop`` itself
+    (``torch.linspace`` and ``np.linspace`` round some points an ulp
+    apart, which would move a frame's blend)."""
+    if n == 1:
+        return np.zeros(1, np.float32)
+    step = np.float32(stop) * (np.float32(1) / np.float32(n - 1))
+    out = np.arange(n - 1, dtype=np.float32) * step
+    return np.append(out, np.float32(stop)).astype(np.float32)
+
+
+def interp_bins_onehot(n_bins: int, n_frames: int, dtype=torch.float32,
+                       device=None) -> torch.Tensor:
+    """(n_frames, n_bins) SOFT one-hot sweep from bin 0 to bin n_bins-1:
+    frame positions tile [0, n_bins-1] evenly and each row blends the two
+    adjacent bins' one-hots linearly (rows sum to 1; a position on a bin IS
+    that bin's one-hot). The onehot-mode condition of ``test.py --anim``."""
+    p = torch.from_numpy(ramp_f32(float(n_bins - 1), n_frames))
+    lo = torch.clamp(torch.floor(p).long(), 0, n_bins - 1)
+    hi = torch.clamp(lo + 1, 0, n_bins - 1)
+    frac = (p - lo.float())[:, None]
+    eye = torch.eye(n_bins)
+    return ((1.0 - frac) * eye[lo] + frac * eye[hi]).to(dtype=dtype,
+                                                        device=device)
+
+
 # --------------------------------------------------------------------------- #
 # continuous score conditioning (--cond_mode score): the comparator's score
 # normalized to [-1, 1] by the pretraining-time anchor range

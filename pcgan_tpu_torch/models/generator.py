@@ -12,6 +12,11 @@ The age condition (a one-hot over ``n_age_bins``) is broadcast to an HxW map
 and channel-concatenated to the input (``cond_inject='input'``) or to the
 bottleneck features (``'bottleneck'``, followed by a 1x1 projection back to
 the trunk width). ``forward`` takes and returns NHWC, like the JAX module.
+
+``quant_trunk`` (``--quant_int8``) runs the trunk convs in int8
+(``ops/quant.py``): the down convs, the bottleneck projection, both convs of
+every block and the deconvs. Stem and tail stay in the compute dtype, as in
+the JAX package (``generator.py:150-154``).
 """
 
 from __future__ import annotations
@@ -34,12 +39,14 @@ def broadcast_cond(cond: torch.Tensor, h: int, w: int,
 class ResnetBlock(nn.Module):
     def __init__(self, dim: int, norm: str = "instance",
                  use_dropout: bool = False, pad_mode: str = "reflect",
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant: bool = False):
         super().__init__()
         # both convs feed a norm: bias dropped where provably inert
         use_bias = conv_bias_before_norm(norm)
-        self.conv0 = TorchConv(dim, dim, 3, 1, 1, pad_mode, use_bias, dtype)
-        self.conv1 = TorchConv(dim, dim, 3, 1, 1, pad_mode, use_bias, dtype)
+        self.conv0 = TorchConv(dim, dim, 3, 1, 1, pad_mode, use_bias, dtype,
+                               quant)
+        self.conv1 = TorchConv(dim, dim, 3, 1, 1, pad_mode, use_bias, dtype,
+                               quant)
         self.norm = Norm(norm)
         self.dropout = nn.Dropout(0.5) if use_dropout else nn.Identity()
 
@@ -55,7 +62,7 @@ class ResnetGenerator(nn.Module):
                  cond_nc: int = 10, ngf: int = 64, n_blocks: int = 9,
                  n_downsampling: int = 2, norm: str = "instance",
                  use_dropout: bool = False, cond_inject: str = "input",
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant_trunk: bool = False):
         super().__init__()
         if cond_inject not in ("input", "bottleneck"):
             # loud: a typo here must not silently build an UNCONDITIONAL G
@@ -70,22 +77,23 @@ class ResnetGenerator(nn.Module):
                               dtype)
         self.down = nn.ModuleList(
             TorchConv(ngf * 2 ** i, ngf * 2 ** (i + 1), 3, 2, 1, "zero",
-                      norm_bias, dtype)
+                      norm_bias, dtype, quant_trunk)
             for i in range(n_downsampling))
         trunk = ngf * 2 ** n_downsampling
         # project back to the trunk width so blocks stay residual (no norm
         # follows -> bias stays live)
         self.cond_proj = (
             TorchConv(trunk + cond_nc, trunk, 1, 1, 0, "zero",
-                      norm_uses_bias(norm), dtype)
+                      norm_uses_bias(norm), dtype, quant_trunk)
             if cond_inject == "bottleneck" else None)
         self.blocks = nn.ModuleList(
-            ResnetBlock(trunk, norm, use_dropout, dtype=dtype)
+            ResnetBlock(trunk, norm, use_dropout, dtype=dtype,
+                        quant=quant_trunk)
             for _ in range(n_blocks))
         self.up = nn.ModuleList(
             TorchConvTranspose(ngf * 2 ** (n_downsampling - i),
                                ngf * 2 ** (n_downsampling - i) // 2, 3, 2, 1,
-                               1, norm_bias, dtype)
+                               1, norm_bias, dtype, quant_trunk)
             for i in range(n_downsampling))
         self.tail = TorchConv(ngf, output_nc, 7, 1, 3, "reflect", True, dtype)
 

@@ -8,7 +8,10 @@ than relying on autocast: in bf16 the conv runs in bf16 with f32
 accumulation, an f32 bias add promotes, and the result is cast back.
 
 The convs are ``torch.nn.functional.conv2d`` / ``conv_transpose2d`` (cuDNN on
-the card), as the JAX package leaves them to XLA. The bf16-only
+the card), as the JAX package leaves them to XLA. With ``quant`` set (the
+G trunk under ``--quant_int8``) a conv runs in int8 instead
+(``ops/quant.py``), with the JAX package's three activation-scale modes
+(``layers.py:88-110``). The bf16-only
 ``--lowch_matmul`` reformulations of the stem/tail convs compute the same
 function in real arithmetic; the port runs the plain conv for them.
 """
@@ -103,13 +106,70 @@ def init_weights(module: nn.Module, init: Callable,
 _PAD_MODES = {"reflect": "reflect", "replicate": "replicate"}
 
 
-class TorchConv(nn.Module):
+class _QuantSite(nn.Module):
+    """The int8 PTQ state of one conv (``quant=True``).
+
+    ``act_absmax`` (a non-persistent buffer, so G checkpoints are unchanged,
+    as the JAX ``quant`` collection lives beside the params) selects the
+    activation scale:
+    - while ``calibrating`` (``ops.quant.calibrate_quant``): record the
+      running max of ``|xd|`` and quantize dynamically;
+    - calibrated (``act_absmax`` set): the static ``max(absmax, 1e-12)/127``;
+    - uncalibrated (None): dynamic per-tensor quantization.
+    ``freeze_weight`` stores the int8 weight matrix and its scales
+    (``w_q``, ``w_scale``), used instead of quantizing on each call."""
+
+    def _init_quant(self, quant: bool) -> None:
+        self.quant = quant
+        self.calibrating = False
+        if quant:
+            self.register_buffer("act_absmax", None, persistent=False)
+            self.register_buffer("w_q", None, persistent=False)
+            self.register_buffer("w_scale", None, persistent=False)
+
+    def _act_scale(self, xd: torch.Tensor) -> Optional[torch.Tensor]:
+        if self.calibrating:
+            cur = xd.float().abs().amax()
+            self.act_absmax = (cur if self.act_absmax is None
+                               else torch.maximum(self.act_absmax, cur))
+            return None
+        if self.act_absmax is not None:
+            from pcgan_tpu_torch.ops.quant import scale_of
+            return scale_of(self.act_absmax)
+        return None
+
+    def conv_weight(self) -> torch.Tensor:
+        """The OIHW f32 weight of the conv that the int8 path computes."""
+        return self.weight
+
+    def freeze_weight(self) -> None:
+        from pcgan_tpu_torch.ops.quant import quantize_conv_weight
+        with torch.no_grad():
+            self.w_q, self.w_scale = quantize_conv_weight(self.conv_weight())
+
+    def _int8_conv(self, xd: torch.Tensor, stride: int, padding,
+                   dilation: int = 1, scale_from=None) -> torch.Tensor:
+        """``scale_from``: the tensor whose absmax sets the scale (the
+        pre-pad activation of a reflect/replicate conv; padding by
+        reflection cannot raise it)."""
+        from pcgan_tpu_torch.ops.quant import int8_conv
+        qweight = None if self.w_q is None else (self.w_q, self.w_scale)
+        return int8_conv(xd, self.conv_weight(), stride, padding,
+                         lhs_dilation=dilation, out_dtype=self.compute_dtype,
+                         act_scale=self._act_scale(
+                             xd if scale_from is None else scale_from),
+                         qweight=qweight)
+
+
+class TorchConv(_QuantSite):
     """torch ``nn.Conv2d(in, out, k, stride=s, padding=p, bias=b)`` with
-    zero, reflect or replicate padding, computing in ``dtype``."""
+    zero, reflect or replicate padding, computing in ``dtype`` (in int8
+    with ``quant``)."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, pad_mode: str = "zero",
-                 use_bias: bool = True, dtype=torch.float32):
+                 use_bias: bool = True, dtype=torch.float32,
+                 quant: bool = False):
         super().__init__()
         if pad_mode not in ("zero", *_PAD_MODES):
             raise NotImplementedError(f"pad_mode [{pad_mode}]")
@@ -118,6 +178,7 @@ class TorchConv(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(features, in_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self._init_quant(quant)
 
     def hwio_shape(self):
         co, ci, kh, kw = self.weight.shape
@@ -129,26 +190,34 @@ class TorchConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xd = x.to(self.compute_dtype)
-        wd = self.weight.to(self.compute_dtype)
         p = self.padding
-        if self.pad_mode == "zero":
-            y = F.conv2d(xd, wd, stride=self.stride, padding=p)
+        xp = xd
+        if p and self.pad_mode != "zero":
+            xp = F.pad(xd, (p, p, p, p), mode=_PAD_MODES[self.pad_mode])
+        zero_pad = p if self.pad_mode == "zero" else 0
+        if self.quant:
+            y = self._int8_conv(xp, self.stride,
+                                ((zero_pad, zero_pad), (zero_pad, zero_pad)),
+                                scale_from=xd)
         else:
-            if p:
-                xd = F.pad(xd, (p, p, p, p), mode=_PAD_MODES[self.pad_mode])
-            y = F.conv2d(xd, wd, stride=self.stride)
+            y = F.conv2d(xp, self.weight.to(self.compute_dtype),
+                         stride=self.stride, padding=zero_pad)
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
         return y.to(self.compute_dtype)
 
 
-class TorchConvTranspose(nn.Module):
+class TorchConvTranspose(_QuantSite):
     """torch ``nn.ConvTranspose2d(in, out, k, stride=s, padding=p,
-    output_padding=op)``; output size ``(H-1)*s - 2p + k + op``."""
+    output_padding=op)``; output size ``(H-1)*s - 2p + k + op``. With
+    ``quant``, the JAX package's lowering in int8 (``layers.py:341-350``):
+    the flipped kernel over the input with ``s - 1`` zeros inserted
+    between pixels, padded ``(k-1-p, k-1-p+op)``."""
 
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  stride: int = 2, padding: int = 1, output_padding: int = 1,
-                 use_bias: bool = True, dtype=torch.float32):
+                 use_bias: bool = True, dtype=torch.float32,
+                 quant: bool = False):
         super().__init__()
         self.stride, self.padding = stride, padding
         self.output_padding = output_padding
@@ -156,6 +225,7 @@ class TorchConvTranspose(nn.Module):
         self.weight = nn.Parameter(
             torch.empty(in_ch, features, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self._init_quant(quant)
 
     def hwio_shape(self):
         ci, co, kh, kw = self.weight.shape
@@ -167,11 +237,22 @@ class TorchConvTranspose(nn.Module):
         # JAX flips it spatially at apply time (pcgan_tpu/utils/pth_export.py)
         return k.permute(2, 3, 0, 1)
 
+    def conv_weight(self) -> torch.Tensor:
+        from pcgan_tpu_torch.ops.quant import deconv_as_conv_weight
+        return deconv_as_conv_weight(self.weight)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(
-            x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
-            stride=self.stride, padding=self.padding,
-            output_padding=self.output_padding)
+        if self.quant:
+            k = self.weight.shape[2]
+            lo = k - 1 - self.padding
+            hi = lo + self.output_padding
+            y = self._int8_conv(x.to(self.compute_dtype), 1,
+                                ((lo, hi), (lo, hi)), dilation=self.stride)
+        else:
+            y = F.conv_transpose2d(
+                x.to(self.compute_dtype), self.weight.to(self.compute_dtype),
+                stride=self.stride, padding=self.padding,
+                output_padding=self.output_padding)
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
         return y.to(self.compute_dtype)

@@ -33,10 +33,9 @@ def _reject_unported(cfg: Config) -> None:
             f"(resnet_9blocks | resnet_6blocks with deconv upsampling)")
     if name not in _N_BLOCKS:
         raise NotImplementedError(f"netG [{name}] not implemented")
-    for flag, on in (("--g_attn", m.g_attn), ("--quant_int8", m.quant_int8)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to pcgan_tpu_torch yet")
+    if m.g_attn:
+        raise NotImplementedError(
+            "--g_attn is not ported to pcgan_tpu_torch yet")
     _reject_unported_common(cfg)
 
 
@@ -80,7 +79,8 @@ def define_G(cfg: Config,
         cond_nc=cfg.cond_nc, ngf=cfg.model.ngf,
         n_blocks=_N_BLOCKS[cfg.model.netG], norm=cfg.model.norm,
         use_dropout=not cfg.model.no_dropout,
-        cond_inject=cfg.model.cond_inject, dtype=DTYPES[cfg.model.dtype])
+        cond_inject=cfg.model.cond_inject, dtype=DTYPES[cfg.model.dtype],
+        quant_trunk=cfg.model.quant_int8)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train.seed)
     init_weights(G, make_initializer(cfg.model.init_type,

@@ -1,4 +1,4 @@
-"""Aging-progression sampling (counterpart of ``pcgan_tpu/sample.py:22-43, 73-87``).
+"""Aging-progression sampling (counterpart of ``pcgan_tpu/sample.py``).
 
 Given a G and input faces, renders the same identity at every age bin in
 ONE batched forward: the (B, n_bins) product is flattened into the batch.
@@ -6,6 +6,8 @@ Each image is repeated ``n_bins`` times consecutively, the conditions are
 tiled, and the result is reshaped to (B, n_bins, ...), the order of the JAX
 sampler. Under ``--cond_mode score`` the columns sweep the normalized
 comparator score over [-1, 1] in ``n_age_bins`` even steps instead.
+``make_anim_sampler`` renders a smooth ``n_frames`` sweep the same way
+(``test.py --anim``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,24 @@ import torch
 
 from pcgan_tpu_torch.config import Config
 from pcgan_tpu_torch.data.binning import (all_bins_onehot, bin_center_age,
-                                          score_sweep)
+                                          interp_bins_onehot, score_sweep)
+
+
+def _sweep_sampler(G: torch.nn.Module, conds_of):
+    """f(images (B,H,W,C)) -> (B, T, H, W, C): every one of the T condition
+    rows ``conds_of(dtype, device)`` for every input, in one forward."""
+    @torch.no_grad()
+    def sample(images: torch.Tensor) -> torch.Tensor:
+        G.eval()
+        b = images.shape[0]
+        conds = conds_of(images.dtype, images.device)             # (T, K)
+        t = conds.shape[0]
+        x = images.repeat_interleave(t, dim=0)                    # (B*T, ...)
+        c = conds.repeat(b, 1)
+        fakes = G(x, c)
+        return fakes.reshape(b, t, *fakes.shape[1:])
+
+    return sample
 
 
 def make_sampler(cfg: Config, G: torch.nn.Module):
@@ -25,18 +44,21 @@ def make_sampler(cfg: Config, G: torch.nn.Module):
     ``torch.no_grad`` with G in eval mode."""
     nb = cfg.data.n_age_bins
     sweep = score_sweep if cfg.model.cond_mode == "score" else all_bins_onehot
+    return _sweep_sampler(G, lambda dtype, device: sweep(nb, dtype, device))
 
-    @torch.no_grad()
-    def sample(images: torch.Tensor) -> torch.Tensor:
-        G.eval()
-        b = images.shape[0]
-        conds = sweep(nb, images.dtype, images.device)   # (nb, nb) or (nb, 1)
-        x = images.repeat_interleave(nb, dim=0)                     # (B*nb, ...)
-        c = conds.repeat(b, 1)
-        fakes = G(x, c)
-        return fakes.reshape(b, nb, *fakes.shape[1:])
 
-    return sample
+def make_anim_sampler(cfg: Config, G: torch.nn.Module, n_frames: int):
+    """Like ``make_sampler`` over ``n_frames`` conditions, for the smooth
+    aging animation: score mode sweeps [-1, 1]; onehot mode blends adjacent
+    bins' one-hots (``interp_bins_onehot``), so a frame that lands on a bin
+    equals that bin's grid column."""
+    nb = cfg.data.n_age_bins
+    if cfg.model.cond_mode == "score":
+        return _sweep_sampler(
+            G, lambda dtype, device: score_sweep(n_frames, dtype, device))
+    return _sweep_sampler(
+        G, lambda dtype, device: interp_bins_onehot(nb, n_frames, dtype,
+                                                    device))
 
 
 def aging_grid_visuals(cfg: Config, real: np.ndarray,

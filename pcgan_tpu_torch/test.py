@@ -6,8 +6,10 @@ Loads a generator checkpoint and writes aging-progression grids
 forward per input batch. The inputs come from any ported
 ``--dataset_mode``: a UTKFace-style folder in ``aging`` mode reads
 ``{dataroot}/{phase}`` when that folder exists (``--phase test`` by
-default), and ``--host_resize`` resizes on the host. Runs on cuda unless
-``--device cpu``::
+default), and ``--host_resize`` resizes on the host. ``--anim N`` also
+writes an N-frame aging sweep per input as ``{i:04d}_aging.gif`` (Pillow),
+and ``--quant_int8`` samples through the int8 trunk with dynamic scales.
+Runs on cuda unless ``--device cpu``::
 
     python -m pcgan_tpu_torch.test --dataset_mode synthetic --name run \\
         --checkpoints_dir ./checkpoints --results_dir ./results
@@ -33,19 +35,19 @@ def main(argv=None) -> dict:
     if cfg.data.device_cache or cfg.data.device_cache_sharded:
         print("note: --device_cache is a training-loop lever; test.py "
               "streams from the host (flag ignored)", flush=True)
-    if cfg.run.anim:
-        raise NotImplementedError(
-            "--anim is not ported to pcgan_tpu_torch yet (needs a GIF "
-            "encoder without Pillow)")
+    if cfg.run.anim == 1:
+        raise SystemExit("--anim needs >= 2 frames (or 0 to disable)")
 
     import torch
     from pcgan_tpu_torch.data import loader as data_loader
     from pcgan_tpu_torch.device import resolve_device
     from pcgan_tpu_torch.models import define_G
     from pcgan_tpu_torch.ops.preprocess import make_preprocess
-    from pcgan_tpu_torch.sample import aging_grid_visuals, make_sampler
+    from pcgan_tpu_torch.sample import (aging_grid_visuals, make_anim_sampler,
+                                        make_sampler)
     from pcgan_tpu_torch.utils import checkpoint as ckpt
-    from pcgan_tpu_torch.utils.visualizer import HTMLPage, save_visuals_row
+    from pcgan_tpu_torch.utils.visualizer import (HTMLPage, save_animation,
+                                                  save_visuals_row)
 
     device = resolve_device(cfg.run.device)
     web_dir = os.path.join(cfg.run.results_dir, cfg.run.name,
@@ -81,6 +83,8 @@ def main(argv=None) -> dict:
                             resize_to=data_loader.host_resize_size(cfg))
     pre = make_preprocess(cfg, train=False)   # center crop, no flip
     sampler = make_sampler(cfg, G)
+    anim_sampler = (make_anim_sampler(cfg, G, cfg.run.anim)
+                    if cfg.run.anim > 0 else None)
 
     page = HTMLPage(web_dir, title=f"{cfg.run.name} [{cfg.run.epoch}]")
     done, batch_seconds = 0, []
@@ -91,6 +95,8 @@ def main(argv=None) -> dict:
         batch = pre(None, {"image": images})
         imgs = batch["image"].float()
         fakes = sampler(imgs).cpu().numpy()                  # (B, nb, H, W, C)
+        frames = (anim_sampler(imgs).cpu().numpy()           # (B, T, H, W, C)
+                  if anim_sampler is not None else None)
         imgs = imgs.cpu().numpy()
         batch_seconds.append(time.perf_counter() - t0)
         for i in range(imgs.shape[0]):
@@ -98,6 +104,10 @@ def main(argv=None) -> dict:
                 break
             visuals = aging_grid_visuals(cfg, imgs[i], fakes[i])
             save_visuals_row(page, f"{done:04d}", visuals)
+            if frames is not None:
+                fn = f"{done:04d}_aging.gif"
+                save_animation(frames[i], os.path.join(page.img_dir, fn))
+                page.add_images([fn], [f"{cfg.run.anim}-frame sweep"])
             done += 1
         if done >= cfg.run.num_test:
             break

@@ -63,8 +63,10 @@ def main(argv=None) -> dict:
     # default from the run's own opt.json, as in train.py
     cfg = parse_config(argv, is_train=True, opt_defaults="resume")
     if cfg.model.quant_int8:
-        raise SystemExit("--quant_int8 is an inference-only lever; training "
-                         "through int8 quantization has zero gradients")
+        # round() has zero gradient: a quantized trunk would train nothing
+        raise SystemExit("--quant_int8 is an inference-only lever (test.py/"
+                         "export_serving/bench --infer); training through "
+                         "int8 quantization has zero gradients")
     from pcgan_tpu_torch.train import reject_unported_train
     reject_unported_train(cfg)
 

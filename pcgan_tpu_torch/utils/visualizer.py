@@ -1,7 +1,8 @@
 """PNG tiles + HTML results pages (counterpart of ``pcgan_tpu/utils/visualizer.py:17-94``).
 
-PNGs are encoded with the standard library (``zlib`` + ``struct``), so the
-port needs no Pillow.
+PNGs are encoded with the standard library (``zlib`` + ``struct``). The
+animated GIF/WebP of ``test.py --anim`` goes through Pillow, imported when
+it is written, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -54,6 +55,26 @@ def save_image(img, path: str):
     arr = img if img.dtype == np.uint8 else tensor_to_u8(img)
     with open(path, "wb") as f:
         f.write(encode_png(arr))
+
+
+def save_animation(frames, path: str, duration_ms: int = 80):
+    """frames: (T,H,W,C) float in [-1,1] (or u8) -> looping animated image.
+    The extension picks the container: ``.gif`` (256-color quantized) or
+    ``.webp`` (full color, needs a WebP-enabled Pillow)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "--anim writes its GIF/WebP through Pillow, which this host "
+            "lacks; install Pillow or sample without --anim") from e
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arr = np.asarray(frames)
+    ims = [Image.fromarray(f if f.dtype == np.uint8 else tensor_to_u8(f))
+           for f in arr]
+    if len(ims) < 2:
+        raise ValueError(f"animation needs >= 2 frames, got {len(ims)}")
+    ims[0].save(path, save_all=True, append_images=ims[1:],
+                duration=duration_ms, loop=0)
 
 
 class HTMLPage:

@@ -10,7 +10,9 @@ Tolerances: B1 f32 output 2e-5 (summation order only); bf16 output one
 bf16 ulp of the plain value (magnitudes below 2^-7 count as 2^-7). B2:
 1e-5 of the largest entry (exact products, f32 sums in another order), the
 gate ``chip_smoke.py`` holds it to. The evaluator and the Inception
-feature net in f32, card against CPU: 1e-4 of the largest entry.
+feature net in f32, card against CPU: 1e-4 of the largest entry. The int8
+conv's s32 accumulators: equal to the CPU's; a CPU-exported f32 artifact
+on the card: 1e-4 of the CPU's output.
 """
 
 import numpy as np
@@ -323,3 +325,62 @@ def test_inception_on_card_matches_cpu(cuda_device, tmp_path):
         a = f_card(x.to(cuda_device)).cpu().numpy()
         b = f_cpu(x).numpy()
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
+
+
+@pytest.mark.parametrize("ci,h,co,k,s,pads,dil", [
+    (16, 32, 32, 3, 2, ((1, 1), (1, 1)), 1),
+    (32, 10, 32, 3, 1, ((0, 0), (0, 0)), 1),
+    (42, 8, 32, 1, 1, ((0, 0), (0, 0)), 1),
+    (32, 8, 16, 3, 1, ((1, 2), (1, 2)), 2)])
+def test_int8_accumulators_card_equal_cpu(cuda_device, ci, h, co, k, s, pads,
+                                          dil):
+    """The int8 conv's s32 accumulators (cuBLASLt on the card, ATen on the
+    CPU) are the same integers: a stride-2 conv, a block conv, a 1x1 with
+    K = 42 padded to 48, a zero-inserted deconv."""
+    from pcgan_tpu_torch.ops import quant as tq
+    rng = np.random.default_rng(ci)
+    xq = torch.from_numpy(rng.integers(-127, 128, (2, ci, h, h))
+                          .astype(np.int8))
+    wmat, _ = tq.quantize_conv_weight(torch.from_numpy(
+        rng.normal(0, 0.02, (co, ci, k, k)).astype(np.float32)))
+    a, _ = tq.int8_conv_accum(xq, wmat, (k, k), s, pads, dil)
+    b, _ = tq.int8_conv_accum(xq.to(cuda_device), wmat.to(cuda_device),
+                              (k, k), s, pads, dil)
+    assert b.dtype == torch.int32 and torch.equal(a, b.cpu())
+
+
+def test_cpu_exported_artifact_runs_on_card(cuda_device, tmp_path):
+    """An artifact exported on the CPU loads onto the card: f32 within 1e-4
+    of the CPU, batch 1 through the symbolic batch, and an int8 artifact
+    equal to its live G on the card."""
+    import warnings
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_G
+    from pcgan_tpu_torch.ops.quant import calibrate_quant
+    from pcgan_tpu_torch.serving import export_generator, load_exported
+    small = ["--netG", "resnet_6blocks", "--crop_size", "32", "--load_size",
+             "36", "--ngf", "8", "--n_age_bins", "4", "--cond_inject",
+             "bottleneck"]
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-1, 1, (3, 32, 32, 3)).astype(np.float32)
+    c = np.eye(4, dtype=np.float32)[[0, 2, 3]]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        cfg = parse_config(small + ["--dtype", "float32"], is_train=False)
+        export_generator(cfg, define_G(cfg).eval(), str(tmp_path / "f32"))
+        qcfg = parse_config(small + ["--dtype", "bfloat16", "--quant_int8"],
+                            is_train=False)
+        G = define_G(qcfg).to(cuda_device).eval()
+    calibrate_quant(G, [(torch.from_numpy(x).to(cuda_device),
+                         torch.from_numpy(c).to(cuda_device))])
+    export_generator(qcfg, G, str(tmp_path / "int8"))
+    on_card = load_exported(str(tmp_path / "f32"))
+    on_cpu = load_exported(str(tmp_path / "f32"), device="cpu")
+    assert on_card.device.type == "cuda"
+    np.testing.assert_allclose(on_card(x, c), on_cpu(x, c), atol=1e-4)
+    assert on_card(x[:1], c[:1]).shape == (1, 32, 32, 3)
+    with torch.no_grad():
+        want = G(torch.from_numpy(x).to(cuda_device).bfloat16(),
+                 torch.from_numpy(c).to(cuda_device).bfloat16())
+    np.testing.assert_array_equal(load_exported(str(tmp_path / "int8"))(x, c),
+                                  want.float().cpu().numpy())

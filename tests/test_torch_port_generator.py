@@ -135,7 +135,8 @@ def test_define_G_warnings_fire():
 @pytest.mark.parametrize("flags", [
     ["--netG", "unet_128"], ["--netG", "resnet_9blocks@resize_conv"],
     ["--norm", "batch"], ["--norm", "group"], ["--netG", "unet_256"],
-    ["--g_attn"], ["--quant_int8"], ["--dtype", "float16"]])
+    ["--g_attn"], ["--quant_int8", "--netG", "unet_128"],
+    ["--dtype", "float16"]])
 def test_unported_flags_raise(flags):
     cfg = port_parse(SMALL + ["--cond_inject", "bottleneck"] + flags)
     with pytest.raises(NotImplementedError):

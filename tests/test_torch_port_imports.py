@@ -50,7 +50,13 @@ def test_files_exist():
     assert len(FILES) > 10
     rel = {os.path.relpath(f, ROOT) for f in FILES}
     assert {"pcgan_tpu_torch/tools/bench_lowch.py",
-            "pcgan_tpu_torch/train_main.py"} <= rel
+            "pcgan_tpu_torch/train_main.py",
+            # the serving family and int8 PTQ
+            "pcgan_tpu_torch/serving.py", "pcgan_tpu_torch/client.py",
+            "pcgan_tpu_torch/ops/quant.py",
+            "pcgan_tpu_torch/tools/export_serving.py",
+            "pcgan_tpu_torch/tools/serve_http.py",
+            "pcgan_tpu_torch/tools/loadtest.py"} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: os.path.relpath(p, ROOT))

@@ -102,7 +102,26 @@ the one named in phase 2):
     (concurrency 8 x batch 8; its JSON line, then with window 0) beside
     phase 4's grid rate; the image routes over a fixture JPEG, the abuse
     battery, ``POST /reload`` to the int8 artifact under load; B1 on
-    ``test.main --quant_int8 --anim 24``.
+    ``test.main --quant_int8 --anim 24``;
+18. the lever path at full width (``train_utkface_128.sh``'s shape over
+    the synthetic set: resnet_9blocks, ngf/ndf 64, 128 px, batch 32, bf16,
+    10 bins): ``train_main.main`` with every lever at once (the multiscale
+    D under spectral norm with attention, R1, feature matching, the VGG19
+    loss over a seeded trunk written here as a ``.pth``, DiffAugment with
+    ADA, ``--skip_nonfinite``, EMA, grad norms, dropout, TensorBoard) for
+    3 epochs of 10 steps (steps/s, peak memory, the final ``ada_p``), a
+    profiled 2 x 4-step run of it beside the plain step's at the same
+    shape (device ms and launches per step); 4 steps each of
+    ``--gan_mode wgangp``, ``--norm batch`` (then ``test.main`` sampling
+    from its checkpoint) and ``--netD pixel``; ``--grad_accum 4`` against
+    ``--grad_accum 1`` in f32 (every metric and Adam first moment within
+    1e-4 of max(1, max|x|) with cuDNN off, the difference with cuDNN's
+    batch-dependent algorithms reported, each run's peak memory);
+    ``--remat`` against none at 256 px (the peak must fall; the step-time
+    cost); a forced non-finite step (``notfinite_G/D`` 1, params, EMA and
+    Adam counts held) and the cost of the check; one f32 step with
+    spectral norm, the multiscale D, R1 and feature matching, card
+    against CPU.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -2474,6 +2493,390 @@ def phase_serving(torch, tmp, folder, bundle_dir, grid_rate) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: the lever path at full width
+# --------------------------------------------------------------------------- #
+
+LEVER_B, LEVER_STEPS = 32, 10    # 320 synthetic images: 10 steps an epoch
+LEVER_NDF = 64
+LEVER_EPOCHS = 3                 # the all-levers run: 30 steps
+# f32 grad_accum 4 vs 1, of max(1, max|x|), cuDNN off: the stem's weight
+# gradient sums 2^20 terms that its instance norm makes cancel, 5.0e-5
+# apart on an H100 80GB HBM3 at 700 W (1e-5 holds at the CPU tests' size)
+ACCUM_TOL = 1e-4
+LEVER_TOL = 1e-4                 # f32 lever step losses, card vs CPU
+SN_STATE_TOL = 1e-5              # spectral norm's u / sigma, card vs CPU
+REMAT_SIZE, REMAT_LOAD = 256, 286    # train_256_fid.sh's shape
+
+
+def _lever_argv(tmp, name, niter, steps=None, extra=()):
+    """train_utkface_128.sh's shape over the synthetic set: resnet_9blocks,
+    ngf/ndf 64, crop 128 (load 143), batch 32, bf16, 10 bins; ``steps`` an
+    epoch (LEVER_STEPS by default)."""
+    steps = LEVER_STEPS if steps is None else steps
+    return ["--dataset_mode", "synthetic", "--max_dataset_size",
+            str(LEVER_B * steps), "--name", name, "--netG", NETG, "--ngf",
+            str(NGF), "--ndf", str(LEVER_NDF), "--netD", "basic", "--norm",
+            "instance",
+            "--load_size", str(LOAD), "--crop_size", str(CROP),
+            "--batch_size", str(LEVER_B), "--n_age_bins", str(NB),
+            "--gan_mode", "lsgan", "--lambda_L1", "100", "--lr", "0.0002",
+            "--beta1", "0.5", "--pool_size", "64", "--dtype", "bfloat16",
+            "--niter", str(niter), "--niter_decay", "0", "--print_freq", "2",
+            "--save_epoch_freq", "1",
+            "--checkpoints_dir", os.path.join(tmp, "levers"), *extra]
+
+
+def _all_levers(vgg_pth, tb_dir):
+    return ["--netD", "multiscale", "--num_D", "2", "--spectral_norm",
+            "--d_attn", "--lambda_r1", "10", "--lambda_feat", "10",
+            "--lambda_vgg", "10", "--vgg_path", vgg_pth, "--diff_augment",
+            "color,translation,cutout", "--ada_target", "0.6",
+            "--skip_nonfinite", "3", "--ema_decay", "0.999",
+            "--log_grad_norm", "--no-no_dropout", "--tb_logdir", tb_dir]
+
+
+def _lever_rows(run_dir, keys, what):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    check(len(rows) > 0, f"{what}: no metrics rows")
+    for r in rows:
+        for k in keys:
+            check(k in r and bool(np.isfinite(r[k])),
+                  f"{what}: {k} {r.get(k)} at step {r['step']}")
+    return rows
+
+
+def _lever_batch(torch, n, size, seed):
+    rng = np.random.default_rng(seed)
+    return {"image": torch.from_numpy(rng.uniform(
+                -1, 1, (n, size, size, 3)).astype(np.float32)).to(DEV),
+            "bin": torch.from_numpy(rng.integers(0, NB, n)).to(DEV),
+            "target_bin": torch.from_numpy(rng.integers(0, NB, n)).to(DEV)}
+
+
+def _lever_state(torch, argv):
+    """(cfg, state, step) of ``argv`` at full width on the card, from
+    seeded weights (the library route of ``train_main``), at a constant
+    lr."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.train import create_train_state, make_train_step
+    cfg = parse_config([*argv, "--lr_policy", "constant"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        G = define_G(cfg, torch.Generator().manual_seed(7)).to(DEV)
+    D = define_D(cfg, torch.Generator().manual_seed(8)).to(DEV)
+    state = create_train_state(cfg, G, D, torch.Generator().manual_seed(0))
+    return cfg, state, make_train_step(cfg, G, D)
+
+
+def _timed_steps(torch, state, step, batch, warm=3, n=5):
+    """(ms per step over ``n`` steps after ``warm``, peak bytes of the timed
+    steps)."""
+    for _ in range(warm):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(state, batch)
+    torch.cuda.synchronize()
+    return ((time.perf_counter() - t0) * 1e3 / n,
+            torch.cuda.max_memory_allocated())
+
+
+def _lever_accum(torch, tmp) -> dict:
+    """--grad_accum 4 against --grad_accum 1 at the same global batch (32),
+    f32 (TF32 off), pool off, targets pinned: every metric and both nets'
+    Adam first moments within ACCUM_TOL of max(1, max|x|) with cuDNN off
+    (ATen's convs: cuBLAS products whose f32 sums differ only in order).
+    With cuDNN on, its algorithms differ between batch 8 and 32 (the 7x7
+    stem's weight gradient by FFT or not), and the difference is only
+    reported. Each run's peak memory is cuDNN's."""
+    from pcgan_tpu_torch.utils.checkpoint import adam_state
+    batch = _lever_batch(torch, LEVER_B, CROP, 18)
+    runs = {}
+    for cudnn in (True, False):
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            for accum in (1, 4):
+                argv = _lever_argv(tmp, "accum", 1, extra=(
+                    "--dtype", "float32", "--pool_size", "0", "--grad_accum",
+                    str(accum)))
+                _, state, step = _lever_state(torch, argv)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                m = step(state, batch)
+                torch.cuda.synchronize()
+                runs[cudnn, accum] = {
+                    "metrics": {k: float(v) for k, v in m.items()},
+                    "mu": {w: adam_state(o, net)["mu"] for w, o, net in
+                           (("G", state.opt_g, state.G),
+                            ("D", state.opt_d, state.D))},
+                    "peak_gb": torch.cuda.max_memory_allocated() / 2**30,
+                    "step_s": time.perf_counter() - t0}
+                del state, step
+                torch.cuda.empty_cache()
+        finally:
+            torch.backends.cudnn.enabled = True
+
+    def worst(a, b):
+        errs = {k: abs(b["metrics"][k] - v) / max(1.0, abs(v))
+                for k, v in a["metrics"].items()}
+        for w in ("G", "D"):
+            for k, v in a["mu"][w].items():
+                errs[f"{w}.mu.{k}"] = (
+                    float((b["mu"][w][k] - v).abs().max())
+                    / max(1.0, float(v.abs().max())))
+        return sorted(errs.items(), key=lambda kv: -kv[1])[:4]
+    exact = worst(runs[False, 1], runs[False, 4])
+    check(exact[0][1] <= ACCUM_TOL, f"grad_accum 4 vs 1 (cuDNN off): "
+          f"{exact[0][1]} > {ACCUM_TOL}: {exact}")
+    return {"max_rel_err": exact[0][1], "tol": ACCUM_TOL, "worst": exact,
+            "cudnn_on_worst": worst(runs[True, 1], runs[True, 4]),
+            # the same batch-32 step, cuDNN on against off: f32 noise alone
+            "cudnn_vs_aten_accum1": worst(runs[False, 1], runs[True, 1]),
+            "peak_gb": {a: runs[True, a]["peak_gb"] for a in (1, 4)},
+            "first_step_s": {a: runs[True, a]["step_s"] for a in (1, 4)}}
+
+
+def _lever_remat(torch, tmp) -> dict:
+    """--remat (every block) against none at train_256_fid.sh's shape
+    (256 px, batch 32, bf16): peak memory of the timed steps must fall."""
+    batch = _lever_batch(torch, LEVER_B, REMAT_SIZE, 19)
+    out = {}
+    for name, extra in (("plain", ()), ("remat", ("--remat",))):
+        argv = _lever_argv(tmp, "remat", 1, extra=(
+            "--crop_size", str(REMAT_SIZE), "--load_size", str(REMAT_LOAD),
+            *extra))
+        _, state, step = _lever_state(torch, argv)
+        ms, peak = _timed_steps(torch, state, step, batch)
+        out[name] = {"ms_per_step": ms, "peak_gb": peak / 2**30}
+        del state, step
+        torch.cuda.empty_cache()
+    check(out["remat"]["peak_gb"] < out["plain"]["peak_gb"],
+          f"remat: peak memory did not fall {out}")
+    out["memory_saved_gb"] = out["plain"]["peak_gb"] - out["remat"]["peak_gb"]
+    out["step_time_cost"] = out["remat"]["ms_per_step"] / out["plain"][
+        "ms_per_step"]
+    return out
+
+
+def _lever_nonfinite(torch, tmp) -> dict:
+    """A forced non-finite step (an inf in the batch) at full width, bf16,
+    --skip_nonfinite 3 --ema_decay 0.999: notfinite_G/D read 1 and the
+    params, the EMA twin and both Adam counts hold; the next finite step
+    moves them. Then the check's own cost: check_finite over G's and D's
+    gradients, and five steps with and without the flag."""
+    from pcgan_tpu_torch.train import adam_count, check_finite, init_skip_state
+    argv = _lever_argv(tmp, "skip", 1, extra=(
+        "--skip_nonfinite", "3", "--ema_decay", "0.999"))
+    _, state, step = _lever_state(torch, argv)
+    good = _lever_batch(torch, LEVER_B, CROP, 20)
+    bad = {k: v.clone() for k, v in good.items()}
+    bad["image"][0, 5, 7, 1] = float("inf")
+
+    def snap():
+        return ({k: v.detach().clone() for k, v in
+                 state.G.state_dict().items()},
+                {k: v.clone() for k, v in state.ema.items()},
+                int(adam_count(state.opt_g)), int(adam_count(state.opt_d)))
+    step(state, good)
+    g0, e0, cg0, cd0 = snap()
+    m = {k: float(v) for k, v in step(state, bad).items()}
+    g1, e1, cg1, cd1 = snap()
+    check(m["notfinite_G"] == 1 and m["notfinite_D"] == 1,
+          f"non-finite step: counters {m}")
+    check(all(torch.equal(g0[k], g1[k]) for k in g0)
+          and all(torch.equal(e0[k], e1[k]) for k in e0)
+          and (cg1, cd1) == (cg0, cd0) == (1, 1),
+          f"non-finite step: state moved (counts G {cg0}->{cg1}, D "
+          f"{cd0}->{cd1})")
+    m2 = {k: float(v) for k, v in step(state, good).items()}
+    g2, _, cg2, cd2 = snap()
+    check((cg2, cd2) == (2, 2) and m2["notfinite_G"] == 1
+          and not all(torch.equal(g1[k], g2[k]) for k in g1),
+          f"after the skipped step: counts {cg2}, {cd2}, {m2}")
+    grads = ([torch.randn_like(p) for p in state.G.parameters()]
+             + [torch.randn_like(p) for p in state.D.parameters()])
+    skip = init_skip_state(DEV)
+    check_ms = cuda_ms(torch, lambda: check_finite(grads, skip, 3), iters=50)
+    on_ms, _ = _timed_steps(torch, state, step, good)
+    del state, step
+    _, state, step = _lever_state(torch, _lever_argv(tmp, "noskip", 1, extra=(
+        "--ema_decay", "0.999")))
+    off_ms, _ = _timed_steps(torch, state, step, good)
+    del state, step
+    torch.cuda.empty_cache()
+    return {"metrics_bad_step": m, "check_finite_ms": check_ms,
+            "n_grad_tensors": len(grads), "step_ms_skip_on": on_ms,
+            "step_ms_skip_off": off_ms}
+
+
+def _lever_parity(torch) -> dict:
+    """One f32 step (TF32 off) with spectral norm, the multiscale D, R1 and
+    feature matching, card against CPU from the same seeded weights: losses
+    within LEVER_TOL, parameters within the Adam first-step envelope, the
+    spectral norm state within SN_STATE_TOL."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.train import create_train_state, make_train_step
+    cfg = parse_config(["--netG", "resnet_6blocks", "--ngf", "16", "--ndf",
+                        "16", "--crop_size", "32", "--load_size", "32",
+                        "--batch_size", "4", "--n_age_bins", "4",
+                        "--pool_size", "0", "--dtype", "float32",
+                        "--cond_inject", "bottleneck", "--lr_policy",
+                        "constant", "--netD", "multiscale", "--num_D", "2",
+                        "--n_layers_D", "2", "--spectral_norm",
+                        "--lambda_r1", "10", "--lambda_feat", "10"])
+    rng = np.random.default_rng(21)
+    batch = {"image": torch.from_numpy(
+                 rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)),
+             "bin": torch.from_numpy(rng.integers(0, 4, 4)),
+             "target_bin": torch.from_numpy(rng.integers(0, 4, 4))}
+    runs = {}
+    for dev in ("cpu", DEV):
+        G = define_G(cfg, torch.Generator().manual_seed(7)).to(dev)
+        D = define_D(cfg, torch.Generator().manual_seed(8)).to(dev)
+        state = create_train_state(cfg, G, D, torch.Generator().manual_seed(0))
+        m = make_train_step(cfg, G, D)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        runs[dev] = ({k: float(v) for k, v in m.items()},
+                     {f"{n}.{k}": v.detach().cpu() for n, net in
+                      (("G", G), ("D", D))
+                      for k, v in net.state_dict().items()})
+    (mc, pc), (mg, pg) = runs["cpu"], runs[DEV]
+    loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
+    check(loss_err <= LEVER_TOL, f"lever parity: losses differ by {loss_err}"
+          f" (cpu {mc}, card {mg})")
+    g0 = define_G(cfg, torch.Generator().manual_seed(7)).state_dict()
+    d0 = define_D(cfg, torch.Generator().manual_seed(8)).state_dict()
+    init = {**{f"G.{k}": v for k, v in g0.items()},
+            **{f"D.{k}": v for k, v in d0.items()}}
+    worst = {"max": 0.0, "median": 0.0, "frac": 0.0}
+    sn_err = 0.0
+    for k, v0 in init.items():
+        if ".sn." in k:
+            sn_err = max(sn_err, float((pc[k] - pg[k]).abs().max()))
+            continue
+        diff = ((pc[k] - v0) - (pg[k] - v0)).abs().numpy()
+        worst["max"] = max(worst["max"], float(diff.max()))
+        worst["median"] = max(worst["median"], float(np.median(diff)))
+        worst["frac"] = max(worst["frac"], float((diff > 0.25 * LR).mean()))
+    check(worst["max"] <= 2.1 * LR and worst["median"] < 2e-6
+          and worst["frac"] < 2e-3,
+          f"lever parity: parameters outside the Adam envelope {worst}")
+    check(sn_err <= SN_STATE_TOL, f"lever parity: spectral norm state "
+          f"differs by {sn_err}")
+    return {"loss_max_rel_err": loss_err, "param_delta_diff": worst,
+            "sn_state_max_abs_err": sn_err, "losses_card": mg}
+
+
+def phase_levers(torch, tmp) -> dict:
+    """Phase 18: the lever path at full width (resnet_9blocks, ngf/ndf 64,
+    128 px, batch 32, bf16, 10 bins over the synthetic set)."""
+    from pcgan_tpu_torch import test as port_test
+    from pcgan_tpu_torch.models.vgg import random_vgg19
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    t0 = time.perf_counter()
+    vgg_pth = os.path.join(tmp, "vgg19_seeded.pth")
+    torch.save(random_vgg19(0).state_dict(), vgg_pth)
+    tb_dir = os.path.join(tmp, "tb")
+    levers = _all_levers(vgg_pth, tb_dir)
+    out, launches = {}, {}
+
+    # all levers at once
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res, b1, b2, wall = _train_run(torch, _lever_argv(
+        tmp, "levers_all", LEVER_EPOCHS, extra=levers))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n = LEVER_EPOCHS * LEVER_STEPS
+    check(res["step"] == n and b1 == n and b2 == 0,
+          f"all levers: {res['step']} steps, {b1} B1 / {b2} B2 launches")
+    keys = ("loss_G", "loss_D", "loss_D_r1", "loss_G_feat", "loss_G_vgg",
+            "ada_p", "ada_rt", "grad_norm_G", "grad_norm_D", "notfinite_G",
+            "notfinite_D")
+    rows = _lever_rows(os.path.join(tmp, "levers", "levers_all"), keys,
+                       "all levers")
+    check(rows[-1]["notfinite_G"] == 0 and rows[-1]["notfinite_D"] == 0,
+          f"all levers: skipped updates {rows[-1]}")
+    check(len(os.listdir(os.path.join(tb_dir, "levers_all"))) == 1,
+          "all levers: no TensorBoard event file")
+    launches["all_levers"] = b1
+    rates = _epoch_rates(res["epochs"])
+    out["all_levers"] = {"steps": n, "cli_wall_s": wall,
+                         "rates": rates, "peak_gb": peak,
+                         "final_ada_p": rows[-1]["ada_p"],
+                         "last_row": rows[-1]}
+    say(f"levers (all at once, 30 steps): {_rates_str(rates, LEVER_B)}; "
+        f"peak {peak:.3f} GB allocated; final ada_p {rows[-1]['ada_p']}")
+    prof = _profile_train(torch, tmp, argv=_lever_argv(
+        tmp, "levers_profile", 2, steps=4, extra=levers), what="lever step")
+    plain = _profile_train(torch, tmp, argv=_lever_argv(
+        tmp, "plain_profile", 2, steps=4), what="plain step (same shape)")
+    launches["profiles"] = prof["launches"] + plain["launches"]
+    out["all_levers"]["profile"] = prof
+    out["plain_profile"] = plain
+    out["lever_over_plain_device_ms"] = (prof["device_ms_per_step"]
+                                         / plain["device_ms_per_step"])
+    say(f"levers: device {prof['device_ms_per_step']:.3f} ms and "
+        f"{prof['device_launches_per_step']:.1f} launches per step against "
+        f"the plain step's {plain['device_ms_per_step']:.3f} ms and "
+        f"{plain['device_launches_per_step']:.1f}: "
+        f"x{out['lever_over_plain_device_ms']:.3f}")
+
+    # one lever each: wgangp, batch norm (then sampling), the pixel D
+    for name, extra, keys in (
+            ("wgangp", ("--gan_mode", "wgangp"), ("loss_D", "loss_G")),
+            ("batch_norm", ("--norm", "batch"), ("loss_D", "loss_G")),
+            ("pixel", ("--netD", "pixel"), ("loss_D", "loss_G"))):
+        res, b1, _, wall = _train_run(torch, _lever_argv(
+            tmp, f"levers_{name}", 1, steps=4, extra=extra))
+        check(res["step"] == 4 and b1 == 4, f"{name}: {res['step']} steps, "
+              f"{b1} B1 launches")
+        _lever_rows(os.path.join(tmp, "levers", f"levers_{name}"), keys,
+                    name)
+        launches[name] = b1
+        out[name] = {"cli_wall_s": wall, "metrics": res["metrics"]}
+    cp.launches = 0
+    res = port_test.main([
+        "--dataset_mode", "synthetic", "--max_dataset_size", "8",
+        "--num_test", "8", "--batch_size", "8", "--netG", NETG, "--ngf",
+        str(NGF), "--norm", "batch", "--crop_size", str(CROP), "--load_size",
+        str(LOAD), "--n_age_bins", str(NB), "--dtype", "bfloat16",
+        "--name", "levers_batch_norm",
+        "--checkpoints_dir", os.path.join(tmp, "levers"),
+        "--results_dir", os.path.join(tmp, "levers_res")])
+    check(res["done"] == 8 and cp.launches > 0,
+          f"batch-norm sampling: {res['done']} grids, {cp.launches} B1")
+    launches["batch_norm_sampling"] = cp.launches
+    grid = read_png(os.path.join(res["web_dir"], "images",
+                                 os.listdir(os.path.join(
+                                     res["web_dir"], "images"))[0]))
+    check(grid.std() > 0, "batch-norm sampling: a flat grid image")
+    say(f"levers: wgangp, batch norm (and its sampling grid, "
+        f"{res['done']} inputs) and the pixel D trained 4 steps each")
+
+    out["accum"] = _lever_accum(torch, tmp)
+    say(f"levers: grad_accum 4 vs 1 (f32, batch 32): "
+        f"{json.dumps(out['accum'])}")
+    out["remat"] = _lever_remat(torch, tmp)
+    say(f"levers: remat at {REMAT_SIZE} px, batch 32, bf16: "
+        f"{json.dumps(out['remat'])}")
+    out["nonfinite"] = _lever_nonfinite(torch, tmp)
+    say(f"levers: forced non-finite step: {json.dumps(out['nonfinite'])}")
+    out["parity"] = _lever_parity(torch)
+    say(f"levers: card-vs-CPU parity (f32, TF32 off, SN + multiscale + R1 + "
+        f"FM, one step): {json.dumps(out['parity'])}")
+    out["launches_per_run"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase 18 (levers): {out['seconds']:.1f} s")
+    return out
+
+
 def _face_row(folder, i) -> np.ndarray:
     """Image i of the folder as the host's image routes give it to G: f32
     [-1, 1] at the crop size (the folder's 200 px canvas resized)."""
@@ -2527,6 +2930,7 @@ def main() -> None:
         evaluation = phase_eval(torch, tmp, path3["bundle_dir"])
         serving = phase_serving(torch, tmp, folder, path3["bundle_dir"],
                                 sampling["rate"])
+        levers = phase_levers(torch, tmp)
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
         "training": path1["launches_per_run"], "bench_lowch": 0,
@@ -2535,7 +2939,8 @@ def main() -> None:
         "real_images": path4["launches_per_run"],
         "label_free": label_free["launches_per_run"],
         "evaluation": evaluation["launches_per_run"],
-        "serving": serving["launches_per_run"]}
+        "serving": serving["launches_per_run"],
+        "levers": levers["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
@@ -2544,13 +2949,13 @@ def main() -> None:
                                "sampling": 0, "comparator": 0,
                                "training_cond": 0, "real_images": 0,
                                "label_free": 0, "evaluation": 0,
-                               "serving": 0}
+                               "serving": 0, "levers": 0}
     b2["launches"] = path2["launches"] + path1["b2_launches"]
     check(b1["launches"] > 0 and b2["launches"] > 0
           and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving}, default=_jsonable)}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)

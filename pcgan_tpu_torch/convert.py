@@ -5,7 +5,14 @@ The flax tree of ``pcgan_tpu``'s ResnetGenerator names its convs by creation
 order (``TorchConv_N`` / ``ResnetBlock_i`` / ``TorchConvTranspose_i``; with
 bottleneck injection the 1x1 projection takes ``TorchConv_{nd+1}`` and the
 tail's index shifts by one), the walk of ``pcgan_tpu/utils/pth_import.py:39-60``.
-The discriminator's convs are ``TorchConv_0..n`` in order. Kernels are
+Its norms are ``Norm_k/{BatchNorm_0,GroupNorm_0}`` in creation order (the
+stem's, the down convs', the up convs'; ``ResnetBlock_i/Norm_{0,1}``), their
+``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` becoming
+``weight``/``bias``/``running_mean``/``running_var``. The discriminators'
+convs are ``TorchConv_0..n`` in order (under ``D_k/`` for the multiscale
+D), their norms ``Norm_k``, the attention's 1x1 convs ``attn/{theta,phi,
+g,o}``, and spectral norm's ``batch_stats`` ``SpectralNorm_j/<conv>/
+kernel/{u,sigma}`` become ``<conv>.sn.{u,sigma}``. Kernels are
 HWIO: conv weights become OIHW, deconv weights become ``ConvTranspose2d``'s
 ``(Cin, Cout, kH, kW)`` by ``transpose(2, 3, 0, 1)`` with no flip
 (``pcgan_tpu/utils/pth_export.py:84-94``). Biases exist only where the flax
@@ -131,17 +138,6 @@ def _walk(flat: Mapping, order) -> "Tuple[OrderedDict[str, torch.Tensor], set]":
     return sd, used
 
 
-def _convert(flax_params: Mapping, order_of, what: str
-             ) -> "OrderedDict[str, torch.Tensor]":
-    flat = flatten_params(flax_params)
-    sd, used = _walk(flat, order_of(flat))
-    left = sorted(set(flat) - used)
-    if left:
-        raise ValueError(f"flax tensors with no place in the port's {what}: "
-                         f"{left}")
-    return sd
-
-
 def _generator_order(flat: Mapping):
     n_blocks = _count(flat, r"ResnetBlock_\d+/")
     n_down = _count(flat, r"TorchConvTranspose_\d+/")
@@ -153,21 +149,75 @@ def _generator_order(flat: Mapping):
     return resnet_param_map(n_blocks, n_down, inject)
 
 
-def _discriminator_order(flat: Mapping):
-    """NLayerDiscriminator: flax ``TorchConv_0..n`` -> ``convs.0..n``."""
-    n = _count(flat, r"TorchConv_\d+/")
-    if n < 3 or any(f"TorchConv_{i}/kernel" not in flat for i in range(n)):
-        raise ValueError(f"not an NLayerDiscriminator tree: {sorted(flat)}")
-    return [(f"TorchConv_{i}", f"convs.{i}", "conv") for i in range(n)]
+# flax norm leaves -> the port's (batch norm: params and running stats)
+_NORM_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+                "var": "running_var"}
 
 
-def convert_generator_params(flax_params: Mapping
+def _norm_key(parts, site: str) -> str:
+    """``Norm_k/<BatchNorm_0|GroupNorm_0>/<leaf>`` -> ``<site>.<leaf>``."""
+    if len(parts) != 3 or parts[1] not in ("BatchNorm_0", "GroupNorm_0"):
+        raise KeyError("/".join(parts))
+    return f"{site}.{_NORM_LEAVES[parts[2]]}"
+
+
+def _generator_translator(flat: Mapping):
+    """flax key of a resnet G's params or batch_stats -> (port key, kind).
+    Norm sites in creation order: the stem's, the down convs', the up
+    convs' (``Norm_k``); each block's ``Norm_0`` / ``Norm_1``."""
+    convs = {path: (name, kind) for path, name, kind in
+             _generator_order(flat)}
+    n_down = _count(flat, r"TorchConvTranspose_\d+/")
+    sites = (["stem_norm"] + [f"down_norm.{i}" for i in range(n_down)]
+             + [f"up_norm.{i}" for i in range(n_down)])
+
+    def translate(key: str):
+        parts = key.split("/")
+        if parts[0].startswith("ResnetBlock_") and parts[1].startswith(
+                "Norm_"):
+            site = f"blocks.{parts[0][12:]}.norm{parts[1][5:]}"
+            return _norm_key(parts[1:], site), "plain"
+        if parts[0].startswith("Norm_"):
+            return _norm_key(parts, sites[int(parts[0][5:])]), "plain"
+        name, kind = convs["/".join(parts[:-1])]
+        if parts[-1] == "kernel":
+            return f"{name}.weight", kind
+        return f"{name}.{parts[-1]}", "plain"
+    return translate
+
+
+def _translate_tree(flat: Mapping, translate, what: str,
+                    state: Mapping = None
+                    ) -> "OrderedDict[str, torch.Tensor]":
+    """Every tensor of a '/'-flat flax tree (plus its ``batch_stats``
+    collection when ``state`` is given) under the port's name, kernels in
+    the port's layout; a tensor with no place raises."""
+    flat = dict(flat)
+    if state:
+        flat.update(flatten_params(state.get("batch_stats", state)))
+    to_torch = {"conv": conv_weight_from_flax,
+                "deconv": deconv_weight_from_flax, "plain": np.asarray}
+    sd: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for key, v in flat.items():
+        try:
+            name, kind = translate(key)
+        except (KeyError, ValueError, IndexError):
+            raise ValueError(f"flax tensors with no place in the port's "
+                             f"{what}: {[key]}") from None
+        sd[name] = torch.from_numpy(np.array(to_torch[kind](v), np.float32))
+    return sd
+
+
+def convert_generator_params(flax_params: Mapping, state: Mapping = None
                              ) -> "OrderedDict[str, torch.Tensor]":
     """Flax ResnetGenerator params (nested or '/'-flat, numpy or jax
-    arrays) -> a ``state_dict`` for ``ResnetGenerator``. The block count,
+    arrays) -> a ``state_dict`` for ``ResnetGenerator``; with ``state`` (the
+    G's ``batch_stats`` collection) the running stats too. The block count,
     the downsampling depth and the injection site are read off the tree;
     every flax tensor must be consumed."""
-    return _convert(flax_params, _generator_order, "generator")
+    flat = flatten_params(flax_params)
+    return _translate_tree(flat, _generator_translator(flat), "generator",
+                           state)
 
 
 def _quant_order(flat: Mapping):
@@ -218,76 +268,138 @@ def generator_quant_to_flax(absmaxes: Mapping, n_blocks: int,
     return tree
 
 
-def convert_discriminator_params(flax_params: Mapping
+def _d_module(mod) -> str:
+    out = []
+    for c in mod:
+        if c.startswith("TorchConv_"):
+            out.append(f"convs.{c[10:]}")
+        elif c.startswith("D_") or c in ("attn", "theta", "phi", "g", "o"):
+            out.append(c)
+        else:
+            raise KeyError(c)
+    return ".".join(out)
+
+
+def _discriminator_key(key: str):
+    """flax key of an NLayer / pixel / multiscale D's params or batch_stats
+    -> (port key, kind): ``TorchConv_i`` -> ``convs.i``, ``Norm_k`` ->
+    ``norms.k``, the attention's ``attn/<theta|phi|g|o>`` 1x1 convs and
+    ``attn/gamma``, ``D_k/`` prefixes, and spectral norm's
+    ``SpectralNorm_j/<conv>/kernel/<u|sigma>`` -> ``<conv>.sn.<u|sigma>``."""
+    parts = [c for c in key.split("/") if not c.startswith("SpectralNorm_")]
+    if parts[-1] in ("u", "sigma"):
+        if parts[-2] != "kernel":
+            raise KeyError(key)
+        return f"{_d_module(parts[:-2])}.sn.{parts[-1]}", "plain"
+    if len(parts) >= 3 and parts[-3].startswith("Norm_"):
+        site = ".".join(parts[:-3] + [f"norms.{parts[-3][5:]}"])
+        return _norm_key(parts[-3:], site), "plain"
+    *mod, leaf = parts
+    if leaf == "kernel":
+        return f"{_d_module(mod)}.weight", "conv"
+    return ".".join([_d_module(mod), leaf] if mod else [leaf]), "plain"
+
+
+def convert_discriminator_params(flax_params: Mapping, state: Mapping = None
                                  ) -> "OrderedDict[str, torch.Tensor]":
-    """Flax NLayerDiscriminator params -> a ``state_dict`` for the port's
-    ``NLayerDiscriminator`` (HWIO -> OIHW; every tensor consumed)."""
-    return _convert(flax_params, _discriminator_order, "discriminator")
+    """Flax discriminator params (NLayer, pixel or multiscale, with
+    ``--d_attn``'s attention) -> a ``state_dict`` for the port's module;
+    with ``state`` (``d_state``, the ``batch_stats`` collection) spectral
+    norm's u/sigma and batch norm's running stats too. Every flax tensor
+    must be consumed."""
+    return _translate_tree(flatten_params(flax_params), _discriminator_key,
+                           "discriminator", state)
 
 
 def _adam_moments(opt_state):
-    """The ScaleByAdamState (count, mu, nu) inside an optax.adam state."""
-    for s in opt_state if isinstance(opt_state, (tuple, list)) else [opt_state]:
-        if hasattr(s, "mu") and hasattr(s, "nu"):
-            return s
+    """The ScaleByAdamState (count, mu, nu) inside an optax.adam state
+    (also under ``optax.apply_if_finite``)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if hasattr(opt_state, "inner_state"):
+        return _adam_moments(opt_state.inner_state)
+    if isinstance(opt_state, (tuple, list)):
+        for s in opt_state:
+            try:
+                return _adam_moments(s)
+            except ValueError:
+                pass
     raise ValueError("no Adam moments (mu/nu) in the optimizer state")
+
+
+def _skip_counters(opt_state):
+    """``optax.apply_if_finite``'s counters, or None without the wrapper."""
+    if not hasattr(opt_state, "notfinite_count"):
+        return None
+    return {k: torch.tensor(np.asarray(getattr(opt_state, k)))
+            for k in ("notfinite_count", "last_finite", "total_notfinite")}
 
 
 def convert_train_state(jax_state) -> dict:
     """A JAX ``pcgan_tpu.train.TrainState`` (its arrays, fetched to the host)
     -> the payload ``pcgan_tpu_torch.utils.checkpoint.load_state`` takes:
-    G and D ``state_dict``s, both optimizers' count and Adam moments ``mu``
-    / ``nu`` under the port's parameter names, the EMA twin, the pool, the
-    step, ``lr_scale`` and plateau memory. The JAX key has no torch
-    counterpart; the port's step generator is left as it is."""
+    G and D ``state_dict``s with their ``g_state`` / ``d_state`` (spectral
+    norm's u/sigma, batch norm's running stats), both optimizers' count and
+    Adam moments ``mu`` / ``nu`` under the port's parameter names and
+    their ``--skip_nonfinite`` counters, the EMA twin, the pool, the step,
+    ADA's p, ``lr_scale`` and plateau memory. The JAX key has no torch
+    counterpart; the port's generators are left as they are."""
     def opt(opt_state, convert):
         adam = _adam_moments(opt_state)
         return {"count": int(np.asarray(adam.count)),
-                "mu": convert(adam.mu), "nu": convert(adam.nu)}
+                "mu": convert(adam.mu), "nu": convert(adam.nu),
+                "skip": _skip_counters(opt_state)}
 
     gs = jax_state
     pool = gs.pool
     return {
         "step": int(np.asarray(gs.step)),
-        "G": convert_generator_params(gs.g_params),
-        "D": convert_discriminator_params(gs.d_params),
+        "G": convert_generator_params(gs.g_params, gs.g_state),
+        "D": convert_discriminator_params(gs.d_params, gs.d_state),
         "opt_g": opt(gs.g_opt, convert_generator_params),
         "opt_d": opt(gs.d_opt, convert_discriminator_params),
         "ema": (None if gs.ema_params is None
                 else convert_generator_params(gs.ema_params)),
         "pool": {k: torch.from_numpy(np.array(getattr(pool, k)))
                  for k in ("imgs", "conds", "count")},
+        "aug_p": (None if gs.aug_p is None
+                  else float(np.asarray(gs.aug_p))),
         "lr_scale": float(np.asarray(gs.lr_scale)),
         "plateau_best": float(np.asarray(gs.plateau_best)),
         "plateau_bad": float(np.asarray(gs.plateau_bad)),
     }
 
 
-def convert_comparator_params(flax_params: Mapping
+def _comparator_key(key: str):
+    parts = key.split("/")
+    heads = {"Dense_0": "fc", "Dense_1": "head"}
+    if parts[0] in heads and len(parts) == 2:
+        leaf = "weight" if parts[1] == "kernel" else parts[1]
+        return f"{heads[parts[0]]}.{leaf}", "plain"
+    if parts[0].startswith("Norm_"):
+        return _norm_key(parts, f"norms.{parts[0][5:]}"), "plain"
+    if parts[0].startswith("TorchConv_") and len(parts) == 2:
+        if parts[1] == "kernel":
+            return f"convs.{parts[0][10:]}.weight", "conv"
+        return f"convs.{parts[0][10:]}.{parts[1]}", "plain"
+    raise KeyError(key)
+
+
+def convert_comparator_params(flax_params: Mapping, state: Mapping = None
                               ) -> "OrderedDict[str, torch.Tensor]":
     """Flax Comparator params -> a ``state_dict`` for the port's
     ``Comparator``: ``TorchConv_i`` -> ``convs.i`` (HWIO -> OIHW),
-    ``Dense_0`` / ``Dense_1`` -> ``fc`` / ``head`` (kernel transposed).
-    Every flax tensor must be consumed."""
-    def order(flat):
-        n = _count(flat, r"TorchConv_\d+/")
-        if n < 1 or any(f"Dense_{i}/kernel" not in flat for i in (0, 1)):
-            raise ValueError(f"not a Comparator tree: {sorted(flat)}")
-        return [(f"TorchConv_{i}", f"convs.{i}", "conv") for i in range(n)]
-
+    ``Norm_k`` -> ``norms.k`` (with ``state``, batch norm's running stats
+    too), ``Dense_0`` / ``Dense_1`` -> ``fc`` / ``head`` (the (in, out)
+    kernel transposed to Linear's (out, in)). Every flax tensor must be
+    consumed."""
     flat = flatten_params(flax_params)
-    sd, used = _walk(flat, order(flat))
-    for path, name in (("Dense_0", "fc"), ("Dense_1", "head")):
-        sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(
-            np.asarray(flat[f"{path}/kernel"], np.float32).T))
-        sd[f"{name}.bias"] = torch.from_numpy(
-            np.asarray(flat[f"{path}/bias"], np.float32).copy())
-        used |= {f"{path}/kernel", f"{path}/bias"}
-    left = sorted(set(flat) - used)
-    if left:
-        raise ValueError(f"flax tensors with no place in the port's "
-                         f"comparator: {left}")
-    return sd
+    if _count(flat, r"TorchConv_\d+/") < 1 or any(
+            f"Dense_{i}/kernel" not in flat for i in (0, 1)):
+        raise ValueError(f"not a Comparator tree: {sorted(flat)}")
+    flat = {k: (np.asarray(v).T if k.startswith("Dense_")
+                and k.endswith("/kernel") else v) for k, v in flat.items()}
+    return _translate_tree(flat, _comparator_key, "comparator", state)
 
 
 def convert_comparator_state(jax_state) -> dict:
@@ -297,7 +409,8 @@ def convert_comparator_state(jax_state) -> dict:
     step. The JAX key has no torch counterpart."""
     adam = _adam_moments(jax_state.opt)
     return {"step": int(np.asarray(jax_state.step)),
-            "C": convert_comparator_params(jax_state.params),
+            "C": convert_comparator_params(jax_state.params,
+                                           jax_state.state),
             "opt": {"count": int(np.asarray(adam.count)),
                     "mu": convert_comparator_params(adam.mu),
                     "nu": convert_comparator_params(adam.nu)}}
@@ -309,7 +422,12 @@ def convert_comparator_bundle(payload: Mapping) -> dict:
     None) -> the port's ``comparator.pt`` payload. ``cmp_nf``, ``cmp_n_down``
     and ``norm`` are read off the tree; the JAX bundle does not record the
     compute dtype that pretrained it, so the payload has none."""
-    sd = convert_comparator_params(payload["c_vars"])
+    c_vars = payload["c_vars"]
+    if "params" in c_vars:          # a variables dict: params + batch_stats
+        sd = convert_comparator_params(c_vars["params"],
+                                       c_vars.get("batch_stats"))
+    else:
+        sd = convert_comparator_params(c_vars)
     n_down = sum(1 for k in sd if k.startswith("convs.")
                  and k.endswith(".weight"))
     means = payload.get("bin_means")
@@ -321,7 +439,9 @@ def convert_comparator_bundle(payload: Mapping) -> dict:
             "bin_means": None if means is None else f32(means),
             "cmp_nf": int(sd["convs.0.weight"].shape[0]),
             "cmp_n_down": n_down,
-            "norm": "none" if "convs.1.bias" in sd else "instance"}
+            "norm": ("batch" if "norms.0.running_mean" in sd
+                     else "group" if "norms.0.weight" in sd
+                     else "none" if "convs.1.bias" in sd else "instance")}
 
 
 # --------------------------------------------------------------------------- #
@@ -377,8 +497,8 @@ def convert_inception_params(flax_params: Mapping
 
 def convert_vgg16_params(flax_params: Mapping
                          ) -> "OrderedDict[str, torch.Tensor]":
-    """Flax ``VGG16Taps`` params (``conv_<i>`` HWIO + bias) -> a
-    ``state_dict`` for the port's ``VGG16Taps`` (``features.<i>``)."""
+    """Flax ``VGG16Taps`` / ``VGG19Taps`` params (``conv_<i>`` HWIO + bias)
+    -> a ``state_dict`` for the port's trunk (``features.<i>``)."""
     flat = flatten_params(flax_params)
     order = sorted({int(m.group(1)) for k in flat
                     if (m := re.match(r"conv_(\d+)/", k))})
@@ -386,7 +506,7 @@ def convert_vgg16_params(flax_params: Mapping
                             for i in order])
     left = sorted(set(flat) - used)
     if left:
-        raise ValueError(f"flax tensors with no place in the port's VGG16: "
+        raise ValueError(f"flax tensors with no place in the port's VGG: "
                          f"{left}")
     return sd
 

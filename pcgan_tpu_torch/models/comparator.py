@@ -48,7 +48,9 @@ class Comparator(nn.Module):
                                    use_bias=use_bias or i == 0, dtype=dtype))
             ch = feats
         self.convs = nn.ModuleList(convs)
-        self.norm = Norm(norm)
+        # one norm after every conv but the first
+        self.norms = nn.ModuleList(Norm(norm, nf * min(2 ** i, 8))
+                                   for i in range(1, n_down))
         self.fc = nn.Linear(ch, nf * 4)
         self.head = nn.Linear(nf * 4, 2)
 
@@ -62,7 +64,7 @@ class Comparator(nn.Module):
         for i, conv in enumerate(self.convs):
             h = conv(h)
             if i > 0:
-                h = self.norm(h)
+                h = self.norms[i - 1](h)
             h = F.leaky_relu(h, 0.2)
         h = F.leaky_relu(self.fc(h.float().mean(dim=(2, 3))), 0.2)
         if return_features:

@@ -8,19 +8,26 @@ than relying on autocast: in bf16 the conv runs in bf16 with f32
 accumulation, an f32 bias add promotes, and the result is cast back.
 
 The convs are ``torch.nn.functional.conv2d`` / ``conv_transpose2d`` (cuDNN on
-the card), as the JAX package leaves them to XLA. With ``quant`` set (the
-G trunk under ``--quant_int8``) a conv runs in int8 instead
-(``ops/quant.py``), with the JAX package's three activation-scale modes
-(``layers.py:88-110``). The bf16-only
-``--lowch_matmul`` reformulations of the stem/tail convs compute the same
-function in real arithmetic; the port runs the plain conv for them.
+the card), as the JAX package leaves them to XLA. ``--norm`` builds one
+norm module per site (instance, batch, group or none, flax's numbers), and
+``--spectral_norm`` puts a conv's kernel under flax's ``SpectralNorm``.
+Batch norm's running stats and spectral norm's u/sigma are buffers of a
+``StatefulModule``: a train-mode forward writes them unless
+``frozen_stats`` holds them, and ``stats_state`` / ``load_stats_state``
+save and restore them (the train step's D-state rule).
+
+With ``quant`` set (the G trunk under ``--quant_int8``) a conv runs in int8
+instead (``ops/quant.py``), with the JAX package's three activation-scale
+modes (``layers.py:88-110``). The bf16-only ``--lowch_matmul``
+reformulations of the stem/tail convs compute the same function in real
+arithmetic; the port runs the plain conv for them.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
-
+import contextlib
 import math
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -84,10 +91,17 @@ def init_weights(module: nn.Module, init: Callable,
                  generator: Optional[torch.Generator]) -> None:
     """Draw every conv kernel with ``init`` (in HWIO, converted to the
     module's layout) and every Linear kernel (in flax's (in, out), then
-    transposed) in module order; biases start at zero."""
+    transposed) in module order; biases start at zero. Batch norm scales
+    are N(1, 0.02) (the reference's init), spectral norm's ``u`` N(0, 1)."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (TorchConv, TorchConvTranspose)):
+            if isinstance(m, BatchNorm):
+                m.weight.copy_(1.0 + 0.02 * torch.randn(
+                    m.weight.shape, generator=generator))
+            elif isinstance(m, SpectralNorm):
+                m.u.copy_(torch.randn(m.u.shape, generator=generator))
+                continue
+            elif isinstance(m, (TorchConv, TorchConvTranspose)):
                 m.weight.copy_(m.weight_from_hwio(
                     init(m.hwio_shape(), generator)))
             elif isinstance(m, nn.Linear):
@@ -169,7 +183,7 @@ class TorchConv(_QuantSite):
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, pad_mode: str = "zero",
                  use_bias: bool = True, dtype=torch.float32,
-                 quant: bool = False):
+                 quant: bool = False, spectral_norm: bool = False):
         super().__init__()
         if pad_mode not in ("zero", *_PAD_MODES):
             raise NotImplementedError(f"pad_mode [{pad_mode}]")
@@ -179,6 +193,8 @@ class TorchConv(_QuantSite):
             torch.empty(features, in_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self._init_quant(quant)
+        # --spectral_norm: the kernel divided by its largest singular value
+        self.sn = SpectralNorm(features) if spectral_norm else None
 
     def hwio_shape(self):
         co, ci, kh, kw = self.weight.shape
@@ -200,7 +216,10 @@ class TorchConv(_QuantSite):
                                 ((zero_pad, zero_pad), (zero_pad, zero_pad)),
                                 scale_from=xd)
         else:
-            y = F.conv2d(xp, self.weight.to(self.compute_dtype),
+            w = self.weight
+            if self.sn is not None:
+                w = self.sn.normalize(w, w.permute(2, 3, 1, 0))
+            y = F.conv2d(xp, w.to(self.compute_dtype),
                          stride=self.stride, padding=zero_pad)
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
@@ -259,6 +278,92 @@ class TorchConvTranspose(_QuantSite):
 
 
 # --------------------------------------------------------------------------- #
+# state beside the parameters: batch norm's running stats, spectral norm's
+# power-iteration vector
+# --------------------------------------------------------------------------- #
+
+
+class StatefulModule(nn.Module):
+    """A module whose buffers are state that a train-mode forward updates
+    (flax's mutable ``batch_stats`` collection). ``update_stats`` (on by
+    default) lets a forward read the state without writing it
+    (``frozen_stats``). A write rebinds the buffer to a new tensor, so a
+    reference kept by ``stats_state`` still holds the old value."""
+
+    update_stats = True
+
+    def _write(self, name: str, value: torch.Tensor) -> None:
+        if self.training and self.update_stats:
+            self._buffers[name] = value.detach()
+
+
+@contextlib.contextmanager
+def frozen_stats(*modules: nn.Module):
+    """Forwards inside read every ``StatefulModule``'s state of ``modules``
+    but do not write it."""
+    mods = [m for mod in modules for m in mod.modules()
+            if isinstance(m, StatefulModule)]
+    prev = [m.update_stats for m in mods]
+    for m in mods:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, p in zip(mods, prev):
+            m.update_stats = p
+
+
+def stats_state(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """{buffer path: tensor} of every ``StatefulModule`` in ``module`` (the
+    JAX package's non-param collections): references, not copies."""
+    return {f"{n}.{b}" if n else b: t
+            for n, m in module.named_modules()
+            if isinstance(m, StatefulModule)
+            for b, t in m._buffers.items()}
+
+
+def load_stats_state(module: nn.Module, state: Dict[str, torch.Tensor]
+                     ) -> None:
+    """Rebinds the buffers of ``stats_state`` to the tensors of ``state``."""
+    for key, t in state.items():
+        path, _, leaf = key.rpartition(".")
+        module.get_submodule(path)._buffers[leaf] = t
+
+
+def _l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x * torch.rsqrt((x * x).sum() + eps)
+
+
+class SpectralNorm(StatefulModule):
+    """flax ``nn.SpectralNorm`` (one power iteration, eps 1e-12) of one conv
+    kernel. The kernel is seen as flax sees it, its HWIO form reshaped to
+    (kh*kw*cin, cout). Every forward, train or eval, iterates once from the
+    stored ``u`` (1, cout) with ``u`` and ``v`` outside autograd, and
+    divides the kernel by ``sigma = v W u^T``; a train-mode forward stores
+    the new ``u`` and ``sigma``."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        # drawn N(0, 1) by ``init_weights`` from the model's generator
+        self.register_buffer("u", torch.zeros(1, features))
+        self.register_buffer("sigma", torch.ones(()))
+
+    def normalize(self, weight: torch.Tensor, hwio: torch.Tensor
+                  ) -> torch.Tensor:
+        """``weight`` divided by the spectral norm of ``hwio`` (the same
+        kernel in HWIO order)."""
+        mat = hwio.reshape(-1, hwio.shape[-1])
+        with torch.no_grad():
+            m = mat.detach()
+            v = _l2_normalize(self.u @ m.T)
+            u = _l2_normalize(v @ m)
+        sigma = (v @ mat @ u.T)[0, 0]
+        self._write("u", u)
+        self._write("sigma", sigma)
+        return weight / torch.where(sigma != 0, sigma, torch.ones_like(sigma))
+
+
+# --------------------------------------------------------------------------- #
 # norms
 # --------------------------------------------------------------------------- #
 
@@ -281,20 +386,95 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-class Norm(nn.Module):
-    """Dispatch on ``--norm``: instance | none (batch and group are not
-    ported yet)."""
+class InstanceNorm(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return instance_norm(x)
 
-    def __init__(self, kind: str = "instance"):
+
+def _affine(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
+            weight: torch.Tensor, bias: torch.Tensor, eps: float
+            ) -> torch.Tensor:
+    """flax ``_normalize`` on NCHW with per-channel f32 (C,) stats: ``(x -
+    mean) * (rsqrt(var + eps) * scale) + bias`` in f32, cast to x's dtype."""
+    mul = torch.rsqrt(var + eps) * weight
+    y = (x.float() - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+    return (y + bias.view(1, -1, 1, 1)).to(x.dtype)
+
+
+class BatchNorm(StatefulModule):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on NCHW: train mode
+    normalizes by the batch's f32 stats (``E[x^2] - E[x]^2``, clipped at 0)
+    and moves the running stats toward them with the BIASED variance; eval
+    mode reads the running stats."""
+
+    def __init__(self, features: int, momentum: float = 0.9,
+                 eps: float = 1e-5):
         super().__init__()
-        if kind not in ("instance", "none"):
-            raise NotImplementedError(
-                f"--norm {kind} is not ported to pcgan_tpu_torch yet "
-                f"(instance | none)")
-        self.kind = kind
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return instance_norm(x) if self.kind == "instance" else x
+        if not self.training:
+            return _affine(x, self.running_mean, self.running_var,
+                           self.weight, self.bias, self.eps)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(),
+                          min=0.0)
+        m = self.momentum
+        self._write("running_mean",
+                    m * self.running_mean + (1 - m) * mean.detach())
+        self._write("running_var",
+                    m * self.running_var + (1 - m) * var.detach())
+        return _affine(x, mean, var, self.weight, self.bias, self.eps)
+
+
+class GroupNorm(nn.Module):
+    """flax ``nn.GroupNorm(num_groups=min(32, C))`` on NCHW: eps 1e-6 (flax's
+    default), f32 stats ``E[x^2] - E[x]^2`` per (sample, group)."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.groups = min(32, features)
+        if features % self.groups:
+            raise ValueError(f"Number of groups ({self.groups}) does not "
+                             f"divide the number of channels ({features}).")
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c, h, w = x.shape
+        g = self.groups
+        xf = x.float().reshape(n, g, c // g, h, w)
+        mean = xf.mean(dim=(2, 3, 4), keepdim=True)
+        var = torch.clamp(xf.square().mean(dim=(2, 3, 4), keepdim=True)
+                          - mean.square(), min=0.0)
+        mul = (torch.rsqrt(var + self.eps)
+               * self.weight.view(1, g, c // g, 1, 1))
+        y = ((xf - mean) * mul).reshape(n, c, h, w)
+        return (y + self.bias.view(1, -1, 1, 1)).to(x.dtype)
+
+
+NORMS = ("instance", "batch", "group", "none")
+
+
+def Norm(kind: str = "instance", features: Optional[int] = None
+         ) -> nn.Module:
+    """The norm of ``--norm`` over ``features`` channels: instance | batch
+    | group | none (``pcgan_tpu/models/layers.py:423-452``)."""
+    if kind == "instance":
+        return InstanceNorm()
+    if kind == "batch":
+        return BatchNorm(features)
+    if kind == "group":
+        return GroupNorm(features)
+    if kind == "none":
+        return nn.Identity()
+    raise NotImplementedError(f"norm [{kind}] not implemented")
 
 
 def norm_uses_bias(kind: str) -> bool:

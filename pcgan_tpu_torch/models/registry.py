@@ -2,8 +2,9 @@
 
 ``define_G`` / ``define_D`` / ``define_C`` build the module and draw its
 initial weights from an explicit ``torch.Generator`` (seeded from
-``--seed`` when none is given). Flags this port does not implement yet
-raise ``NotImplementedError``.
+``--seed`` when none is given). The generator variants this port does
+not implement yet (``unet_*``, ``resize_conv``, ``--g_attn``) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -15,9 +16,11 @@ import torch
 
 from pcgan_tpu_torch.config import Config
 from pcgan_tpu_torch.models.comparator import Comparator
-from pcgan_tpu_torch.models.discriminator import NLayerDiscriminator
+from pcgan_tpu_torch.models.discriminator import (MultiScaleDiscriminator,
+                                                  NLayerDiscriminator,
+                                                  PixelDiscriminator)
 from pcgan_tpu_torch.models.generator import ResnetGenerator
-from pcgan_tpu_torch.models.layers import init_weights, make_initializer
+from pcgan_tpu_torch.models.layers import NORMS, init_weights, make_initializer
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -41,10 +44,8 @@ def _reject_unported(cfg: Config) -> None:
 
 def _reject_unported_common(cfg: Config) -> None:
     m = cfg.model
-    if m.norm not in ("instance", "none"):
-        raise NotImplementedError(
-            f"--norm {m.norm} is not ported to pcgan_tpu_torch yet "
-            f"(instance | none)")
+    if m.norm not in NORMS:
+        raise NotImplementedError(f"norm [{m.norm}] not implemented")
     if m.dtype not in DTYPES:
         raise NotImplementedError(
             f"--dtype {m.dtype} is not ported to pcgan_tpu_torch yet "
@@ -80,7 +81,7 @@ def define_G(cfg: Config,
         n_blocks=_N_BLOCKS[cfg.model.netG], norm=cfg.model.norm,
         use_dropout=not cfg.model.no_dropout,
         cond_inject=cfg.model.cond_inject, dtype=DTYPES[cfg.model.dtype],
-        quant_trunk=cfg.model.quant_int8)
+        quant_trunk=cfg.model.quant_int8, n_remat=_n_remat(cfg))
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train.seed)
     init_weights(G, make_initializer(cfg.model.init_type,
@@ -88,26 +89,42 @@ def define_G(cfg: Config,
     return G
 
 
-def define_D(cfg: Config,
-             generator: Optional[torch.Generator] = None
-             ) -> NLayerDiscriminator:
-    """The PatchGAN discriminator of ``cfg`` (``--netD basic|n_layers``)
-    with freshly drawn weights (f32 params on the CPU)."""
+def _n_remat(cfg: Config) -> int:
+    """Blocks under --remat: all, or the first --remat_blocks."""
     m = cfg.model
-    if m.netD not in ("basic", "n_layers"):
-        raise NotImplementedError(
-            f"--netD {m.netD} is not ported to pcgan_tpu_torch yet "
-            f"(basic | n_layers)")
-    for flag, on in (("--spectral_norm", m.spectral_norm),
-                     ("--d_attn", m.d_attn)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to pcgan_tpu_torch yet")
+    if not m.remat:
+        return 0
+    n = _N_BLOCKS[m.netG]
+    return n if m.remat_blocks < 0 else min(m.remat_blocks, n)
+
+
+def define_D(cfg: Config, generator: Optional[torch.Generator] = None):
+    """The discriminator of ``cfg`` (``--netD basic | n_layers | pixel |
+    multiscale``, ``--spectral_norm``, ``--d_attn``) with freshly drawn
+    weights (f32 params on the CPU)."""
+    m = cfg.model
     _reject_unported_common(cfg)
-    D = NLayerDiscriminator(
-        input_nc=cfg.data.input_nc, cond_nc=cfg.cond_nc, ndf=m.ndf,
-        n_layers=3 if m.netD == "basic" else m.n_layers_D, norm=m.norm,
-        dtype=DTYPES[m.dtype])
+    kw = dict(input_nc=cfg.data.input_nc, cond_nc=cfg.cond_nc, ndf=m.ndf,
+              norm=m.norm, dtype=DTYPES[m.dtype],
+              spectral_norm=m.spectral_norm)
+    if m.netD == "pixel":
+        if m.d_attn:
+            raise NotImplementedError(
+                "--d_attn is a PatchGAN lever (the pixel D is a stack of 1x1 "
+                "convs with no spatial stack to attend over); use --netD "
+                "basic/n_layers/multiscale")
+        D = PixelDiscriminator(**kw)
+    elif m.netD in ("basic", "n_layers"):
+        D = NLayerDiscriminator(
+            n_layers=3 if m.netD == "basic" else m.n_layers_D,
+            d_attn=m.d_attn, **kw)
+    elif m.netD == "multiscale":
+        if m.num_D < 1:
+            raise NotImplementedError(f"--num_D {m.num_D}: need >= 1")
+        D = MultiScaleDiscriminator(n_layers=m.n_layers_D, num_D=m.num_D,
+                                    d_attn=m.d_attn, **kw)
+    else:
+        raise NotImplementedError(f"netD [{m.netD}] not implemented")
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train.seed + 1)
     init_weights(D, make_initializer(m.init_type, m.init_gain), generator)

@@ -39,8 +39,18 @@ images when no ages exist) a GAN run reads::
     python -m pcgan_tpu_torch.train_main --dataset_mode synthetic \
         --name gan --comparator_path ./checkpoints/cmp
 
-Runs on cuda unless ``--device cpu``. Flags the port does not implement
-raise ``NotImplementedError``.
+Run-level levers: ``--metrics_lag`` (each print point's metrics are read
+at the next one), ``--log_memory`` (the CUDA allocator's bytes in use and
+peak), ``--tb_logdir`` (TensorBoard event files), ``--profile_steps N`` (a
+``torch.profiler`` trace of N steps under ``{run}/trace``),
+``--debug_nans`` (autograd anomaly mode and a finiteness check of every
+step), ``--init_g_from name/tag`` (warm-start G), ``--lambda_vgg`` with
+``--vgg_path``.
+
+Runs on cuda unless ``--device cpu``. The flags the port does not implement
+(the device cache, multi-device meshes) raise ``NotImplementedError``, as
+do the XLA-only ``--profile_server``, ``--compile_cache`` and
+``--xla_opt`` for good.
 """
 
 from __future__ import annotations
@@ -75,12 +85,23 @@ def main(argv=None) -> dict:
     from pcgan_tpu_torch.utils.metrics import MetricsLogger
 
     device = resolve_device(cfg.run.device)
+    if cfg.run.debug_nans:
+        # autograd names the op whose backward made a NaN; the loop checks
+        # every step's metrics and raises on the first non-finite one
+        import torch
+        torch.autograd.set_detect_anomaly(True)
     run_dir = os.path.join(cfg.run.checkpoints_dir, cfg.run.name)
     os.makedirs(run_dir, exist_ok=True)
     cfg.save(os.path.join(run_dir, "opt.json"))
+    tb_dir = (os.path.join(cfg.run.tb_logdir, cfg.run.name)
+              if cfg.run.tb_logdir else "")
     if cfg.model.model == "comparator":
         # pretraining builds its own pair loaders (with a held-out split)
-        logger = MetricsLogger(run_dir)
+        if cfg.train.metrics_lag:
+            print("--metrics_lag applies to the GAN training loop; "
+                  "comparator pretraining prints eagerly (ignored)",
+                  flush=True)
+        logger = MetricsLogger(run_dir, tb_logdir=tb_dir)
         try:
             return _train_comparator(cfg, device, logger, run_dir)
         finally:
@@ -108,7 +129,7 @@ def main(argv=None) -> dict:
     steps_per_epoch = max(1, len(ld))
     print(f"device: {device}; dataset [{cfg.data.dataset_mode}] size "
           f"{len(ds)}, {steps_per_epoch} steps/epoch", flush=True)
-    logger = MetricsLogger(run_dir)
+    logger = MetricsLogger(run_dir, tb_logdir=tb_dir)
     try:
         return _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
                           holdout_ds)
@@ -140,9 +161,18 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
         C, *bin_anchors = ckpt.load_comparator_bundle(cfg, device)
         print(f"loaded frozen comparator from {t.comparator_path}",
               flush=True)
+    vgg = _load_vgg(cfg) if t.lambda_vgg > 0 else None
+    if t.init_g_from and not t.continue_train:
+        # warm-start G from a G-only checkpoint: fresh D and optimizers,
+        # the EMA twin starts at the loaded weights
+        name, _, tag = t.init_g_from.rpartition("/")
+        ckpt.restore_generator(G, cfg.run.checkpoints_dir,
+                               name or cfg.run.name, tag or "latest")
+        print(f"initialized G from [{t.init_g_from}]", flush=True)
     state = create_train_state(cfg, G, D,
                                torch.Generator().manual_seed(seed + 2),
-                               steps_per_epoch, C=C, bin_anchors=bin_anchors)
+                               steps_per_epoch, C=C, bin_anchors=bin_anchors,
+                               vgg=vgg)
     print("---------- Networks initialized -------------", flush=True)
     nets = [("G", G), ("D", D)]
     if C is not None:
@@ -186,8 +216,9 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
     def save_g(tag):
         ckpt.save_generator(G, cfg.run.checkpoints_dir, cfg.run.name, tag)
         if state.ema is not None:
-            ckpt.save_generator(state.ema, cfg.run.checkpoints_dir,
-                                cfg.run.name, tag, use_ema=True)
+            ckpt.save_generator(ckpt.ema_state_dict(G, state.ema),
+                                cfg.run.checkpoints_dir, cfg.run.name, tag,
+                                use_ema=True)
 
     def save(tag):
         ckpt.save_state(state, cfg.run.checkpoints_dir, cfg.run.name, tag)
@@ -201,6 +232,44 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
     fid_eval = (_make_fid_eval(cfg, device, G, state, bin_anchors, ld,
                                holdout_ds, logger)
                 if t.eval_fid_epoch_freq > 0 else None)
+    def fetch(metrics):
+        # one device->host copy for all metrics; it also syncs
+        host = dict(zip(metrics, torch.stack(
+            list(metrics.values())).cpu().tolist()))
+        if cfg.run.debug_nans:
+            bad = sorted(k for k, v in host.items() if not np.isfinite(v))
+            if bad:
+                raise FloatingPointError(f"--debug_nans: non-finite {bad}")
+        return host
+
+    def log(g, host, epoch, rate):
+        nonlocal last_metrics
+        epoch_losses.append(host["loss_G"])
+        last_metrics = host
+        logger.log(g, {**host, **_mem_metrics(device, t.log_memory)},
+                   epoch=epoch, imgs_per_sec=rate,
+                   lr=state.sched_g(g) * state.lr_scale)
+
+    # --metrics_lag: the fetch of a print point's metrics waits for the
+    # NEXT print point, when the card has further steps queued behind it;
+    # the rows are the same, the rate is measured fetch to fetch
+    pending = None
+    lag_anchor = {"t": None, "g": 0}
+
+    def log_pending():
+        nonlocal pending
+        g, m, ep = pending
+        pending = None
+        host = fetch(m)
+        now = time.perf_counter()
+        rate = None
+        if lag_anchor["t"] is not None and g > lag_anchor["g"]:
+            rate = ((g - lag_anchor["g"]) * cfg.data.batch_size
+                    / max(now - lag_anchor["t"], 1e-9))
+        lag_anchor.update(t=now, g=g)
+        log(g, host, ep, rate)
+
+    profiler = _Profiler(cfg.run.profile_steps, run_dir, device)
     last_latest_save = 0
     gstep = state.step
     epochs, evals, last_metrics = [], [], {}
@@ -209,6 +278,7 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
         epoch_losses, resume_losses = resume_losses, []
         metrics = None
         timer.start()
+        lag_anchor.update(t=time.perf_counter(), g=gstep)
         ld.skip_next, resume_skip = resume_skip, 0
         steps = 0
         t_first = None
@@ -216,6 +286,7 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
                                       cfg.data.max_age), cfg.data.prefetch):
             if t_first is None:
                 t_first = time.perf_counter()
+            profiler.tick()
             images = torch.from_numpy(raw["image"]).to(device)
             batch = pre(state.generator, {"image": images})
             batch["bin"] = torch.from_numpy(raw["bin"]).to(device)
@@ -223,22 +294,28 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
             gstep += 1
             steps += 1
             timer.tick(cfg.data.batch_size)
+            if cfg.run.debug_nans and gstep % t.print_freq:
+                fetch(metrics)
             if gstep % t.display_freq == 0:
                 display(state, raw, epoch)
             if gstep % t.print_freq == 0:
-                # one device->host copy for all losses; it also syncs
-                host = dict(zip(metrics, torch.stack(
-                    list(metrics.values())).cpu().tolist()))
-                epoch_losses.append(host["loss_G"])
-                last_metrics = host
-                logger.log(gstep, host, epoch=epoch,
-                           imgs_per_sec=timer.rate(),
-                           lr=state.sched_g(gstep) * state.lr_scale)
-                timer.start()
+                if t.metrics_lag:
+                    if pending is not None:
+                        log_pending()
+                    pending = (gstep, metrics, epoch)
+                else:
+                    host = fetch(metrics)
+                    log(gstep, host, epoch, timer.rate())
+                    timer.start()
             if t.save_latest_freq > 0 and gstep % t.save_latest_freq == 0:
+                if pending is not None:
+                    # the save must not leave the pending row unwritten
+                    log_pending()
                 last_latest_save = gstep
                 save("latest")
                 _write_host_sidecar(run_dir, gstep, epoch_losses)
+        if pending is not None:
+            log_pending()
         sync()
         if steps:
             epochs.append({"epoch": epoch, "steps": steps,
@@ -275,6 +352,7 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
         write_loss_plot(run_dir)
         print(f"End of epoch {epoch}/{total_epochs} \t "
               f"({time.time() - epoch_t0:.1f}s)", flush=True)
+    profiler.close()
     save("latest")
     return {"run_dir": run_dir, "step": state.step, "metrics": last_metrics,
             "epochs": epochs, "evals": evals}
@@ -314,16 +392,15 @@ def _make_fid_eval(cfg, device, G, state, bin_anchors, ld, holdout_ds,
                 f"({len(holdout_ds)} rows < --batch_size {d.batch_size}) for "
                 f"eval")
         sources.append(("eval_h_", h_ld))
-    # --eval_use_ema scores the EMA twin (what ships): a copy of G whose
-    # parameters take the EMA values before each eval
+    # --eval_use_ema scores the EMA twin (what ships): a copy of G that
+    # takes the EMA parameters (and G's norm state) before each eval
     twin = copy.deepcopy(G) if t.eval_use_ema else None
 
     def fid_eval(epoch: int) -> dict:
         net = G
         if twin is not None:
-            with torch.no_grad():
-                for n, p in twin.named_parameters():
-                    p.copy_(state.ema[n])
+            from pcgan_tpu_torch.utils.checkpoint import ema_state_dict
+            twin.load_state_dict(ema_state_dict(G, state.ema))
             net = twin
         t0 = time.perf_counter()
         out = {}
@@ -407,6 +484,13 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
     def eval_acc():
         # per-pair accuracy over the whole split: drop_last=False leaves a
         # partial last batch, so batch means are weighted by batch size
+        C.eval()
+        try:
+            return _eval_acc()
+        finally:
+            C.train()
+
+    def _eval_acc():
         hits = total = 0.0
         for raw in data_loader.Loader(eval_ds, min(d.batch_size, n_eval),
                                       shuffle=False, drop_last=False,
@@ -499,6 +583,82 @@ def _save_anchor_bundle(cfg, ds, C, device) -> str:
             C, imgs, np.concatenate(bins)[:n_anchor], d.n_age_bins)
     return ckpt.save_comparator_bundle(C, lo, hi, means, cfg,
                                        cfg.run.checkpoints_dir, cfg.run.name)
+
+
+def _load_vgg(cfg):
+    """The frozen VGG19 trunk of ``--lambda_vgg``: ``--vgg_path`` (a
+    torchvision vgg19 ``.pth`` or an ``.npz``), or a seeded random trunk for
+    ``random``; None for an empty path (the state then raises)."""
+    from pcgan_tpu_torch.models.vgg import load_vgg19, random_vgg19
+    path = cfg.train.vgg_path
+    if path == "random":
+        print("WARNING: --vgg_path random — perceptual loss runs in "
+              "FRESH-INIT VGG feature space (smoke/CI only; point "
+              "--vgg_path at a torchvision vgg19 .pth for the published "
+              "pix2pixHD loss)", flush=True)
+        return random_vgg19(0)
+    if path:
+        net = load_vgg19(path)
+        print(f"loaded VGG19 trunk from {path}", flush=True)
+        return net
+    return None
+
+
+def _mem_metrics(device, on: bool) -> dict:
+    """--log_memory: the caching allocator's bytes in use and their peak
+    (a host-side read, no sync); {} off the card."""
+    if not on or device.type != "cuda":
+        return {}
+    import torch
+    ms = torch.cuda.memory_stats(device)
+    return {"mem_hbm_gb": round(ms["allocated_bytes.all.current"] / 2**30, 3),
+            "mem_hbm_peak_gb": round(ms["allocated_bytes.all.peak"] / 2**30,
+                                     3)}
+
+
+class _Profiler:
+    """--profile_steps N: a ``torch.profiler`` trace (CPU and, on the card,
+    CUDA activity) of N steady-state steps after 3 warm-up steps, written to
+    ``{run_dir}/trace/trace.json`` (chrome trace format)."""
+
+    def __init__(self, n_steps: int, run_dir: str, device):
+        self.left, self.skip = n_steps, 3
+        self.run_dir, self.device = run_dir, device
+        self.prof = None
+
+    def tick(self) -> None:
+        """Call before every step."""
+        if self.left <= 0 and self.prof is None:
+            return
+        if self.skip > 0:
+            self.skip -= 1
+            return
+        if self.prof is None:
+            import torch
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.__enter__()
+            print(f"profiling {self.left} steps -> {self.run_dir}/trace",
+                  flush=True)
+            return
+        self.left -= 1
+        if self.left <= 0:
+            self.close()
+
+    def close(self) -> None:
+        if self.prof is None:
+            return
+        import torch
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.__exit__(None, None, None)
+        out = os.path.join(self.run_dir, "trace")
+        os.makedirs(out, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        self.prof, self.left = None, 0
+        print("profile trace written", flush=True)
 
 
 def _write_host_sidecar(run_dir, step, epoch_losses):

@@ -36,10 +36,17 @@ def generator_path(checkpoints_dir: str, name: str, tag: str = "latest",
 
 def save_generator(G, checkpoints_dir: str, name: str,
                    tag: str = "latest", use_ema: bool = False) -> str:
-    """``G``: the module, or a ``state_dict`` of it (the EMA twin)."""
+    """``G``: the module, or a ``state_dict`` of it (the EMA twin: its
+    parameters with G's norm state, ``ema_state_dict``)."""
     sd = G.state_dict() if isinstance(G, nn.Module) else G
     return _save(_cpu(sd), generator_path(checkpoints_dir, name, tag,
                                           use_ema))
+
+
+def ema_state_dict(G: nn.Module, ema: dict) -> dict:
+    """G's ``state_dict`` with the EMA twin's parameters: the running
+    statistics of batch norm are shared, as in the JAX package."""
+    return {**G.state_dict(), **ema}
 
 
 def restore_generator(G: nn.Module, checkpoints_dir: str, name: str,
@@ -73,11 +80,12 @@ def _cpu(sd: dict) -> dict:
     return {k: v.detach().cpu() for k, v in sd.items()}
 
 
-def adam_state(opt: torch.optim.Optimizer, module: nn.Module) -> dict:
+def adam_state(opt: torch.optim.Optimizer, module: nn.Module,
+               skip: dict = None) -> dict:
     """A ``torch.optim.Adam`` over ``module``'s parameters in optax's terms,
     keyed by parameter name: {'count': steps taken, 'mu': {name: first
-    moment}, 'nu': {name: second moment}} (zeros before the first step),
-    copied to the CPU."""
+    moment}, 'nu': {name: second moment}, 'skip': the ``--skip_nonfinite``
+    counters or None} (zeros before the first step), copied to the CPU."""
     count, mu, nu = 0, {}, {}
     for n, p in module.named_parameters():
         st = opt.state.get(p) or {}
@@ -85,7 +93,20 @@ def adam_state(opt: torch.optim.Optimizer, module: nn.Module) -> dict:
             count = int(st["step"])
         mu[n] = st.get("exp_avg", torch.zeros_like(p))
         nu[n] = st.get("exp_avg_sq", torch.zeros_like(p))
-    return {"count": count, "mu": _cpu(mu), "nu": _cpu(nu)}
+    return {"count": count, "mu": _cpu(mu), "nu": _cpu(nu),
+            "skip": None if skip is None else _cpu(skip)}
+
+
+def _load_skip(skip: dict, sd: dict, what: str) -> None:
+    """The ``--skip_nonfinite`` counters of a payload into the run's (in
+    place, on their device)."""
+    if skip is None:
+        return
+    if sd.get("skip") is None:
+        raise ValueError(f"{what}: the checkpoint has no --skip_nonfinite "
+                         f"counters (it was trained without the flag)")
+    for k, v in skip.items():
+        skip[k] = sd["skip"][k].to(v.device, v.dtype)
 
 
 @torch.no_grad()
@@ -112,18 +133,23 @@ def load_adam_state(opt: torch.optim.Optimizer, module: nn.Module,
 def save_state(state, checkpoints_dir: str, name: str,
                tag: str = "latest") -> str:
     """The full training state (``pcgan_tpu_torch.train.TrainState``) at
-    ``{checkpoints_dir}/{name}/{tag}.pt``: G, D, both optimizers, EMA, pool,
-    step, the step generator's state, ``lr_scale`` and plateau memory.
-    Written atomically (tmp + rename)."""
+    ``{checkpoints_dir}/{name}/{tag}.pt``: G and D with their norm and
+    spectral-norm state, both optimizers and their skip counters, EMA,
+    pool, step, the step's and dropout's generator states, ADA's p,
+    ``lr_scale`` and plateau memory. The frozen comparator and VGG trunk
+    are not in it. Written atomically (tmp + rename)."""
     payload = {
         "step": int(state.step),
         "G": _cpu(state.G.state_dict()), "D": _cpu(state.D.state_dict()),
-        "opt_g": adam_state(state.opt_g, state.G),
-        "opt_d": adam_state(state.opt_d, state.D),
+        "opt_g": adam_state(state.opt_g, state.G, state.skip_g),
+        "opt_d": adam_state(state.opt_d, state.D, state.skip_d),
         "ema": None if state.ema is None else _cpu(state.ema),
         "pool": {"imgs": state.pool.imgs.cpu(), "conds": state.pool.conds.cpu(),
                  "count": state.pool.count.cpu()},
         "rng": state.generator.get_state(),
+        "dropout_rng": (None if state.dropout_generator is None
+                        else state.dropout_generator.get_state()),
+        "aug_p": None if state.aug_p is None else float(state.aug_p),
         "lr_scale": float(state.lr_scale),
         "plateau_best": float(state.plateau_best),
         "plateau_bad": float(state.plateau_bad),
@@ -149,6 +175,17 @@ def load_state(state, sd: dict):
     state.D.load_state_dict(sd["D"], strict=True)
     load_adam_state(state.opt_g, state.G, sd["opt_g"])
     load_adam_state(state.opt_d, state.D, sd["opt_d"])
+    _load_skip(state.skip_g, sd["opt_g"], "G optimizer")
+    _load_skip(state.skip_d, sd["opt_d"], "D optimizer")
+    if state.aug_p is not None:
+        if sd.get("aug_p") is None:
+            raise ValueError("the checkpoint has no ADA probability (it was "
+                             "trained without --ada_target)")
+        state.aug_p = torch.tensor(float(sd["aug_p"]),
+                                   device=state.aug_p.device)
+    if state.dropout_generator is not None and sd.get("dropout_rng") \
+            is not None:
+        state.dropout_generator.set_state(sd["dropout_rng"])
     if (sd["ema"] is None) != (state.ema is None):
         raise ValueError("checkpoint and run disagree on --ema_decay (EMA "
                          "twin present in one only)")
@@ -182,7 +219,7 @@ def save_comparator_state(state, checkpoints_dir: str, name: str,
     """A ``pcgan_tpu_torch.train.ComparatorState`` (C, Adam, step, the step
     generator) at ``{checkpoints_dir}/{name}/{tag}.pt``, atomically."""
     return _save({"step": int(state.step), "C": _cpu(state.C.state_dict()),
-                  "opt": adam_state(state.opt, state.C),
+                  "opt": adam_state(state.opt, state.C, state.skip),
                   "rng": state.generator.get_state()},
                  state_path(checkpoints_dir, name, tag))
 
@@ -200,6 +237,7 @@ def load_comparator_state(state, sd: dict):
     ``state`` in place and returns it."""
     state.C.load_state_dict(sd["C"], strict=True)
     load_adam_state(state.opt, state.C, sd["opt"])
+    _load_skip(state.skip, sd["opt"], "comparator optimizer")
     if "rng" in sd:
         state.generator.set_state(sd["rng"])
     state.step = int(sd["step"])

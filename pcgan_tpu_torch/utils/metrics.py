@@ -1,8 +1,9 @@
 """Structured metrics + console logging (counterpart of ``pcgan_tpu/utils/metrics.py:17-85``).
 
 The reference's ``print_current_losses`` console line, plus one JSON object
-per logged step in ``metrics.jsonl`` (losses, images/s, lr, wall time).
-TensorBoard mirroring (``--tb_logdir``) is not ported.
+per logged step in ``metrics.jsonl`` (losses, images/s, lr, wall time),
+mirrored into a TensorBoard event file under ``--tb_logdir``
+(``utils/tb_writer.py``).
 """
 
 from __future__ import annotations
@@ -15,12 +16,16 @@ from typing import Dict, Optional
 
 class MetricsLogger:
     def __init__(self, log_dir: str, filename: str = "metrics.jsonl",
-                 echo: bool = True):
+                 echo: bool = True, tb_logdir: str = ""):
         os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, filename)
         self._f = open(self.path, "a", buffering=1)
         self.echo = echo
         self._t0 = time.time()
+        self._tb = None
+        if tb_logdir:
+            from pcgan_tpu_torch.utils.tb_writer import TBWriter
+            self._tb = TBWriter(tb_logdir)
 
     def log(self, step: int, metrics: Dict[str, float], epoch: int = None,
             imgs_per_sec: float = None, lr: float = None):
@@ -33,6 +38,13 @@ class MetricsLogger:
         if lr is not None:
             rec["lr"] = float(lr)
         self._f.write(json.dumps(rec) + "\n")
+        if self._tb is not None:
+            scalars = {k: float(v) for k, v in metrics.items()}
+            if imgs_per_sec is not None:
+                scalars["imgs_per_sec"] = float(imgs_per_sec)
+            if lr is not None:
+                scalars["lr"] = float(lr)
+            self._tb.add_scalars(step, scalars)
         if self.echo:
             # reference console line:
             # (epoch: E, iters: N, imgs/s: r) loss_G: x loss_D: y ...
@@ -45,6 +57,8 @@ class MetricsLogger:
 
     def close(self):
         self._f.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class StepTimer:

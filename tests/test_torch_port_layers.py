@@ -97,9 +97,11 @@ def test_norm_kinds():
     x = torch.from_numpy(_x((1, 3, 4, 4), seed=7))
     assert torch.equal(tl.Norm("none")(x), x)
     assert torch.allclose(tl.Norm("instance")(x), tl.instance_norm(x))
-    for kind in ("batch", "group"):
-        with pytest.raises(NotImplementedError):
-            tl.Norm(kind)
+    for kind, cls in (("batch", tl.BatchNorm), ("group", tl.GroupNorm)):
+        norm = tl.Norm(kind, 3)
+        assert isinstance(norm, cls) and norm(x).shape == x.shape
+    with pytest.raises(NotImplementedError, match="layer"):
+        tl.Norm("layer", 3)
 
 
 @pytest.mark.parametrize("kind", ["instance", "batch", "group", "none"])

@@ -39,8 +39,11 @@ def test_gan_loss_reduces_bf16_logits_in_f32():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="wgangp"):
-        T.gan_loss(torch.zeros(1), True, "wgangp")
+    # wgangp is ported: the critic's mean, against JAX
+    x = torch.linspace(-1.5, 2.0, 12).reshape(1, 3, 4, 1)
+    for real in (True, False):
+        want = float(J.gan_loss(jnp.asarray(x.numpy()), real, "wgangp"))
+        assert abs(float(T.gan_loss(x, real, "wgangp")) - want) <= 1e-7
     with pytest.raises(NotImplementedError, match="nope"):
         T.gan_loss(torch.zeros(1), True, "nope")
 

@@ -81,7 +81,7 @@ def test_missing_checkpoint_exits(tmp_path):
                               "--device", "cpu"])
 
 
-@pytest.mark.parametrize("flags", [["--norm", "group"], ["--netG", "unet_128"],
+@pytest.mark.parametrize("flags", [["--g_attn"], ["--netG", "unet_128"],
                                    ["--dataset_mode", "celeba"]])
 def test_unported_cli_flags_raise(tmp_path, flags):
     from pcgan_tpu_torch import test as port_cli

@@ -13,6 +13,8 @@ from pcgan_tpu_torch import train_main
 from pcgan_tpu_torch.config import parse_config
 from pcgan_tpu_torch.utils import checkpoint as ckpt
 
+from torch_port_levers import one_torch_thread  # noqa: F401
+
 BASE = ["--dataset_mode", "synthetic", "--max_dataset_size", "8",
         "--batch_size", "2", "--load_size", "36", "--crop_size", "32",
         "--netG", "resnet_6blocks", "--ngf", "8", "--ndf", "8",
@@ -122,14 +124,25 @@ def test_prune_epochs(tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--gan_mode", "wgangp"], "wgangp"),
-    (["--netD", "multiscale"], "multiscale"),
-    (["--skip_nonfinite", "3"], "--skip_nonfinite"),
-    (["--tb_logdir", "tb"], "--tb_logdir"),
+    (["--gan_mode", "wgangp"], "loss_D"),
+    (["--netD", "multiscale", "--n_layers_D", "2"], "loss_D"),
+    (["--skip_nonfinite", "3"], "notfinite_G"),
+    (["--tb_logdir", "tb"], "loss_G"),
     (["--dataset_mode", "celeba"], "dataset_mode")])
 def test_unported_flags_raise(tmp_path, flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        _run(tmp_path, "x", "--niter", "1", *flags)
+    if "celeba" in flags:
+        # a data source the port does not have
+        with pytest.raises(NotImplementedError, match=match):
+            _run(tmp_path, "x", "--niter", "1", *flags)
+        return
+    # the flags of the training step and loop are ported: each run trains
+    if "--tb_logdir" in flags:
+        flags = ["--tb_logdir", str(tmp_path / "tb")]
+    res = _run(tmp_path, "x", "--niter", "1", *flags)
+    assert res["step"] == 4 and np.isfinite(res["metrics"][match])
+    if "--tb_logdir" in flags:
+        (ev,) = os.listdir(tmp_path / "tb" / "x")
+        assert ev.startswith("events.out.tfevents.")
 
 
 def test_cuda_without_a_card_raises(tmp_path, monkeypatch):

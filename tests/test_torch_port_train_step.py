@@ -36,6 +36,8 @@ from pcgan_tpu_torch.train import (adam_step, create_train_state, make_adam,
                                    make_lr_schedule, make_train_step)
 from pcgan_tpu_torch.utils.checkpoint import adam_state, load_state
 
+from torch_port_levers import one_torch_thread  # noqa: F401
+
 B, S, NB, NF, LR, STEPS = 2, 32, 4, 8, 2e-4, 3
 
 
@@ -202,28 +204,56 @@ def test_adam_matches_optax():
                                rtol=1e-6, atol=1e-7)
 
 
+def _one_step(argv):
+    """Build the port's step for ``argv`` at a tiny size and take one step
+    on a seeded batch; returns the metrics as floats."""
+    tc = tcfg.parse_config(
+        ["--crop_size", "32", "--load_size", "32", "--ngf", "8", "--ndf",
+         "8", "--n_age_bins", str(NB), "--netG", "resnet_6blocks",
+         "--cond_inject", "bottleneck", "--batch_size", "2", "--dtype",
+         "float32", "--pool_size", "0"] + argv)
+    G = define_G(tc, torch.Generator().manual_seed(1))
+    D = define_D(tc, torch.Generator().manual_seed(2))
+    state = create_train_state(tc, G, D, torch.Generator().manual_seed(0))
+    b = _batches(7)[0]
+    m = make_train_step(tc, G, D)(state, {k: torch.from_numpy(v)
+                                          for k, v in b.items()})
+    return {k: float(v) for k, v in m.items()}
+
+
 def test_unported_training_flags_raise(tmp_path):
     from pcgan_tpu_torch import train_main
     from pcgan_tpu_torch.train import reject_unported_train
     reject_unported_train(tcfg.parse_config([]))
     reject_unported_train(tcfg.parse_config(["--model", "comparator"]))
     reject_unported_train(tcfg.parse_config(["--comparator_path", "x"]))
-    for argv, flag in ((["--gan_mode", "wgangp"], "wgangp"),
-                       (["--lambda_r1", "1"], "--lambda_r1"),
-                       (["--diff_augment", "color"], "--diff_augment"),
-                       (["--grad_accum", "2"], "--grad_accum"),
-                       (["--lambda_feat", "10"], "--lambda_feat"),
-                       (["--skip_nonfinite", "3"], "--skip_nonfinite")):
-        with pytest.raises(NotImplementedError, match=flag):
-            reject_unported_train(tcfg.parse_config(argv))
+    # the levers of this slice are ported: each one trains
+    for argv, key in ((["--gan_mode", "wgangp"], "loss_D"),
+                      (["--lambda_r1", "1"], "loss_D_r1"),
+                      (["--diff_augment", "color"], "loss_D"),
+                      (["--grad_accum", "2"], "loss_G"),
+                      (["--lambda_feat", "10"], "loss_G_feat"),
+                      (["--skip_nonfinite", "3"], "notfinite_D")):
+        reject_unported_train(tcfg.parse_config(argv))
+        m = _one_step(argv)
+        assert key in m and all(np.isfinite(list(m.values()))), (argv, m)
     # the human-annotation CSV source of comparator pretraining needs its
     # CSV
     with pytest.raises(FileNotFoundError, match="comparisons_csv"):
         train_main.main(["--model", "comparator", "--dataset_mode",
                          "comparisons", "--device", "cpu",
                          "--checkpoints_dir", str(tmp_path)])
-    for argv, flag in ((["--netD", "multiscale"], "multiscale"),
-                       (["--netD", "pixel"], "pixel"),
-                       (["--spectral_norm"], "--spectral_norm")):
+    for argv, cls in ((["--netD", "multiscale"], "MultiScale"),
+                      (["--netD", "pixel"], "Pixel"),
+                      (["--spectral_norm"], "NLayer")):
+        assert type(define_D(tcfg.parse_config(argv))).__name__.startswith(
+            cls)
+    # what still raises: the device cache, the multi-device flags, and the
+    # XLA-only flags for good
+    for argv, flag in ((["--device_cache"], "--device_cache"),
+                       (["--zero1"], "--zero1"),
+                       (["--xla_opt", "x"], "XLA-only"),
+                       (["--compile_cache", "d"], "XLA-only"),
+                       (["--profile_server", "9000"], "XLA-only")):
         with pytest.raises(NotImplementedError, match=flag):
-            define_D(tcfg.parse_config(argv))
+            reject_unported_train(tcfg.parse_config(argv))

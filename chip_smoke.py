@@ -121,7 +121,26 @@ the one named in phase 2):
     cost); a forced non-finite step (``notfinite_G/D`` 1, params, EMA and
     Adam counts held) and the cost of the check; one f32 step with
     spectral norm, the multiscale D, R1 and feature matching, card
-    against CPU.
+    against CPU;
+19. the generator variants and the device cache at full width (phase
+    18's shape): (a) ``--netG unet_128``, 3 epochs (steps/s), a profiled
+    run beside phase 18's plain step, ``test.main``'s grid rate and an
+    ``--anim`` sweep, its int8 accumulators at the one-pixel innermost
+    levels card vs CPU, bf16 and int8 exports with ``--verify`` and their
+    rows/s at batch 80; (b) ``unet_256`` at 256 px with ``--remat``
+    against without (peak memory must fall); (c) ``resnet_9blocks
+    @resize_conv --g_attn`` profiled beside the plain step; (d) path 4's
+    flags with the JAX default routes (cond-bias stem, s2d tail) against
+    ``--no-lowch_matmul``, profiled, and the tail conv's f+vjp as the
+    direct conv, the s2d conv and ``lowch_reflect_conv`` (B2), held
+    against each other; (e) card vs CPU: an f32 unet step, an f32
+    ``@resize_conv --g_attn`` forward, the bf16 routes against the
+    direct conv; (f) ``--device_cache`` at path 4's flags: the batches
+    bit-identical to the streaming run's, the loss streams (identical, or
+    as close as two streaming runs are), steps/s and host-to-device bytes
+    a step from ``--profile_steps`` traces; a resident cache of 8,192
+    canvases (upload s, steps/s against the host Loader). B2 stays off
+    every new CLI path.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -2154,14 +2173,15 @@ def _export_cli(argv) -> dict:
                 else "generator.pt2")) / 1e6}
 
 
-def _int8_accum_check(torch) -> dict:
+def _int8_accum_check(torch, shapes=None) -> dict:
     """s32 accumulators of the int8 conv, card against CPU, at every trunk
-    shape of the full-width G: random int8 activations, a seeded weight
-    quantized as the G's are."""
+    shape of the full-width G (or at ``shapes``): random int8 activations,
+    a seeded weight quantized as the G's are."""
     from pcgan_tpu_torch.ops import quant as tq
     rng = np.random.default_rng(17)
     out = {}
-    for name, (b, ci, h, co, k, s, pads, dil) in TRUNK_SHAPES.items():
+    for name, (b, ci, h, co, k, s, pads, dil) in (shapes
+                                                  or TRUNK_SHAPES).items():
         xq = torch.from_numpy(rng.integers(-127, 128, (b, ci, h, h))
                               .astype(np.int8))
         w = torch.from_numpy(rng.normal(0, 0.02, (co, ci, k, k))
@@ -2715,22 +2735,18 @@ def _lever_nonfinite(torch, tmp) -> dict:
             "step_ms_skip_off": off_ms}
 
 
-def _lever_parity(torch) -> dict:
-    """One f32 step (TF32 off) with spectral norm, the multiscale D, R1 and
-    feature matching, card against CPU from the same seeded weights: losses
-    within LEVER_TOL, parameters within the Adam first-step envelope, the
-    spectral norm state within SN_STATE_TOL."""
+def _step_parity(torch, flags, what, tol) -> dict:
+    """One f32 step (TF32 off) of a small config (32 px, batch 4, 4 bins,
+    pool off, constant lr, ``flags``) on the card and on the CPU from the
+    same seeded weights: losses within ``tol``, parameters within the Adam
+    first-step envelope, spectral norm's state within SN_STATE_TOL."""
     from pcgan_tpu_torch.config import parse_config
     from pcgan_tpu_torch.models import define_D, define_G
     from pcgan_tpu_torch.train import create_train_state, make_train_step
-    cfg = parse_config(["--netG", "resnet_6blocks", "--ngf", "16", "--ndf",
-                        "16", "--crop_size", "32", "--load_size", "32",
+    cfg = parse_config(["--crop_size", "32", "--load_size", "32",
                         "--batch_size", "4", "--n_age_bins", "4",
                         "--pool_size", "0", "--dtype", "float32",
-                        "--cond_inject", "bottleneck", "--lr_policy",
-                        "constant", "--netD", "multiscale", "--num_D", "2",
-                        "--n_layers_D", "2", "--spectral_norm",
-                        "--lambda_r1", "10", "--lambda_feat", "10"])
+                        "--lr_policy", "constant", *flags])
     rng = np.random.default_rng(21)
     batch = {"image": torch.from_numpy(
                  rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)),
@@ -2738,7 +2754,9 @@ def _lever_parity(torch) -> dict:
              "target_bin": torch.from_numpy(rng.integers(0, 4, 4))}
     runs = {}
     for dev in ("cpu", DEV):
-        G = define_G(cfg, torch.Generator().manual_seed(7)).to(dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            G = define_G(cfg, torch.Generator().manual_seed(7)).to(dev)
         D = define_D(cfg, torch.Generator().manual_seed(8)).to(dev)
         state = create_train_state(cfg, G, D, torch.Generator().manual_seed(0))
         m = make_train_step(cfg, G, D)(
@@ -2749,9 +2767,11 @@ def _lever_parity(torch) -> dict:
                       for k, v in net.state_dict().items()})
     (mc, pc), (mg, pg) = runs["cpu"], runs[DEV]
     loss_err = max(abs(mc[k] - mg[k]) / max(1.0, abs(mc[k])) for k in mc)
-    check(loss_err <= LEVER_TOL, f"lever parity: losses differ by {loss_err}"
+    check(loss_err <= tol, f"{what}: losses differ by {loss_err}"
           f" (cpu {mc}, card {mg})")
-    g0 = define_G(cfg, torch.Generator().manual_seed(7)).state_dict()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        g0 = define_G(cfg, torch.Generator().manual_seed(7)).state_dict()
     d0 = define_D(cfg, torch.Generator().manual_seed(8)).state_dict()
     init = {**{f"G.{k}": v for k, v in g0.items()},
             **{f"D.{k}": v for k, v in d0.items()}}
@@ -2767,11 +2787,21 @@ def _lever_parity(torch) -> dict:
         worst["frac"] = max(worst["frac"], float((diff > 0.25 * LR).mean()))
     check(worst["max"] <= 2.1 * LR and worst["median"] < 2e-6
           and worst["frac"] < 2e-3,
-          f"lever parity: parameters outside the Adam envelope {worst}")
-    check(sn_err <= SN_STATE_TOL, f"lever parity: spectral norm state "
+          f"{what}: parameters outside the Adam envelope {worst}")
+    check(sn_err <= SN_STATE_TOL, f"{what}: spectral norm state "
           f"differs by {sn_err}")
     return {"loss_max_rel_err": loss_err, "param_delta_diff": worst,
             "sn_state_max_abs_err": sn_err, "losses_card": mg}
+
+
+def _lever_parity(torch) -> dict:
+    """One f32 step with spectral norm, the multiscale D, R1 and feature
+    matching, card against CPU (``_step_parity``)."""
+    return _step_parity(torch, [
+        "--netG", "resnet_6blocks", "--ngf", "16", "--ndf", "16",
+        "--cond_inject", "bottleneck", "--netD", "multiscale", "--num_D",
+        "2", "--n_layers_D", "2", "--spectral_norm", "--lambda_r1", "10",
+        "--lambda_feat", "10"], "lever parity", LEVER_TOL)
 
 
 def phase_levers(torch, tmp) -> dict:
@@ -2877,6 +2907,540 @@ def phase_levers(torch, tmp) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: the generator variants and the device cache at full width
+# --------------------------------------------------------------------------- #
+
+UNET_EPOCHS = 3                  # unet_128 at batch 32: 30 steps
+VARIANT_TOL = 1e-4               # f32 card vs CPU: a unet step, a resize+attn G
+VARIANT_BF16 = (5e-2, 5e-3)      # bf16 route vs direct conv: max, mean
+TAIL_X = (32, 64, CROP, CROP)    # path 4's G tail input, NCHW, bf16
+CACHE_N = 8192                   # 200 px canvases: 0.98 GB resident
+CACHE_WARM, CACHE_STEPS = 3, 12  # steps of each loader: warm-up, timed
+# the full-width unet_128's innermost int8 convs (8 x 8 x 512 at 2 x 2 in,
+# one pixel a sample out: fewer rows than cuBLASLt's int8 GEMM takes
+# unpadded) and the next level's
+UNET_INT8_SHAPES = {
+    "innermost_down_512_s2": (8, 8 * NGF, 2, 8 * NGF, 4, 2,
+                              ((1, 1), (1, 1)), 1),
+    "innermost_up_512": (8, 8 * NGF, 1, 8 * NGF, 4, 1, ((2, 2), (2, 2)), 2),
+    "level1_down_512_s2": (8, 8 * NGF, 4, 8 * NGF, 4, 2, ((1, 1), (1, 1)),
+                           1)}
+
+
+def _variant_argv(tmp, name, niter, netG, steps=None, extra=()):
+    """Phase 18's shape (train_utkface_128.sh's: ngf/ndf 64, 128 px, batch
+    32, bf16, 10 bins, basic D, synthetic) with ``netG``."""
+    return _lever_argv(tmp, name, niter, steps=steps,
+                       extra=("--netG", netG, *extra))
+
+
+def _b2_after(what):
+    """The B2 launches of the run just made (``_train_run`` zeroes the
+    count first): none on a generator-variant path."""
+    from pcgan_tpu_torch.ops import cuda_wgrad as cw
+    check(cw.launches == 0, f"{what}: {cw.launches} B2 launches")
+
+
+def _grid_rate(torch, argv, n_batches, what) -> dict:
+    """``test.main`` over ``n_batches`` batches of 8; inputs/s after the
+    first (warm-up) batch; B1's launches counted around it."""
+    from pcgan_tpu_torch import test as port_test
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    cp.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        res = port_test.main(argv)
+    torch.cuda.synchronize()
+    check(res["done"] == 8 * n_batches and cp.launches == n_batches,
+          f"{what}: {res['done']} grids, {cp.launches} B1 launches")
+    steady = res["batch_seconds"][1:]
+    rate = 8 * len(steady) / sum(steady) if steady else None
+    return {"b1_launches": cp.launches, "inputs_per_s": rate,
+            "batch_seconds": res["batch_seconds"], "web_dir": res["web_dir"]}
+
+
+def _unet128(torch, tmp, plain) -> dict:
+    """(a) unet_128 at train_utkface_128.sh's shape: steps/s over epochs
+    2-3, a profiled step beside phase 18's plain resnet step, the grid rate
+    and an --anim sweep from its checkpoint, bf16 and int8 artifacts with
+    --verify and their rows/s at batch 80."""
+    from pcgan_tpu_torch.serving import load_exported
+    out, launches = {}, {}
+    res, b1, b2, wall = _train_run(torch, _variant_argv(
+        tmp, "unet128", UNET_EPOCHS, "unet_128"))
+    n = UNET_EPOCHS * LEVER_STEPS
+    check(res["step"] == n and b1 == n and b2 == 0,
+          f"unet_128: {res['step']} steps, {b1} B1 / {b2} B2 launches")
+    _lever_rows(os.path.join(tmp, "levers", "unet128"),
+                ("loss_G", "loss_G_L1", "loss_D"), "unet_128")
+    launches["train"] = b1
+    rates = _epoch_rates(res["epochs"])
+    out["train"] = {"steps": n, "cli_wall_s": wall, "rates": rates,
+                    "last_metrics": res["metrics"]}
+    say(f"unet_128 (batch 32, bf16, 30 steps): {_rates_str(rates, LEVER_B)}")
+    prof = _profile_train(torch, tmp, argv=_variant_argv(
+        tmp, "unet128_profile", 2, "unet_128", steps=4),
+        what="unet_128 step")
+    _b2_after("unet_128 profile")
+    launches["profile"] = prof["launches"]
+    out["profile"] = prof
+    out["over_plain_device_ms"] = (prof["device_ms_per_step"]
+                                   / plain["device_ms_per_step"])
+    out["over_plain_launches"] = (prof["device_launches_per_step"]
+                                  / plain["device_launches_per_step"])
+    say(f"unet_128: device {prof['device_ms_per_step']:.3f} ms, "
+        f"{prof['device_launches_per_step']:.1f} launches, busy "
+        f"{prof['device_busy_share']:.3f} per step against phase 18's plain "
+        f"resnet step's {plain['device_ms_per_step']:.3f} ms, "
+        f"{plain['device_launches_per_step']:.1f}: "
+        f"x{out['over_plain_device_ms']:.3f} / "
+        f"x{out['over_plain_launches']:.3f}")
+    grid = ["--dataset_mode", "synthetic", "--batch_size", "8", "--netG",
+            "unet_128", "--ngf", str(NGF), "--crop_size", str(CROP),
+            "--load_size", str(LOAD), "--n_age_bins", str(NB), "--dtype",
+            "bfloat16", "--name", "unet128", "--checkpoints_dir",
+            os.path.join(tmp, "levers"), "--results_dir",
+            os.path.join(tmp, "variants_res")]
+    g = _grid_rate(torch, grid + ["--max_dataset_size", "64", "--num_test",
+                                  "64"], 8, "unet_128 grid")
+    tiles = sorted(f for f in os.listdir(os.path.join(g["web_dir"], "images"))
+                   if f.startswith("0000_age_"))
+    check(len(tiles) == NB, f"unet_128 grid: {len(tiles)} tiles in a row")
+    img = read_png(os.path.join(g["web_dir"], "images", tiles[0]))
+    check(img.shape == (CROP, CROP, C) and img.std() > 0,
+          f"unet_128 grid: tile {img.shape}")
+    launches["grid"] = g["b1_launches"]
+    out["grid_inputs_per_s"] = g["inputs_per_s"]
+    a = _grid_rate(torch, grid + ["--max_dataset_size", "8", "--num_test",
+                                  "8", "--anim", "8", "--results_dir",
+                                  os.path.join(tmp, "variants_anim")], 1,
+                   "unet_128 --anim")
+    gifs = [f for f in os.listdir(os.path.join(a["web_dir"], "images"))
+            if f.endswith("_aging.gif")]
+    check(len(gifs) == 8, f"unet_128 --anim: {len(gifs)} GIFs")
+    launches["anim"] = a["b1_launches"]
+    say(f"unet_128 grid: {g['inputs_per_s']:.1f} inputs/s after warm-up "
+        f"(8 x {NB} per batch, bf16); --anim 8 wrote {len(gifs)} GIFs")
+    out["int8_accumulators"] = _int8_accum_check(torch, UNET_INT8_SHAPES)
+    base = ["--name", "unet128", "--checkpoints_dir",
+            os.path.join(tmp, "levers"), "--crop_size", str(CROP),
+            "--n_age_bins", str(NB), "--device", DEV, "--verify"]
+    srv = os.path.join(tmp, "variants_srv")
+    ex = {"bf16": _export_cli(base + ["--out_dir", os.path.join(srv, "bf16")]),
+          "int8": _export_cli(base + ["--out_dir", os.path.join(srv, "int8"),
+                                      "--quant_int8", "--calib_batches",
+                                      "2"])}
+    check(ex["bf16"]["verify_max"] <= 5e-2 and ex["int8"]["verify_max"] <= 0.3
+          and ex["int8"]["verify_mean"] <= 0.03,
+          f"unet_128 export verify limits: {ex}")
+    out["exports"] = ex
+    for kind, e in ex.items():
+        served = load_exported(e["dir"], device=DEV)
+        e["batch80"] = _artifact_rate(torch, served, 80, f"unet_128 {kind}")
+        del served
+    out["launches"] = launches
+    return out
+
+
+def _unet256_remat(torch, tmp) -> dict:
+    """(b) unet_256 at train_256_fid.sh's 256 px, batch 32, bf16: peak
+    memory and step ms with --remat (the 7 levels below the outermost)
+    against without; the peak must fall."""
+    batch = _lever_batch(torch, LEVER_B, REMAT_SIZE, 23)
+    out = {}
+    for name, extra in (("plain", ()), ("remat", ("--remat",))):
+        argv = _variant_argv(tmp, "unet256", 1, "unet_256", extra=(
+            "--crop_size", str(REMAT_SIZE), "--load_size", str(REMAT_LOAD),
+            *extra))
+        _, state, step = _lever_state(torch, argv)
+        ms, peak = _timed_steps(torch, state, step, batch)
+        out[name] = {"ms_per_step": ms, "peak_gb": peak / 2**30,
+                     "n_remat": state.G.n_remat}
+        del state, step
+        torch.cuda.empty_cache()
+    check(out["remat"]["peak_gb"] < out["plain"]["peak_gb"]
+          and out["remat"]["n_remat"] == 7,
+          f"unet_256 remat: peak memory did not fall {out}")
+    out["peak_ratio"] = out["remat"]["peak_gb"] / out["plain"]["peak_gb"]
+    out["step_time_cost"] = (out["remat"]["ms_per_step"]
+                             / out["plain"]["ms_per_step"])
+    say(f"unet_256 remat (256 px, batch 32, bf16): {json.dumps(out)}")
+    return out
+
+
+def _tail_forms(torch) -> dict:
+    """(d) the G tail at path 4's shape (x (32, 64, 128, 128) bf16, reflect
+    pad 3 (x_pad 134 x 134), 7x7, 64 -> 3): forward + VJP (dx, dw) as the
+    direct conv, the r=4 s2d conv (the JAX default's form) and
+    ``lowch_reflect_conv`` (its weight gradient is B2), each the mean of
+    back-to-back eager calls (CUDA events); their outputs and gradients
+    agree within BF16_REL_TOL of the largest entry."""
+    import torch.nn.functional as F
+    from pcgan_tpu_torch.ops import cuda_wgrad as cw
+    from pcgan_tpu_torch.ops import lowch_conv as lc
+    g = torch.Generator().manual_seed(24)
+    x = torch.randn(TAIL_X, generator=g).to(DEV, torch.bfloat16)
+    w = (0.02 * torch.randn((3, TAIL_X[1], 7, 7), generator=g)).to(DEV)
+    dy = torch.randn((TAIL_X[0], 3, CROP, CROP), generator=g).to(
+        DEV, torch.bfloat16)
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+
+    def direct():
+        return F.conv2d(F.pad(x, (3, 3, 3, 3), mode="reflect"),
+                        w.to(torch.bfloat16))
+
+    def s2d():
+        return lc.s2d_conv_nchw(F.pad(x, (3, 3, 3, 3), mode="reflect"),
+                                w.to(torch.bfloat16), 4)
+
+    def routed():
+        y = lc.lowch_reflect_conv(x.permute(0, 2, 3, 1),
+                                  w.permute(2, 3, 1, 0), 3)
+        return y.permute(0, 3, 1, 2)
+
+    forms = {"direct": direct, "s2d": s2d, "lowch_reflect_conv": routed}
+    res, out = {}, {}
+    cw.launches = 0
+    for name, fn in forms.items():
+        y = fn()
+        dx, dw = torch.autograd.grad(y, (x, w), dy)
+        res[name] = (y.float(), dx.float(), dw.float())
+
+        def fvjp(fn=fn):
+            return torch.autograd.grad(fn(), (x, w), dy)
+        out[name] = {"fwd_ms": cuda_ms(torch, lambda fn=fn: fn(), iters=50,
+                                       warmup=5),
+                     "fwd_vjp_ms": cuda_ms(torch, fvjp, iters=50, warmup=5)}
+    b2 = cw.launches
+    check(b2 > 0, "tail forms: lowch_reflect_conv launched no B2")
+    ref = res["direct"]
+    for name in ("s2d", "lowch_reflect_conv"):
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(res[name], ref)]
+        out[name]["rel_err_vs_direct"] = errs
+        check(max(errs) <= BF16_REL_TOL, f"tail {name} vs direct: {errs}")
+    out["b2_launches"] = b2
+    out["s2d_over_direct"] = (out["s2d"]["fwd_vjp_ms"]
+                              / out["direct"]["fwd_vjp_ms"])
+    say(f"tail forms (x {TAIL_X} bf16, 7x7 64 -> 3, f+vjp): "
+        + ", ".join(f"{k} {v['fwd_ms']:.3f} / {v['fwd_vjp_ms']:.3f} ms"
+                    for k, v in out.items() if isinstance(v, dict))
+        + f"; s2d / direct x{out['s2d_over_direct']:.3f}; B2 launches {b2}")
+    return out
+
+
+def _variant_parity(torch) -> dict:
+    """(e) card against CPU: one f32 unet_32 step (``_step_parity``); the
+    f32 forward of a resize_conv + g_attn G (gamma 0.5); the bf16 s2d tail
+    and separated-condition stem against the direct conv on the card."""
+    import torch.nn.functional as F
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_G
+    from pcgan_tpu_torch.models.generator import broadcast_cond
+    from pcgan_tpu_torch.models.layers import TorchConv
+    out = {"unet_step": _step_parity(torch, [
+        "--netG", "unet_32", "--ngf", "16", "--ndf", "16"],
+        "unet step parity", VARIANT_TOL)}
+    cfg = parse_config(["--netG", "resnet_6blocks@resize_conv", "--g_attn",
+                        "--ngf", "16", "--crop_size", "32", "--n_age_bins",
+                        "4", "--cond_inject", "bottleneck", "--dtype",
+                        "float32"], is_train=False)
+    G = define_G(cfg, torch.Generator().manual_seed(25)).eval()
+    with torch.no_grad():
+        G.attn.gamma.fill_(0.5)
+    rng = np.random.default_rng(25)
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, 32, 32, 3)).astype(
+        np.float32))
+    c = torch.eye(4)[torch.from_numpy(rng.integers(0, 4, 4))]
+    with torch.no_grad():
+        y_cpu = G(x, c)
+        y_dev = G.to(DEV)(x.to(DEV), c.to(DEV)).cpu()
+    err = float((y_cpu - y_dev).abs().max())
+    check(err <= VARIANT_TOL, f"resize_conv + g_attn G card vs CPU: {err}")
+    out["resize_attn_forward_max_abs_err"] = err
+    # the bf16 routes on the card against the direct conv, same weights
+    g = torch.Generator().manual_seed(26)
+    bf = torch.bfloat16
+    xt = torch.randn((8, 64, CROP, CROP), generator=g).to(DEV)
+    xs = torch.rand((8, 3, CROP, CROP), generator=g).to(DEV) * 2 - 1
+    cs = torch.eye(NB)[torch.arange(8) % NB].to(DEV)
+    routes = {}
+    for name, (cin, cout) in (("tail_s2d", (64, 3)), ("stem_cond", (3 + NB,
+                                                                     64))):
+        on = TorchConv(cin, cout, 7, 1, 3, "reflect", True, bf,
+                       lowch_matmul=True)
+        off = TorchConv(cin, cout, 7, 1, 3, "reflect", True, bf)
+        with torch.no_grad():
+            on.weight.normal_(0, 0.02, generator=g)
+            on.bias.normal_(0, 0.02, generator=g)
+            off.load_state_dict(on.state_dict())
+            on, off = on.to(DEV), off.to(DEV)
+            if name == "tail_s2d":
+                check(on.s2d_r == 4, "tail: no s2d route")
+                a, b = on(xt), off(xt)
+            else:
+                a = on(xs, cs)
+                b = off(torch.cat([xs, broadcast_cond(cs, CROP, CROP)], 1))
+        d = (a.float() - b.float()).abs()
+        routes[name] = {"max": float(d.max()), "mean": float(d.mean())}
+        check(routes[name]["max"] <= VARIANT_BF16[0]
+              and routes[name]["mean"] <= VARIANT_BF16[1],
+              f"{name} vs the direct conv (bf16, card): {routes[name]}")
+    out["bf16_routes_vs_direct"] = routes
+    say(f"variant parity: {json.dumps(out)}")
+    return out
+
+
+def _h2d_bytes(trace_path) -> float:
+    """Host-to-device bytes of a chrome trace's memcpy rows."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    rows = [e for e in events if e.get("cat") == "gpu_memcpy"
+            and "HtoD" in e.get("name", "")]
+    check(all("bytes" in e.get("args", {}) for e in rows),
+          f"{trace_path}: memcpy rows without bytes")
+    return float(sum(e["args"]["bytes"] for e in rows))
+
+
+class _TiledCanvases:
+    """``n`` 200 px canvases: 256 synthetic faces, each row rolled by its
+    tile index (every row distinct), for the resident-cache run."""
+
+    def __init__(self, n, seed=0):
+        from pcgan_tpu_torch.data.synthetic import SyntheticAgingDataset
+        base = SyntheticAgingDataset(size=256, native=NATIVE, seed=seed)
+        self.tiles = [base.get_raw(i) for i in range(256)]
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+    def get_raw(self, i):
+        t = self.tiles[i % 256]
+        return {"image": np.roll(t["image"], i // 256, axis=1),
+                "age": t["age"]}
+
+
+def _loader_rate(torch, cfg, state, step, ld, what) -> dict:
+    """Steps/s of ``ld``'s batches through train_main's own upload (or
+    gather), B1 and the step: CACHE_WARM warm-up steps, then CACHE_STEPS
+    timed ones."""
+    from pcgan_tpu_torch import train_main
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.ops.preprocess import make_preprocess
+    pre = make_preprocess(cfg, train=True)
+    cp.launches = 0
+    it = train_main._epoch_batches(cfg, ld)
+    t0 = None
+    for i in range(CACHE_WARM + CACHE_STEPS):
+        if i == CACHE_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        raw = next(it)
+        batch = pre(state.generator,
+                    {"image": train_main._to_device(raw["image"], DEV)})
+        batch["bin"] = train_main._to_device(raw["bin"], DEV)
+        step(state, batch)
+    torch.cuda.synchronize()
+    rate = CACHE_STEPS / (time.perf_counter() - t0)
+    it.close()
+    check(cp.launches == CACHE_WARM + CACHE_STEPS,
+          f"{what}: {cp.launches} B1 launches")
+    return {"steps_per_s": rate, "b1_launches": cp.launches}
+
+
+def _summing(to_device, sums):
+    """``train_main._to_device`` that also appends a checksum of every u8
+    image batch of path 4's size it uploads (or passes on, gathered) to
+    ``sums``."""
+    def spy(v, device):
+        t = to_device(v, device)
+        if (t.dim() == 4 and t.shape[0] == REAL_B
+                and not t.is_floating_point()):
+            w = t.long()
+            sums.append(int(w.sum()) + 7 * int(w[:, ::7, ::5].sum()))
+        return t
+    return spy
+
+
+def _device_cache(torch, tmp, folder, bundle_dir) -> dict:
+    """(f) --device_cache at path 4's flags over the folder: the batches of
+    a cached run equal the streaming run's bit for bit and so does the
+    loss stream of metrics.jsonl (or, where the card's atomics make two
+    streaming runs differ, it differs from the streaming run no more than
+    20x as much as they do), steps/s both ways, host-to-device bytes per
+    step from a --profile_steps 4 trace of each; then a resident cache of
+    CACHE_N synthetic canvases from a pack: its decode and upload seconds,
+    and steps/s against the host Loader at batch 32."""
+    from pcgan_tpu_torch import train_main
+    from pcgan_tpu_torch.data.device_cache import DeviceCacheLoader
+    from pcgan_tpu_torch.data.loader import Loader, create_dataset
+    from pcgan_tpu_torch.data.packed import write_pack
+    cond = ("--comparator_path", bundle_dir)
+    out, launches, runs = {}, {}, {}
+    steps = 2 * REAL_STEPS
+    real_to_device = train_main._to_device
+    # cuDNN's deterministic algorithms: what is left of run-to-run noise is
+    # the atomics of the reflect pads' backward
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, extra in (("stream", ()), ("cache", ("--device_cache",)),
+                            ("stream_profiled", ("--profile_steps", "4")),
+                            ("cache_profiled", ("--device_cache",
+                                                "--profile_steps", "4"))):
+            sums = []
+            train_main._to_device = _summing(real_to_device, sums)
+            try:
+                res, b1, b2, wall = _train_run(torch, _real_argv(
+                    tmp, folder, f"cache_{name}", 2, cond + extra))
+            finally:
+                train_main._to_device = real_to_device
+            check(res["step"] == steps and b1 == steps and b2 == 0
+                  and len(sums) == steps,
+                  f"cache {name}: {res['step']} steps, {b1} B1 / {b2} B2 "
+                  f"launches, {len(sums)} batches seen")
+            run_dir = os.path.join(tmp, "real", f"cache_{name}")
+            with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+                losses = [{k: v for k, v in json.loads(line).items()
+                           if k.startswith("loss")} for line in f]
+            runs[name] = {"sums": sums, "losses": losses, "wall_s": wall,
+                          "rates": _epoch_rates(res["epochs"])}
+            if name.endswith("profiled"):
+                trace = os.path.join(run_dir, "trace", "trace.json")
+                runs[name]["h2d_bytes_per_step"] = _h2d_bytes(trace) / 4
+            launches[name] = b1
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(all(runs[n]["sums"] == runs["stream"]["sums"] for n in runs),
+          "device cache: the batches differ from the streaming run's")
+
+    def gap(a, b):
+        return max(abs(x[k] - y[k]) / max(1.0, abs(y[k]))
+                   for x, y in zip(a, b) for k in y)
+    s, c = runs["stream"]["losses"], runs["cache"]["losses"]
+    check(len(s) == len(c) > 0 and all(set(a) == set(b)
+                                       for a, b in zip(s, c)),
+          "device cache: metrics rows differ in shape")
+    noise = gap(runs["stream_profiled"]["losses"], s)
+    diff = gap(c, s)
+    identical = c == s
+    check(identical or (noise > 0 and diff <= 20 * noise),
+          f"device cache: loss stream {diff} from the streaming run's, "
+          f"two streaming runs {noise} apart")
+    out["loss_stream"] = {"identical": identical, "max_rel_gap": diff,
+                          "stream_vs_stream_max_rel_gap": noise,
+                          "cache_profiled_max_rel_gap": gap(
+                              runs["cache_profiled"]["losses"], s)}
+    out["runs"] = {n: {k: v for k, v in r.items() if k != "sums"}
+                   for n, r in runs.items()}
+    say(f"device cache (path 4's flags, {steps} steps): batches bit-identical"
+        f" to the streaming run's; loss stream identical {identical} (max "
+        f"rel gap {diff}, two streaming runs {noise}); epoch-2 steps/s "
+        f"stream {runs['stream']['rates']['pooled']:.3f}, cache "
+        f"{runs['cache']['rates']['pooled']:.3f}; host-to-device bytes per "
+        f"step stream {runs['stream_profiled']['h2d_bytes_per_step']:.0f}, "
+        f"cache {runs['cache_profiled']['h2d_bytes_per_step']:.0f}")
+
+    # a resident cache of CACHE_N canvases, and the host Loader over them
+    pack = os.path.join(tmp, "cache_pack")
+    t0 = time.perf_counter()
+    write_pack(_TiledCanvases(CACHE_N), pack, num_threads=8)
+    pack_s = time.perf_counter() - t0
+    argv = _lever_argv(tmp, "cache_big", 1, extra=(
+        "--dataset_mode", "packed", "--dataroot", pack,
+        "--max_dataset_size", str(CACHE_N)))
+    cfg, state, step = _lever_state(torch, argv)
+    ds = create_dataset(cfg, train=True)
+    dc = DeviceCacheLoader(cfg, ds, DEV, seed=0)
+    check(dc.nbytes >= CACHE_N * NATIVE * NATIVE * C,
+          f"resident cache: {dc.nbytes} bytes")
+    big = {"rows": CACHE_N, "gb": dc.nbytes / 1e9, "pack_s": pack_s,
+           "decode_s": dc.decode_s, "upload_s": dc.upload_s,
+           "upload_gb_per_s": dc.nbytes / 1e9 / dc.upload_s}
+    big["cache"] = _loader_rate(torch, cfg, state, step, dc, "cache rate")
+    del dc
+    torch.cuda.empty_cache()
+    host = Loader(ds, cfg.data.batch_size, shuffle=True,
+                  num_threads=cfg.data.num_threads, seed=0)
+    big["host_loader"] = _loader_rate(torch, cfg, state, step, host,
+                                      "host Loader rate")
+    big["cache_over_host"] = (big["cache"]["steps_per_s"]
+                              / big["host_loader"]["steps_per_s"])
+    launches["resident_cache"] = big["cache"]["b1_launches"]
+    launches["resident_host"] = big["host_loader"]["b1_launches"]
+    del state, step
+    torch.cuda.empty_cache()
+    out["resident"] = big
+    say(f"resident cache of {CACHE_N} canvases ({big['gb']:.3f} GB): decode "
+        f"{big['decode_s']:.2f} s, upload {big['upload_s']:.3f} s "
+        f"({big['upload_gb_per_s']:.2f} GB/s); steps/s at batch 32 cache "
+        f"{big['cache']['steps_per_s']:.3f} against the host Loader's "
+        f"{big['host_loader']['steps_per_s']:.3f} "
+        f"(x{big['cache_over_host']:.3f})")
+    out["launches"] = launches
+    return out
+
+
+def phase_variants(torch, tmp, folder, bundle_dir, plain) -> dict:
+    """Phase 19: the generator variants and the device cache at full
+    width: (a) unet_128, (b) unet_256 remat, (c) resize_conv + g_attn, (d)
+    the JAX default routes against --no-lowch_matmul at path 4's flags and
+    the tail's three forms, (e) card-vs-CPU parity, (f) --device_cache.
+    ``plain``: phase 18's profiled plain resnet step at the same shape."""
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    out["unet_128"] = _unet128(torch, tmp, plain)
+    launches.update({f"unet_128_{k}": v for k, v in
+                     out["unet_128"]["launches"].items()})
+    out["unet_256_remat"] = _unet256_remat(torch, tmp)
+
+    prof = _profile_train(torch, tmp, argv=_variant_argv(
+        tmp, "resize_attn_profile", 2, "resnet_9blocks@resize_conv", steps=4,
+        extra=("--g_attn",)), what="resize_conv + g_attn step")
+    _b2_after("resize_conv + g_attn")
+    launches["resize_attn_profile"] = prof["launches"]
+    out["resize_attn"] = {
+        "profile": prof,
+        "over_plain_device_ms": (prof["device_ms_per_step"]
+                                 / plain["device_ms_per_step"]),
+        "over_plain_launches": (prof["device_launches_per_step"]
+                                / plain["device_launches_per_step"])}
+    ra = out["resize_attn"]
+    say(f"resize_conv + g_attn: x{ra['over_plain_device_ms']:.3f} the plain "
+        f"step's device ms, x{ra['over_plain_launches']:.3f} its launches")
+
+    cond = ("--comparator_path", bundle_dir)
+    routes = {}
+    for name, extra in (("lowch", ()), ("direct", ("--no-lowch_matmul",))):
+        routes[name] = _profile_train(
+            torch, tmp, steps=REAL_STEPS, what=f"path 4 step ({name})",
+            argv=_real_argv(tmp, folder, f"routes_{name}", 2, cond + extra))
+        _b2_after(f"routes {name}")
+        launches[f"routes_{name}"] = routes[name]["launches"]
+    routes["lowch_over_direct_device_ms"] = (
+        routes["lowch"]["device_ms_per_step"]
+        / routes["direct"]["device_ms_per_step"])
+    routes["tail"] = _tail_forms(torch)
+    out["routes"] = routes
+    say(f"JAX default routes at path 4's flags: device "
+        f"{routes['lowch']['device_ms_per_step']:.3f} ms a step against "
+        f"{routes['direct']['device_ms_per_step']:.3f} with "
+        f"--no-lowch_matmul (x{routes['lowch_over_direct_device_ms']:.3f})")
+
+    out["parity"] = _variant_parity(torch)
+    out["cache"] = _device_cache(torch, tmp, folder, bundle_dir)
+    launches.update({f"cache_{k}": v for k, v in
+                     out["cache"]["launches"].items()})
+    out["launches_per_run"] = launches
+    out["b2_tail_launches"] = routes["tail"]["b2_launches"]
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase 19 (generator variants, device cache): "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def _face_row(folder, i) -> np.ndarray:
     """Image i of the folder as the host's image routes give it to G: f32
     [-1, 1] at the crop size (the folder's 200 px canvas resized)."""
@@ -2931,6 +3495,8 @@ def main() -> None:
         serving = phase_serving(torch, tmp, folder, path3["bundle_dir"],
                                 sampling["rate"])
         levers = phase_levers(torch, tmp)
+        variants = phase_variants(torch, tmp, folder, path3["bundle_dir"],
+                                  levers["plain_profile"])
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
         "training": path1["launches_per_run"], "bench_lowch": 0,
@@ -2940,7 +3506,8 @@ def main() -> None:
         "label_free": label_free["launches_per_run"],
         "evaluation": evaluation["launches_per_run"],
         "serving": serving["launches_per_run"],
-        "levers": levers["launches_per_run"]}
+        "levers": levers["launches_per_run"],
+        "g_variants": variants["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
@@ -2949,13 +3516,15 @@ def main() -> None:
                                "sampling": 0, "comparator": 0,
                                "training_cond": 0, "real_images": 0,
                                "label_free": 0, "evaluation": 0,
-                               "serving": 0, "levers": 0}
-    b2["launches"] = path2["launches"] + path1["b2_launches"]
+                               "serving": 0, "levers": 0, "g_variants": 0,
+                               "tail_forms": variants["b2_tail_launches"]}
+    b2["launches"] = (path2["launches"] + path1["b2_launches"]
+                      + variants["b2_tail_launches"])
     check(b1["launches"] > 0 and b2["launches"] > 0
           and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers}, default=_jsonable)}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)

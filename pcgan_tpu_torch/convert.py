@@ -5,10 +5,18 @@ The flax tree of ``pcgan_tpu``'s ResnetGenerator names its convs by creation
 order (``TorchConv_N`` / ``ResnetBlock_i`` / ``TorchConvTranspose_i``; with
 bottleneck injection the 1x1 projection takes ``TorchConv_{nd+1}`` and the
 tail's index shifts by one), the walk of ``pcgan_tpu/utils/pth_import.py:39-60``.
+Under ``@resize_conv`` the upsampling convs are ``ResizeConv_i/TorchConv_0``
+(the port's ``up.i.conv``), and ``--g_attn``'s block is ``attn/{theta,phi,
+g,o}`` with ``attn/gamma`` (the port's ``attn``).
 Its norms are ``Norm_k/{BatchNorm_0,GroupNorm_0}`` in creation order (the
 stem's, the down convs', the up convs'; ``ResnetBlock_i/Norm_{0,1}``), their
 ``scale``/``bias`` and ``batch_stats`` ``mean``/``var`` becoming
-``weight``/``bias``/``running_mean``/``running_var``. The discriminators'
+``weight``/``bias``/``running_mean``/``running_var``. The U-Net's levels are
+flat siblings ``UnetSkipBlock_i``, innermost first (the port's
+``levels.i``), each with ``TorchConv_0`` (down), ``TorchConvTranspose_0``
+(up) and its norms in creation order: ``Norm_0`` the down norm and
+``Norm_1`` the up norm on a middle level, ``Norm_0`` the up norm on the
+innermost, none on the outermost. The discriminators'
 convs are ``TorchConv_0..n`` in order (under ``D_k/`` for the multiscale
 D), their norms ``Norm_k``, the attention's 1x1 convs ``attn/{theta,phi,
 g,o}``, and spectral norm's ``batch_stats`` ``SpectralNorm_j/<conv>/
@@ -39,7 +47,8 @@ and a JAX comparator bundle (``<run>/comparator``, written by ``train.py
 A JAX generator calibrated for int8 (``calibrate_quant``) carries a
 ``quant`` collection beside its params: one ``act_absmax`` per trunk site
 (``TorchConv_1/act_absmax``, ``ResnetBlock_0/TorchConv_0/act_absmax``,
-``TorchConvTranspose_0/act_absmax``, ...). ``convert_generator_quant``
+``TorchConvTranspose_0/act_absmax``, ...; on a U-Net every level's two
+convs but the outermost's). ``convert_generator_quant``
 maps it onto the port's site names for ``ops.quant.set_act_absmaxes``, and
 ``generator_quant_to_flax`` maps the port's calibrated absmaxes back.
 
@@ -83,10 +92,10 @@ def load_flax_npz(path: str) -> Dict[str, np.ndarray]:
 
 
 def resnet_param_map(n_blocks: int, n_downsampling: int = 2,
-                     cond_inject: str = "input"
+                     cond_inject: str = "input", upsample: str = "deconv"
                      ) -> List[Tuple[str, str, str]]:
     """Ordered (flax module path, torch module name, kind) for the resnet
-    generator; kind is conv or deconv."""
+    generator's convs; kind is conv or deconv."""
     order = [("TorchConv_0", "stem", "conv")]
     for i in range(n_downsampling):
         order.append((f"TorchConv_{i + 1}", f"down.{i}", "conv"))
@@ -99,8 +108,22 @@ def resnet_param_map(n_blocks: int, n_downsampling: int = 2,
             order.append((f"ResnetBlock_{b}/TorchConv_{j}",
                           f"blocks.{b}.conv{j}", "conv"))
     for i in range(n_downsampling):
-        order.append((f"TorchConvTranspose_{i}", f"up.{i}", "deconv"))
+        order.append((f"TorchConvTranspose_{i}", f"up.{i}", "deconv")
+                     if upsample == "deconv" else
+                     (f"ResizeConv_{i}/TorchConv_0", f"up.{i}.conv", "conv"))
     order.append((f"TorchConv_{n_downsampling + 1 + extra}", "tail", "conv"))
+    return order
+
+
+def unet_param_map(num_downs: int) -> List[Tuple[str, str, str]]:
+    """Ordered (flax module path, torch module name, kind) for the U-Net's
+    convs, innermost level first."""
+    order = []
+    for i in range(num_downs):
+        order.append((f"UnetSkipBlock_{i}/TorchConv_0", f"levels.{i}.down",
+                      "conv"))
+        order.append((f"UnetSkipBlock_{i}/TorchConvTranspose_0",
+                      f"levels.{i}.up", "deconv"))
     return order
 
 
@@ -138,15 +161,33 @@ def _walk(flat: Mapping, order) -> "Tuple[OrderedDict[str, torch.Tensor], set]":
     return sd, used
 
 
-def _generator_order(flat: Mapping):
+def _resnet_shape(flat: Mapping, leaf: str = ""):
+    """(n_blocks, n_up, upsample) of a resnet G's '/'-flat tree (params,
+    or a quant collection when ``leaf`` is ``act_absmax``)."""
     n_blocks = _count(flat, r"ResnetBlock_\d+/")
-    n_down = _count(flat, r"TorchConvTranspose_\d+/")
+    n_deconv = _count(flat, r"TorchConvTranspose_\d+/")
+    n_resize = _count(flat, r"ResizeConv_\d+/")
+    if n_deconv and n_resize:
+        raise ValueError("not a resnet generator tree: both transposed and "
+                         "resize upsampling convs")
+    return (n_blocks, n_deconv + n_resize,
+            "resize_conv" if n_resize else "deconv")
+
+
+def _is_unet(flat: Mapping) -> bool:
+    return any(k.startswith("UnetSkipBlock_") for k in flat)
+
+
+def _generator_order(flat: Mapping):
+    if _is_unet(flat):
+        return unet_param_map(_count(flat, r"UnetSkipBlock_\d+/"))
+    n_blocks, n_up, upsample = _resnet_shape(flat)
     n_top_convs = _count(flat, r"TorchConv_\d+/")
-    if n_top_convs not in (n_down + 2, n_down + 3):
+    if n_top_convs not in (n_up + 2, n_up + 3):
         raise ValueError(f"not a resnet generator tree: {n_top_convs} top "
-                         f"convs for {n_down} upsampling layers")
-    inject = "bottleneck" if n_top_convs == n_down + 3 else "input"
-    return resnet_param_map(n_blocks, n_down, inject)
+                         f"convs for {n_up} upsampling layers")
+    inject = "bottleneck" if n_top_convs == n_up + 3 else "input"
+    return resnet_param_map(n_blocks, n_up, inject, upsample)
 
 
 # flax norm leaves -> the port's (batch norm: params and running stats)
@@ -162,23 +203,42 @@ def _norm_key(parts, site: str) -> str:
 
 
 def _generator_translator(flat: Mapping):
-    """flax key of a resnet G's params or batch_stats -> (port key, kind).
-    Norm sites in creation order: the stem's, the down convs', the up
-    convs' (``Norm_k``); each block's ``Norm_0`` / ``Norm_1``."""
+    """flax key of a resnet or U-Net G's params or batch_stats -> (port key,
+    kind). Resnet norm sites in creation order: the stem's, the down
+    convs', the up convs' (``Norm_k``); each block's ``Norm_0`` /
+    ``Norm_1``. U-Net: see the module docstring."""
     convs = {path: (name, kind) for path, name, kind in
              _generator_order(flat)}
-    n_down = _count(flat, r"TorchConvTranspose_\d+/")
-    sites = (["stem_norm"] + [f"down_norm.{i}" for i in range(n_down)]
-             + [f"up_norm.{i}" for i in range(n_down)])
+    if _is_unet(flat):
+        n_levels = _count(flat, r"UnetSkipBlock_\d+/")
+
+        def level_norm(i: int, k: int) -> str:
+            down_normed = 0 < i < n_levels - 1
+            return ("down_norm" if down_normed and k == 0 else "up_norm")
+    else:
+        n_up = _resnet_shape(flat)[1]
+        sites = (["stem_norm"] + [f"down_norm.{i}" for i in range(n_up)]
+                 + [f"up_norm.{i}" for i in range(n_up)])
 
     def translate(key: str):
         parts = key.split("/")
+        if parts[0].startswith("UnetSkipBlock_") and parts[1].startswith(
+                "Norm_"):
+            i = int(parts[0][14:])
+            site = f"levels.{i}.{level_norm(i, int(parts[1][5:]))}"
+            return _norm_key(parts[1:], site), "plain"
         if parts[0].startswith("ResnetBlock_") and parts[1].startswith(
                 "Norm_"):
             site = f"blocks.{parts[0][12:]}.norm{parts[1][5:]}"
             return _norm_key(parts[1:], site), "plain"
         if parts[0].startswith("Norm_"):
             return _norm_key(parts, sites[int(parts[0][5:])]), "plain"
+        if parts[0] == "attn":
+            if parts[1:] == ["gamma"]:
+                return "attn.gamma", "plain"
+            if len(parts) != 3 or parts[1] not in ("theta", "phi", "g", "o"):
+                raise KeyError(key)
+            return f"attn.{parts[1]}.weight", "conv"
         name, kind = convs["/".join(parts[:-1])]
         if parts[-1] == "kernel":
             return f"{name}.weight", kind
@@ -210,32 +270,37 @@ def _translate_tree(flat: Mapping, translate, what: str,
 
 def convert_generator_params(flax_params: Mapping, state: Mapping = None
                              ) -> "OrderedDict[str, torch.Tensor]":
-    """Flax ResnetGenerator params (nested or '/'-flat, numpy or jax
-    arrays) -> a ``state_dict`` for ``ResnetGenerator``; with ``state`` (the
-    G's ``batch_stats`` collection) the running stats too. The block count,
-    the downsampling depth and the injection site are read off the tree;
-    every flax tensor must be consumed."""
+    """Flax ResnetGenerator or UnetGenerator params (nested or '/'-flat,
+    numpy or jax arrays) -> a ``state_dict`` for the port's generator; with
+    ``state`` (the G's ``batch_stats`` collection) the running stats too.
+    The family, block or level count, downsampling depth, upsampling kind,
+    attention and injection site are read off the tree; every flax tensor
+    must be consumed."""
     flat = flatten_params(flax_params)
     return _translate_tree(flat, _generator_translator(flat), "generator",
                            state)
 
 
 def _quant_order(flat: Mapping):
-    """(flax path, port site) of a resnet G's ``quant`` collection: the
-    param walk without the stem and the tail, which never quantize."""
-    n_blocks = _count(flat, r"ResnetBlock_\d+/")
-    n_down = _count(flat, r"TorchConvTranspose_\d+/")
-    inject = ("bottleneck" if f"TorchConv_{n_down + 1}/act_absmax" in flat
+    """(flax path, port site) of a G's ``quant`` collection: the param walk
+    without the convs that never quantize (the resnet's stem and tail, the
+    U-Net's outermost level)."""
+    if _is_unet(flat):
+        # the outermost level has no entry: n levels hold n - 1 of them
+        n = _count(flat, r"UnetSkipBlock_\d+/") + 1
+        return [(path, name) for path, name, _ in unet_param_map(n)[:-2]]
+    n_blocks, n_up, upsample = _resnet_shape(flat)
+    inject = ("bottleneck" if f"TorchConv_{n_up + 1}/act_absmax" in flat
               else "input")
-    order = resnet_param_map(n_blocks, n_down, inject)
+    order = resnet_param_map(n_blocks, n_up, inject, upsample)
     return [(path, name) for path, name, _ in order[1:-1]]
 
 
 def convert_generator_quant(flax_quant: Mapping) -> Dict[str, torch.Tensor]:
     """A JAX G's ``quant`` collection (nested or '/'-flat; a ``{'quant':
     ...}`` variables dict is unwrapped) -> ``{port site name: 0-d f32
-    absmax}`` (``down.0``, ``blocks.0.conv1``, ``up.1``, ...). Every
-    entry must be consumed."""
+    absmax}`` (``down.0``, ``blocks.0.conv1``, ``up.1``, ``levels.2.up``,
+    ...). Every entry must be consumed."""
     if "quant" in flax_quant and isinstance(flax_quant["quant"], Mapping):
         flax_quant = flax_quant["quant"]
     flat = flatten_params(flax_quant)
@@ -252,12 +317,22 @@ def convert_generator_quant(flax_quant: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def generator_quant_to_flax(absmaxes: Mapping, n_blocks: int,
+def generator_quant_to_flax(absmaxes: Mapping, n_blocks: int = None,
                             n_downsampling: int = 2,
                             cond_inject: str = "input") -> dict:
     """The port's ``{site name: absmax}`` (``ops.quant.act_absmaxes``) ->
-    a nested flax ``quant`` collection of f32 numpy scalars."""
-    order = resnet_param_map(n_blocks, n_downsampling, cond_inject)[1:-1]
+    a nested flax ``quant`` collection of f32 numpy scalars. A U-Net's, or
+    a resize-conv resnet's, layout is read off the site names."""
+    if any(k.startswith("levels.") for k in absmaxes):
+        n = 1 + max(int(k.split(".")[1]) for k in absmaxes) + 1
+        order = unet_param_map(n)[:-2]
+    else:
+        if n_blocks is None:
+            n_blocks = 1 + max(int(k.split(".")[1]) for k in absmaxes
+                               if k.startswith("blocks."))
+        upsample = "resize_conv" if "up.0.conv" in absmaxes else "deconv"
+        order = resnet_param_map(n_blocks, n_downsampling, cond_inject,
+                                 upsample)[1:-1]
     tree: dict = {}
     for path, name, _ in order:
         node = tree

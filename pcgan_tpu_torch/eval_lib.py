@@ -236,7 +236,7 @@ def make_fid_evaluator(cfg: Config, comparator: Optional[Tuple] = None,
                             f"rows, sized from the first batch); feed "
                             f"fixed-size batches")
                     perm = torch.from_numpy(_local_perm_slice(rng, b))
-                    images = torch.from_numpy(raw["image"]).to(device)
+                    images = torch.as_tensor(raw["image"]).to(device)
                     bins = torch.as_tensor(raw["bin"]).long().to(device)
                     real = pre(None, {"image": images})["image"].float()
                     target = bins[perm.to(device)]

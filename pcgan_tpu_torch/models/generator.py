@@ -1,5 +1,5 @@
-"""Conditional resnet generator and self-attention (counterpart of
-``pcgan_tpu/models/generator.py:51-249``).
+"""Conditional generators and self-attention (counterpart of
+``pcgan_tpu/models/generator.py``): the resnet G and the U-Net.
 
 ResnetGenerator (``--netG resnet_9blocks|resnet_6blocks``):
   ReflectionPad(3) -> Conv7x7(ngf) -> norm -> ReLU
@@ -23,6 +23,24 @@ first ``--remat_blocks`` blocks in the backward pass.
 (``ops/quant.py``): the down convs, the bottleneck projection, both convs of
 every block and the deconvs. Stem and tail stay in the compute dtype, as in
 the JAX package (``generator.py:150-154``).
+
+The resnet G's variants: ``upsample='resize_conv'`` (``--netG
+resnet_*@resize_conv``) upsamples by a nearest resize and a 3x3 conv;
+``g_attn`` puts one ``SelfAttention`` after block ``n_blocks // 2 - 1``
+(never rematerialized); ``lowch_matmul`` on the bf16 path keeps the
+condition out of the stem's input (a per-sample bias, ``TorchConv``) and
+runs the tail in space-to-depth form.
+
+UnetGenerator (``--netG unet_<size>``, ``num_downs = log2(size)``): a
+recursive U-Net of ``num_downs`` levels, outermost to innermost:
+  down: LeakyReLU(0.2) (not at the outermost) -> Conv4x4 s2 p1 -> norm
+        (not at the outer- or innermost level)
+  up:   ReLU -> ConvTranspose4x4 s2 p1 -> norm [-> dropout] -> concat the
+        level's input on the channel axis; the outermost ends in tanh (f32)
+The condition joins the input (``'input'``) or the innermost level's down
+output (``'bottleneck'``). The ``num_downs - 5`` middle levels carry
+dropout; ``--remat`` recomputes the innermost ``--remat_blocks`` levels
+(the outermost never).
 """
 
 from __future__ import annotations
@@ -35,7 +53,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from pcgan_tpu_torch.models.layers import (Norm, TorchConv, TorchConvTranspose,
+from pcgan_tpu_torch.models.layers import (Norm, ResizeConv, TorchConv,
+                                           TorchConvTranspose,
                                            conv_bias_before_norm,
                                            frozen_stats, norm_uses_bias)
 
@@ -112,7 +131,8 @@ class ResnetGenerator(nn.Module):
                  n_downsampling: int = 2, norm: str = "instance",
                  use_dropout: bool = False, cond_inject: str = "input",
                  dtype=torch.float32, quant_trunk: bool = False,
-                 n_remat: int = 0):
+                 n_remat: int = 0, upsample: str = "deconv",
+                 lowch_matmul: bool = False, g_attn: bool = False):
         super().__init__()
         if cond_inject not in ("input", "bottleneck"):
             # loud: a typo here must not silently build an UNCONDITIONAL G
@@ -120,6 +140,11 @@ class ResnetGenerator(nn.Module):
                 f"cond_inject [{cond_inject}] (want input | bottleneck)")
         self.cond_inject = cond_inject
         self.use_dropout = use_dropout
+        self.compute_dtype = dtype
+        # the bf16 path keeps the constant condition map out of the stem's
+        # input: TorchConv folds it into a per-sample bias
+        self.stem_cond = (cond_inject == "input" and lowch_matmul
+                          and dtype == torch.bfloat16)
         # --remat: the first n_remat blocks recompute their activations in
         # the backward pass (torch.utils.checkpoint); names are unchanged,
         # so checkpoints cross-load with and without it
@@ -128,7 +153,7 @@ class ResnetGenerator(nn.Module):
         norm_bias = conv_bias_before_norm(norm)
         stem_in = input_nc + (cond_nc if cond_inject == "input" else 0)
         self.stem = TorchConv(stem_in, ngf, 7, 1, 3, "reflect", norm_bias,
-                              dtype)
+                              dtype, lowch_matmul=lowch_matmul)
         self.stem_norm = Norm(norm, ngf)
         self.down = nn.ModuleList(
             TorchConv(ngf * 2 ** i, ngf * 2 ** (i + 1), 3, 2, 1, "zero",
@@ -147,13 +172,20 @@ class ResnetGenerator(nn.Module):
             ResnetBlock(trunk, norm, use_dropout, dtype=dtype,
                         quant=quant_trunk)
             for _ in range(n_blocks))
+        # --g_attn: mid-trunk global context at the bottleneck resolution
+        self.attn_after = n_blocks // 2 - 1 if g_attn else None
+        self.attn = SelfAttention(trunk, dtype) if g_attn else None
         ups = [ngf * 2 ** (n_downsampling - i) // 2
                for i in range(n_downsampling)]
+        # any upsample but 'deconv' is the resize conv, as in the JAX module
         self.up = nn.ModuleList(
             TorchConvTranspose(2 * f, f, 3, 2, 1, 1, norm_bias, dtype,
-                               quant_trunk) for f in ups)
+                               quant_trunk) if upsample == "deconv" else
+            ResizeConv(2 * f, f, norm_bias, dtype, quant_trunk)
+            for f in ups)
         self.up_norm = nn.ModuleList(Norm(norm, f) for f in ups)
-        self.tail = TorchConv(ngf, output_nc, 7, 1, 3, "reflect", True, dtype)
+        self.tail = TorchConv(ngf, output_nc, 7, 1, 3, "reflect", True, dtype,
+                              lowch_matmul=lowch_matmul)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -166,10 +198,14 @@ class ResnetGenerator(nn.Module):
             raise ValueError("a training forward with dropout needs the "
                              "train state's generator")
         h = x.permute(0, 3, 1, 2)
-        if self.cond_inject == "input":
-            h = torch.cat([h, broadcast_cond(cond, h.shape[2], h.shape[3],
-                                             h.dtype)], 1)
-        h = F.relu(self.stem_norm(self.stem(h)))
+        if self.stem_cond:
+            h = self.stem(h, cond)
+        else:
+            if self.cond_inject == "input":
+                h = torch.cat([h, broadcast_cond(cond, h.shape[2], h.shape[3],
+                                                 h.dtype)], 1)
+            h = self.stem(h)
+        h = F.relu(self.stem_norm(h))
         for conv, norm in zip(self.down, self.down_norm):
             h = F.relu(norm(conv(h)))
         if self.cond_proj is not None:
@@ -187,11 +223,155 @@ class ResnetGenerator(nn.Module):
                                context_fn=_recompute_frozen(block))
             else:
                 h = block(h, keep)
+            if i == self.attn_after:
+                h = self.attn(h)
         for deconv, norm in zip(self.up, self.up_norm):
             h = F.relu(norm(deconv(h)))
         h = self.tail(h)
         return torch.tanh(h.float()).permute(0, 2, 3, 1)
 
 
-def _recompute_frozen(block: nn.Module):
-    return lambda: (contextlib.nullcontext(), frozen_stats(block))
+def _recompute_frozen(*modules: nn.Module):
+    return lambda: (contextlib.nullcontext(), frozen_stats(*modules))
+
+
+class UnetSkipBlock(nn.Module):
+    """One U-Net level's own layers (``pcgan_tpu/models/generator.py:
+    252-313``); ``UnetGenerator`` runs the recursion, so no level holds the
+    next as a submodule. ``in_nc``: the channels of the level's input
+    (``outer_nc`` but at the outermost); ``up_in``: the channels into the
+    up conv (2 * ``inner_nc`` below a submodule, ``inner_nc`` plus the
+    condition's at an injecting innermost level)."""
+
+    def __init__(self, in_nc: int, outer_nc: int, inner_nc: int, up_in: int,
+                 outermost: bool = False, innermost: bool = False,
+                 norm: str = "instance", use_dropout: bool = False,
+                 inject_cond: bool = False, quant: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.outermost, self.use_dropout = outermost, use_dropout
+        self.inject_cond = inject_cond
+        use_bias = norm_uses_bias(norm)
+        # a conv that feeds this level's norm drops its inert bias
+        norm_bias = conv_bias_before_norm(norm)
+        # quantize everything except the image-edge convs (outermost level)
+        q = quant and not outermost
+        down_normed = not (outermost or innermost)
+        self.down = TorchConv(
+            in_nc, inner_nc, 4, 2, 1, "zero",
+            norm_bias if down_normed else (use_bias or outermost), dtype, q)
+        self.down_norm = Norm(norm, inner_nc) if down_normed else None
+        self.up = TorchConvTranspose(up_in, outer_nc, 4, 2, 1, 0,
+                                     True if outermost else norm_bias,
+                                     dtype, q)
+        self.up_norm = None if outermost else Norm(norm, outer_nc)
+
+    def down_path(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+        h = x if self.outermost else F.leaky_relu(x, 0.2)
+        h = self.down(h)
+        if self.down_norm is not None:
+            h = self.down_norm(h)
+        if self.inject_cond:
+            h = torch.cat([h, broadcast_cond(cond, h.shape[2], h.shape[3],
+                                             h.dtype)], 1)
+        return h
+
+    def up_path(self, x: torch.Tensor, h: torch.Tensor,
+                keep: Optional[torch.Tensor]) -> torch.Tensor:
+        """``keep``: the dropout mask (bool, the up output's shape) of a
+        training forward at a dropout level (flax ``nn.Dropout(0.5)``)."""
+        h = self.up(F.relu(h))
+        if self.outermost:
+            return torch.tanh(h.float())
+        h = self.up_norm(h)
+        if keep is not None:
+            h = torch.where(keep, h / 0.5, torch.zeros_like(h))
+        return torch.cat([x, h], 1)
+
+
+class UnetGenerator(nn.Module):
+    """``levels[i]`` is the flax tree's ``UnetSkipBlock_i``: level 0 is the
+    innermost, level ``num_downs - 1`` the outermost. ``forward`` takes and
+    returns NHWC like the resnet G."""
+
+    def __init__(self, input_nc: int = 3, output_nc: int = 3,
+                 cond_nc: int = 10, ngf: int = 64, num_downs: int = 7,
+                 norm: str = "instance", use_dropout: bool = False,
+                 cond_inject: str = "input", dtype=torch.float32,
+                 quant_trunk: bool = False, n_remat: int = 0):
+        super().__init__()
+        if cond_inject not in ("input", "bottleneck"):
+            # loud: a typo here must not silently build an UNCONDITIONAL G
+            raise NotImplementedError(
+                f"cond_inject [{cond_inject}] (want input | bottleneck)")
+        self.bottleneck = cond_inject == "bottleneck"
+        self.compute_dtype = dtype
+        # --remat: the innermost n_remat levels (at most num_downs - 1)
+        self.n_remat = n_remat
+        nc = 0 if self.bottleneck else cond_nc
+        # (outer_nc, inner_nc) per level, innermost first
+        widths = ([(ngf * 8, ngf * 8)] * (num_downs - 4)
+                  + [(ngf * 4, ngf * 8), (ngf * 2, ngf * 4), (ngf, ngf * 2),
+                     (output_nc, ngf)])
+        levels = []
+        for i, (outer, inner) in enumerate(widths):
+            innermost, outermost = i == 0, i == num_downs - 1
+            up_in = (inner + (cond_nc if self.bottleneck else 0)
+                     if innermost else 2 * inner)
+            levels.append(UnetSkipBlock(
+                input_nc + nc if outermost else outer, outer, inner, up_in,
+                outermost=outermost, innermost=innermost, norm=norm,
+                use_dropout=use_dropout and 0 < i <= num_downs - 5,
+                inject_cond=innermost and self.bottleneck,
+                quant=quant_trunk, dtype=dtype))
+        self.levels = nn.ModuleList(levels)
+
+    def draw_keeps(self, x: torch.Tensor,
+                   generator: torch.Generator) -> dict:
+        """{level: keep-mask of its up output} of a training forward with
+        dropout, drawn (p = 0.5) innermost level first from ``generator``
+        on x's device; level i works at 1/2^(depth-1-i) of x's size."""
+        n, h, w = x.shape[0], x.shape[1], x.shape[2]
+        up = len(self.levels) - 1
+        return {i: torch.rand((n, lvl.up.weight.shape[1], h >> (up - i),
+                               w >> (up - i)), generator=generator,
+                              device=x.device) < 0.5
+                for i, lvl in enumerate(self.levels) if lvl.use_dropout}
+
+    def forward(self, x: torch.Tensor, cond: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x: (N,H,W,input_nc) in [-1,1]; cond: (N,cond_nc). Returns
+        (N,H,W,output_nc) f32. A training forward with dropout draws its
+        masks with ``draw_keeps`` from ``generator``."""
+        dropout = self.training and any(lvl.use_dropout
+                                        for lvl in self.levels)
+        keeps = {}
+        if dropout:
+            if generator is None:
+                raise ValueError("a training forward with dropout needs the "
+                                 "train state's generator")
+            keeps = self.draw_keeps(x, generator)
+        h = x.permute(0, 3, 1, 2)
+        if not self.bottleneck:
+            h = torch.cat([h, broadcast_cond(cond, h.shape[2], h.shape[3],
+                                             h.dtype)], 1)
+        remat = self.training and torch.is_grad_enabled()
+        return self._level(len(self.levels) - 1, h, cond, keeps,
+                           remat).permute(0, 2, 3, 1)
+
+    def _level(self, i: int, x: torch.Tensor, cond: torch.Tensor,
+               keeps: dict, remat: bool) -> torch.Tensor:
+        lvl = self.levels[i]
+        h = lvl.down_path(x, cond)
+        if i > 0:
+            if remat and i - 1 < self.n_remat:
+                # the level and everything inside it recompute in the
+                # backward pass, without moving the norm state a second
+                # time; the masks are inputs, so they replay
+                inner = self.levels[:i]
+                h = checkpoint(self._level, i - 1, h, cond, keeps, remat,
+                               use_reentrant=False,
+                               context_fn=_recompute_frozen(*inner))
+            else:
+                h = self._level(i - 1, h, cond, keeps, remat)
+        return lvl.up_path(x, h, keeps.get(i))

@@ -18,9 +18,14 @@ save and restore them (the train step's D-state rule).
 
 With ``quant`` set (the G trunk under ``--quant_int8``) a conv runs in int8
 instead (``ops/quant.py``), with the JAX package's three activation-scale
-modes (``layers.py:88-110``). The bf16-only ``--lowch_matmul``
-reformulations of the stem/tail convs compute the same function in real
-arithmetic; the port runs the plain conv for them.
+modes (``layers.py:88-110``). The resnet G's bf16 routes are the JAX
+package's (``layers.py:156-216``): the stem folds the constant condition
+channels into a per-sample bias (``TorchConv.forward(x, cond)``), and
+under ``lowch_matmul`` a bf16 reflect conv with at most 8 output channels
+(the tail) runs as an r=4 space-to-depth conv (``ops/lowch_conv.py``).
+``fused_reflect`` (a module field, no CLI flag) computes a reflect conv
+without the padded tensor. ``ResizeConv`` is a nearest 2x resize then a
+3x3 conv (``--netG resnet_*@resize_conv``).
 """
 
 from __future__ import annotations
@@ -183,12 +188,22 @@ class TorchConv(_QuantSite):
     def __init__(self, in_ch: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, pad_mode: str = "zero",
                  use_bias: bool = True, dtype=torch.float32,
-                 quant: bool = False, spectral_norm: bool = False):
+                 quant: bool = False, spectral_norm: bool = False,
+                 lowch_matmul: bool = False, fused_reflect: bool = False):
         super().__init__()
         if pad_mode not in ("zero", *_PAD_MODES):
             raise NotImplementedError(f"pad_mode [{pad_mode}]")
         self.stride, self.padding, self.pad_mode = stride, padding, pad_mode
         self.compute_dtype = dtype
+        k, p = kernel_size, padding
+        full_reflect = (pad_mode == "reflect" and stride == 1 and p > 0
+                        and k == 2 * p + 1)
+        self.full_reflect = full_reflect
+        # the tail's space-to-depth route (r 4: 3 -> 48 output channels);
+        # the stem is deliberately not routed, as in the JAX package
+        self.s2d_r = (4 if lowch_matmul and full_reflect
+                      and dtype == torch.bfloat16 and features <= 8 else 0)
+        self.fused_reflect = fused_reflect
         self.weight = nn.Parameter(
             torch.empty(features, in_ch, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -204,26 +219,68 @@ class TorchConv(_QuantSite):
     def weight_from_hwio(k: torch.Tensor) -> torch.Tensor:
         return k.permute(3, 2, 0, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xd = x.to(self.compute_dtype)
+    def forward(self, x: torch.Tensor,
+                cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``cond`` (N, nc): the condition channels of a conditional G's
+        stem, kept apart (the bf16 path). The conv of a spatially constant
+        channel through a full stride-1 reflect pad is constant, so those
+        channels add exactly a per-sample bias, ``cond @ sum_taps(W_cond)``,
+        and the conv runs over the image channels alone (10/13 of the stem's
+        FLOPs skipped at 10 bins). The weight keeps its concat shape
+        (F, C_img + nc, k, k)."""
+        dt = self.compute_dtype
+        xd = x.to(dt)
         p = self.padding
-        xp = xd
-        if p and self.pad_mode != "zero":
-            xp = F.pad(xd, (p, p, p, p), mode=_PAD_MODES[self.pad_mode])
-        zero_pad = p if self.pad_mode == "zero" else 0
-        if self.quant:
-            y = self._int8_conv(xp, self.stride,
-                                ((zero_pad, zero_pad), (zero_pad, zero_pad)),
-                                scale_from=xd)
-        else:
+        # route precedence as in the JAX package: the s2d and fused-reflect
+        # forms before int8 (they are the tail/stem forms, which PTQ keeps
+        # in the compute dtype)
+        s2d = (self.s2d_r and x.shape[2] % self.s2d_r == 0
+               and x.shape[3] % self.s2d_r == 0)
+        fused = (not s2d and self.fused_reflect and self.full_reflect
+                 and min(x.shape[2], x.shape[3]) >= p + 2)
+        quant = self.quant and not (s2d or fused)
+        if cond is not None and (quant or not self.full_reflect):
+            raise ValueError(
+                "separated-cond TorchConv requires a full stride-1 reflect "
+                "conv (constant channels must stay constant through the "
+                "padding) in the compute dtype")
+        wd = cond_bias = None
+        if not quant:
             w = self.weight
             if self.sn is not None:
                 w = self.sn.normalize(w, w.permute(2, 3, 1, 0))
-            y = F.conv2d(xp, w.to(self.compute_dtype),
-                         stride=self.stride, padding=zero_pad)
+            wd = w.to(dt)
+        if cond is not None:
+            xc = x.shape[1]
+            # the tap sum accumulates in f32 and rounds once to the compute
+            # dtype, as jnp.sum of a bf16 array does
+            w_cond = wd[:, xc:].float().sum(dim=(2, 3)).to(dt)   # (F, nc)
+            cond_bias = (cond.to(dt) @ w_cond.T)[:, :, None, None]
+            wd = wd[:, :xc]
+        if s2d:
+            from pcgan_tpu_torch.ops.lowch_conv import s2d_conv_nchw
+            y = s2d_conv_nchw(F.pad(xd, (p, p, p, p), mode="reflect"), wd,
+                              self.s2d_r)
+        elif fused:
+            from pcgan_tpu_torch.ops.lowch_conv import reflect_conv_nchw
+            y = reflect_conv_nchw(xd, wd, p)
+        else:
+            xp = xd
+            if p and self.pad_mode != "zero":
+                xp = F.pad(xd, (p, p, p, p), mode=_PAD_MODES[self.pad_mode])
+            zero_pad = p if self.pad_mode == "zero" else 0
+            if quant:
+                y = self._int8_conv(
+                    xp, self.stride,
+                    ((zero_pad, zero_pad), (zero_pad, zero_pad)),
+                    scale_from=xd)
+            else:
+                y = F.conv2d(xp, wd, stride=self.stride, padding=zero_pad)
+        if cond_bias is not None:
+            y = y + cond_bias
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
-        return y.to(self.compute_dtype)
+        return y.to(dt)
 
 
 class TorchConvTranspose(_QuantSite):
@@ -275,6 +332,23 @@ class TorchConvTranspose(_QuantSite):
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
         return y.to(self.compute_dtype)
+
+
+class ResizeConv(nn.Module):
+    """A nearest 2x resize, then a 3x3 stride-1 zero-padded ``TorchConv``
+    (``pcgan_tpu/models/layers.py:371-398``, at the scale its one caller
+    uses): the upsampling of ``--netG resnet_*@resize_conv``. At an exact
+    2x, ``F.interpolate``'s nearest takes source pixel i // 2, as
+    ``jax.image.resize``'s does."""
+
+    def __init__(self, in_ch: int, features: int, use_bias: bool = True,
+                 dtype=torch.float32, quant: bool = False):
+        super().__init__()
+        self.conv = TorchConv(in_ch, features, 3, 1, 1, "zero", use_bias,
+                              dtype, quant)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
 # --------------------------------------------------------------------------- #

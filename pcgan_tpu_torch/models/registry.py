@@ -2,9 +2,10 @@
 
 ``define_G`` / ``define_D`` / ``define_C`` build the module and draw its
 initial weights from an explicit ``torch.Generator`` (seeded from
-``--seed`` when none is given). The generator variants this port does
-not implement yet (``unet_*``, ``resize_conv``, ``--g_attn``) raise
-``NotImplementedError``.
+``--seed`` when none is given). ``--netG`` is ``resnet_{6,9}blocks``,
+optionally ``@<variant>`` (any variant but ``deconv`` upsamples by a
+resize conv, as in the JAX registry), or ``unet_<size>`` with size a
+power of 2. ``--dtype float16`` raises: it is not ported.
 """
 
 from __future__ import annotations
@@ -13,33 +14,19 @@ import warnings
 from typing import Optional
 
 import torch
+from torch import nn
 
 from pcgan_tpu_torch.config import Config
 from pcgan_tpu_torch.models.comparator import Comparator
 from pcgan_tpu_torch.models.discriminator import (MultiScaleDiscriminator,
                                                   NLayerDiscriminator,
                                                   PixelDiscriminator)
-from pcgan_tpu_torch.models.generator import ResnetGenerator
+from pcgan_tpu_torch.models.generator import ResnetGenerator, UnetGenerator
 from pcgan_tpu_torch.models.layers import NORMS, init_weights, make_initializer
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 _N_BLOCKS = {"resnet_9blocks": 9, "resnet_6blocks": 6}
-
-
-def _reject_unported(cfg: Config) -> None:
-    m = cfg.model
-    name = m.netG
-    if "@" in name or name.startswith("unet_"):
-        raise NotImplementedError(
-            f"--netG {name} is not ported to pcgan_tpu_torch yet "
-            f"(resnet_9blocks | resnet_6blocks with deconv upsampling)")
-    if name not in _N_BLOCKS:
-        raise NotImplementedError(f"netG [{name}] not implemented")
-    if m.g_attn:
-        raise NotImplementedError(
-            "--g_attn is not ported to pcgan_tpu_torch yet")
-    _reject_unported_common(cfg)
 
 
 def _reject_unported_common(cfg: Config) -> None:
@@ -52,12 +39,24 @@ def _reject_unported_common(cfg: Config) -> None:
             f"({' | '.join(DTYPES)})")
 
 
+def unet_num_downs(name: str) -> int:
+    """``unet_<size>`` -> log2(size); a size that is not a power of 2
+    raises."""
+    base = name.partition("@")[0]
+    size = int(base.split("_")[1])
+    if size & (size - 1):
+        raise NotImplementedError(f"netG [{name}]: size must be a power of 2")
+    return size.bit_length() - 1
+
+
 def define_G(cfg: Config,
-             generator: Optional[torch.Generator] = None) -> ResnetGenerator:
+             generator: Optional[torch.Generator] = None) -> nn.Module:
     """The generator of ``cfg`` with freshly drawn weights (f32 params on
     the CPU; move it with ``.to(device)``)."""
-    if (cfg.model.netG.startswith("resnet") and cfg.model.norm == "instance"
-            and cfg.model.cond_inject == "input"):
+    m = cfg.model
+    base, _, variant = m.netG.partition("@")
+    if (base.startswith("resnet") and m.norm == "instance"
+            and m.cond_inject == "input"):
         # the stem conv of a spatially-constant condition map (full
         # stride-1 reflect padding) is constant, and the instance norm
         # that follows subtracts exactly that constant: the JAX package
@@ -68,33 +67,47 @@ def define_G(cfg: Config,
             "norm — G trains (reference-faithfully) UNCONDITIONAL. Use "
             "--cond_inject bottleneck (or --netG unet_*) for an effective "
             "conditional resnet G.", RuntimeWarning, stacklevel=2)
-    if cfg.model.remat_blocks != -1 and not cfg.model.remat:
+    if m.remat_blocks != -1 and not m.remat:
         warnings.warn(
-            f"--remat_blocks {cfg.model.remat_blocks} without --remat is "
+            f"--remat_blocks {m.remat_blocks} without --remat is "
             f"INERT (the generator rematerializes nothing); pass --remat "
             f"to make the block dial take effect", RuntimeWarning,
             stacklevel=2)
-    _reject_unported(cfg)
-    G = ResnetGenerator(
-        input_nc=cfg.data.input_nc, output_nc=cfg.data.output_nc,
-        cond_nc=cfg.cond_nc, ngf=cfg.model.ngf,
-        n_blocks=_N_BLOCKS[cfg.model.netG], norm=cfg.model.norm,
-        use_dropout=not cfg.model.no_dropout,
-        cond_inject=cfg.model.cond_inject, dtype=DTYPES[cfg.model.dtype],
-        quant_trunk=cfg.model.quant_int8, n_remat=_n_remat(cfg))
+    _reject_unported_common(cfg)
+    kw = dict(input_nc=cfg.data.input_nc, output_nc=cfg.data.output_nc,
+              cond_nc=cfg.cond_nc, ngf=m.ngf, norm=m.norm,
+              use_dropout=not m.no_dropout, cond_inject=m.cond_inject,
+              dtype=DTYPES[m.dtype], quant_trunk=m.quant_int8)
+    if base in _N_BLOCKS:
+        G = ResnetGenerator(n_blocks=_N_BLOCKS[base], n_remat=_n_remat(cfg),
+                            upsample=variant or "deconv",
+                            lowch_matmul=m.lowch_matmul, g_attn=m.g_attn,
+                            **kw)
+    elif base.startswith("unet_"):
+        if m.g_attn:
+            raise NotImplementedError(
+                "--g_attn is a resnet-generator lever (the unet's recursive "
+                "skip structure has no single bottleneck trunk to host it); "
+                "use --netG resnet_9blocks/resnet_6blocks")
+        G = UnetGenerator(num_downs=unet_num_downs(base),
+                          n_remat=_n_remat(cfg), **kw)
+    else:
+        raise NotImplementedError(f"netG [{m.netG}] not implemented")
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.train.seed)
-    init_weights(G, make_initializer(cfg.model.init_type,
-                                     cfg.model.init_gain), generator)
+    init_weights(G, make_initializer(m.init_type, m.init_gain), generator)
     return G
 
 
 def _n_remat(cfg: Config) -> int:
-    """Blocks under --remat: all, or the first --remat_blocks."""
+    """Resnet blocks, or U-Net levels (the outermost excluded), under
+    --remat: all, or the first --remat_blocks."""
     m = cfg.model
     if not m.remat:
         return 0
-    n = _N_BLOCKS[m.netG]
+    base = m.netG.partition("@")[0]
+    n = (_N_BLOCKS[base] if base in _N_BLOCKS
+         else unet_num_downs(base) - 1)
     return n if m.remat_blocks < 0 else min(m.remat_blocks, n)
 
 

@@ -1,4 +1,4 @@
-"""Low-channel 7x7 conv reformulations (counterpart of ``pcgan_tpu/ops/lowch_conv.py:40-176``).
+"""Low-channel 7x7 conv reformulations (counterpart of ``pcgan_tpu/ops/lowch_conv.py``).
 
 The resnet generator's stem and tail convs (``ReflectionPad2d(3) +
 Conv2d(3+cond -> 64 / 64 -> 3, 7)``) have a tiny channel count on one side.
@@ -19,8 +19,16 @@ tensor, its plain version on a CPU tensor, and the native weight-gradient
 conv otherwise. The matrix products and convs here are PyTorch's, as the
 JAX package leaves those parts to XLA.
 
+The space-to-depth form (``s2d_conv``, the JAX bf16 G's tail) folds an
+r x r pixel block into channels, so the conv has r*r*C_out outputs;
+``s2d_reflect_conv`` adds the reflect pad with ``reflect_fold`` as its
+transpose. ``reflect_conv`` is a reflect-pad conv without the padded
+tensor (``TorchConv``'s ``fused_reflect``).
+
 Layouts are the JAX package's: activations NHWC, kernels HWIO
-(k, k, Cin, Cout). Everything is stride-1 VALID on a pre-padded input.
+(k, k, Cin, Cout), everything stride-1 VALID on a pre-padded input; the
+``*_nchw`` forms take the port's NCHW / OIHW, as ``TorchConv`` calls
+them.
 """
 
 from __future__ import annotations
@@ -144,3 +152,191 @@ def lowch_reflect_conv(x: torch.Tensor, w: torch.Tensor,
     module docstring. x (B, H, W, Cin), w (k, k, Cin, Cout), k = 2p+1;
     returns (B, H, W, Cout) in x's dtype."""
     return LowchReflectConv.apply(x, w, p)
+
+
+# --------------------------------------------------------------------------- #
+# space-to-depth reformulation (pcgan_tpu/ops/lowch_conv.py:184-282): the
+# form the JAX package's bf16 G runs for its tail (models/layers.py:199-216)
+# --------------------------------------------------------------------------- #
+
+
+def _s2d_embed(w: torch.Tensor, r: int, dtype) -> torch.Tensor:
+    """Embed a (k, k, cin, cout) HWIO kernel into the space-to-depth conv's
+    (k', k', r*r*cin, r*r*cout) kernel with pads and reshapes only (no
+    gather). For output phase (r1, r2), tap (i, j) lands at grid (q, s)
+    with i = q*r + s - r1: the (q, s) unfolding of w's rows front-padded by
+    r1 zeros. Channel order is the JAX package's: input (r1*r + r2)*cin +
+    ci, output (r1*r + r2)*cout + c."""
+    k, _, cin, cout = w.shape
+    kp = 1 + (r - 1 + k - 1) // r
+    blocks = []
+    for r1 in range(r):
+        for r2 in range(r):
+            # F.pad pads the last dims first: (ci, c) untouched, then W, H
+            wp_ = F.pad(w.permute(2, 3, 0, 1),
+                        (r2, kp * r - k - r2, r1, kp * r - k - r1))
+            wp_ = wp_.permute(2, 3, 0, 1)                # (kp*r, kp*r, ci, c)
+            blk = wp_.reshape(kp, r, kp, r, cin, cout)
+            blk = blk.permute(0, 2, 1, 3, 4, 5)          # (q1,q2,s1,s2,ci,c)
+            blocks.append(blk.reshape(kp, kp, r * r * cin, cout))
+    w2 = torch.stack(blocks, dim=-2)                     # (...,(r1,r2),c)
+    return w2.reshape(kp, kp, r * r * cin, r * r * cout).to(dtype)
+
+
+def _s2d_fold(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, C, r*Hs, r*Ws) NCHW -> (B, r*r*C, Hs, Ws), channel (r1*r + r2)*C
+    + c: the JAX package's space-to-depth order (``F.pixel_unshuffle``'s is
+    channel-major, c*r*r + r1*r + r2)."""
+    b, c, h, w = x.shape
+    x = x.reshape(b, c, h // r, r, w // r, r).permute(0, 3, 5, 1, 2, 4)
+    return x.reshape(b, r * r * c, h // r, w // r)
+
+
+def _s2d_unfold(y: torch.Tensor, r: int) -> torch.Tensor:
+    """The inverse of ``_s2d_fold``: (B, r*r*C, Hs, Ws) -> (B, C, r*Hs,
+    r*Ws)."""
+    b, c, h, w = y.shape
+    c //= r * r
+    y = y.reshape(b, r, r, c, h, w).permute(0, 3, 4, 1, 5, 2)
+    return y.reshape(b, c, h * r, w * r)
+
+
+def s2d_conv_nchw(x_pad: torch.Tensor, w_oihw: torch.Tensor,
+                  r: int = 4) -> torch.Tensor:
+    """``s2d_conv`` on the port's layouts: x_pad (B, Cin, Hp, Wp), w
+    (Cout, Cin, k, k) -> (B, Cout, H, W), H = Hp - k + 1, in x_pad's
+    dtype."""
+    b, cin, hp, wp = x_pad.shape
+    k = w_oihw.shape[2]
+    h, wd = hp - k + 1, wp - k + 1
+    if h % r or wd % r:
+        raise ValueError(f"s2d_conv: output {h}x{wd} must be divisible by "
+                         f"{r}")
+    # pad so Hp, Wp divide by r (the padded rows only meet zero weights)
+    hp2, wp2 = -(-hp // r) * r, -(-wp // r) * r
+    x2 = F.pad(x_pad, (0, wp2 - wp, 0, hp2 - hp))
+    w2 = _s2d_embed(w_oihw.permute(2, 3, 1, 0), r, x_pad.dtype)
+    ys = F.conv2d(_s2d_fold(x2, r), w2.permute(3, 2, 0, 1))
+    return _s2d_unfold(ys, r)
+
+
+def s2d_conv(x_pad: torch.Tensor, w: torch.Tensor, r: int = 4
+             ) -> torch.Tensor:
+    """Stride-1 VALID conv for tiny C_out via space-to-depth: an r x r
+    pixel block folds into channels, so the conv has r*r*C_out output
+    channels instead of C_out, at k'^2 r^2 / k^2 the FLOPs (2.9x for k 7,
+    r 4). One dense conv that autograd differentiates natively. NHWC x
+    HWIO -> NHWC, as the JAX function; raises when the output's H or W is
+    not divisible by r."""
+    y = s2d_conv_nchw(x_pad.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), r)
+    return y.permute(0, 2, 3, 1)
+
+
+class S2dReflectConv(torch.autograd.Function):
+    """ReflectionPad2d(p) + stride-1 conv (k = 2p+1) through ``s2d_conv``;
+    NHWC x HWIO. The data gradient is the s2d-space full correlation of the
+    cotangent with the flipped embedded kernel, then ``reflect_fold`` (the
+    reflect pad's transpose); the weight gradient is autograd of
+    ``s2d_conv`` with respect to w."""
+
+    @staticmethod
+    def forward(ctx, x, w, p, r):
+        ctx.p, ctx.r = p, r
+        ctx.save_for_backward(x, w)
+        return s2d_conv(reflect_pad(x, p), w, r)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        p, r = ctx.p, ctx.r
+        x_pad = reflect_pad(x, p)
+        b, hp, wp, cin = x_pad.shape
+        dy = dy.contiguous()
+        # dx: s2d-space full correlation, then fold the reflect borders
+        w2 = _s2d_embed(w, r, dy.dtype)
+        kp = w2.shape[0]
+        hp2, wp2 = -(-hp // r) * r, -(-wp // r) * r
+        dys = _s2d_fold(dy.permute(0, 3, 1, 2), r)
+        # conv_transpose == correlation with the flipped, transposed kernel
+        # over the cotangent zero-padded by kp - 1
+        dx2 = F.conv2d(dys, w2.flip(0, 1).permute(2, 3, 0, 1),
+                       padding=kp - 1)
+        dx_pad = _s2d_unfold(dx2, r)[:, :, :hp, :wp].permute(0, 2, 3, 1)
+        dx = reflect_fold(dx_pad, p)
+        # dw: s2d_conv's own autograd with respect to w
+        with torch.enable_grad():
+            wv = w.detach().requires_grad_(True)
+            (dw,) = torch.autograd.grad(s2d_conv(x_pad.detach(), wv, r), wv,
+                                        dy)
+        return dx.to(x.dtype), dw.to(w.dtype), None, None
+
+
+def s2d_reflect_conv(x: torch.Tensor, w: torch.Tensor, p: int,
+                     r: int = 4) -> torch.Tensor:
+    """ReflectionPad2d(p) + stride-1 conv (k = 2p+1) in space-to-depth form
+    with the reflect pad's transpose done by ``reflect_fold``. x (B, H, W,
+    Cin), w (k, k, Cin, Cout) -> (B, H, W, Cout)."""
+    return S2dReflectConv.apply(x, w, p, r)
+
+
+# --------------------------------------------------------------------------- #
+# reflect-pad conv without the padded tensor (pcgan_tpu/models/layers.py:
+# 255-313, TorchConv's ``fused_reflect``)
+# --------------------------------------------------------------------------- #
+
+
+def reflect_conv_nchw(x: torch.Tensor, w: torch.Tensor,
+                      p: int) -> torch.Tensor:
+    """Stride-1 conv with ReflectionPad2d(p), k = 2p+1, without the padded
+    tensor: the conv with zero padding p plus thin border corrections. Top
+    and bottom: for each kernel row reading reflected rows, a 1 x k conv
+    over the strip of reflected source rows with reflected column ends
+    (this also covers the corners); left and right: for each kernel column
+    reading reflected columns, a k x 1 conv over the source-column strip
+    with zero row padding, which leaves out the terms the row pass added.
+    x (B, Cin, H, W), w (Cout, Cin, k, k) -> (B, Cout, H, W); equal to pad
+    then VALID conv up to float association."""
+    h, wd = x.shape[2], x.shape[3]
+    y = F.conv2d(x, w, padding=p)
+
+    def colpad(rows):
+        # reflected column ends: positions -p..-1 = cols p..1, positions
+        # W..W+p-1 = cols W-2..W-1-p
+        left = rows[..., 1:p + 1].flip(-1)
+        right = rows[..., wd - 1 - p:wd - 1].flip(-1)
+        return torch.cat([left, rows, right], dim=-1)
+
+    for r in range(p):
+        nr = p - r
+        # top: out rows i < nr miss kernel row r reading x-row (p - i - r)
+        strip = colpad(x[:, :, 1:p - r + 1].flip(2))      # rows p-r .. 1
+        corr = F.conv2d(strip, w[:, :, r:r + 1])
+        y = torch.cat([y[:, :, :nr] + corr, y[:, :, nr:]], dim=2)
+        # bottom: kernel row k-1-r reads reflected rows below the image
+        rb = 2 * p - r
+        strip = colpad(x[:, :, h - 1 - p + r:h - 1])      # rows h-1-(p-r)..h-2
+        corr = F.conv2d(strip, w[:, :, rb:rb + 1])
+        y = torch.cat([y[:, :, :h - nr], y[:, :, h - nr:] + corr.flip(2)],
+                      dim=2)
+    for c in range(p):
+        nc = p - c
+        # left: out cols j < nc miss kernel col c reading x-col (p - j - c);
+        # zero row padding keeps only row-in-range terms
+        strip = x[..., 1:p - c + 1].flip(3)               # cols p-c .. 1
+        corr = F.conv2d(strip, w[..., c:c + 1], padding=(p, 0))
+        y = torch.cat([y[..., :nc] + corr, y[..., nc:]], dim=3)
+        cb = 2 * p - c
+        strip = x[..., wd - 1 - p + c:wd - 1]             # cols w-1-(p-c)..w-2
+        corr = F.conv2d(strip, w[..., cb:cb + 1], padding=(p, 0))
+        y = torch.cat([y[..., :wd - nc], y[..., wd - nc:] + corr.flip(3)],
+                      dim=3)
+    return y
+
+
+def reflect_conv(x: torch.Tensor, kernel: torch.Tensor,
+                 p: int) -> torch.Tensor:
+    """``reflect_conv_nchw`` on the JAX function's layouts: x (B, H, W, Cin)
+    NHWC, kernel (k, k, Cin, Cout) HWIO -> NHWC."""
+    y = reflect_conv_nchw(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                          p)
+    return y.permute(0, 2, 3, 1)

@@ -137,6 +137,14 @@ def int8_conv_accum(xq: torch.Tensor, wmat: torch.Tensor,
     transposed (column-major, as cuBLASLt's integer GEMM takes it). Exact:
     card and CPU agree on them bit for bit."""
     a, geom = im2col_int8(xq, kernel, stride, padding, dilation)
+    n, ho, wo = geom
+    if ho * wo <= 16:
+        # cuBLASLt's int8 GEMM wants more than 16 rows; a U-Net's innermost
+        # level has one pixel a sample. Zero rows give zero sums, dropped.
+        # Decided on the static pixel count, so an export with a symbolic
+        # batch pads for every batch size
+        m = a.shape[0]
+        return torch._int_mm(F.pad(a, (0, 0, 0, 16)), wmat.t())[:m], geom
     return torch._int_mm(a, wmat.t()), geom
 
 

@@ -90,7 +90,7 @@ def _parser():
     p.add_argument("--ngf", type=int, default=None)
     p.add_argument("--norm", default=None)
     p.add_argument("--g_attn", action="store_true", default=None,
-                   help="the run used --g_attn (not ported: raises)")
+                   help="the run used --g_attn (resnet G only)")
     p.add_argument("--cond_inject", default=None)
     p.add_argument("--cond_mode", default=None, choices=["onehot", "score"])
     p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
@@ -281,7 +281,7 @@ def main(argv=None) -> str:
         conds = served.all_conditions()
         cond = conds[rng.integers(0, conds.shape[0], b)]
         got = served(imgs, cond)
-        dt = G.stem.compute_dtype
+        dt = G.compute_dtype
         with torch.no_grad():
             want = G(torch.from_numpy(imgs).to(device).to(dt),
                      torch.from_numpy(cond).to(device).to(dt)

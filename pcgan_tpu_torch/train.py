@@ -173,7 +173,10 @@ def adam_step(opt: torch.optim.Adam, grads: List[torch.Tensor], lr,
     if found_inf is not None and not fused and bool(found_inf):
         return
     for p, g in zip(group["params"], grads, strict=True):
-        p.grad = g
+        # fused Adam needs each gradient in its parameter's strides; a
+        # weight used through a permuted view (the s2d tail's kernel
+        # embedding) gets a permuted gradient from autograd
+        p.grad = g if g.stride() == p.stride() else g.contiguous()
     group["lr"] = lr.float() if isinstance(lr, torch.Tensor) else lr
     if found_inf is not None and fused:
         opt.found_inf = found_inf
@@ -282,9 +285,12 @@ def reject_unported_train(cfg: Config) -> None:
             raise NotImplementedError(
                 f"{flag} {_XLA_ONLY[flag]}: an XLA-only flag with no "
                 f"counterpart in pcgan_tpu_torch")
+    if d.device_cache_sharded:
+        raise NotImplementedError(
+            "--device_cache_sharded shards the cache over several devices, "
+            "which pcgan_tpu_torch does not port yet (ROADMAP.md A10); "
+            "--device_cache keeps the whole dataset on the one card")
     off = {
-        "--device_cache": d.device_cache,
-        "--device_cache_sharded": d.device_cache_sharded,
         # one card: a one-device data axis (1, or -1 for all of one)
         "--mesh_shape/--mesh_axes": (p.mesh_shape not in ((-1,), (1,))
                                      or p.mesh_axes != ("data",)),

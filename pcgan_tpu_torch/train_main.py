@@ -47,10 +47,15 @@ peak), ``--tb_logdir`` (TensorBoard event files), ``--profile_steps N`` (a
 step), ``--init_g_from name/tag`` (warm-start G), ``--lambda_vgg`` with
 ``--vgg_path``.
 
+``--device_cache`` uploads the (train-split) dataset to the device once and
+gathers every batch there (``data/device_cache.py``), for GAN training,
+its in-training eval and comparator pretraining; the sample stream is the
+host Loader's.
+
 Runs on cuda unless ``--device cpu``. The flags the port does not implement
-(the device cache, multi-device meshes) raise ``NotImplementedError``, as
-do the XLA-only ``--profile_server``, ``--compile_cache`` and
-``--xla_opt`` for good.
+(the sharded device cache, multi-device meshes) raise
+``NotImplementedError``, as do the XLA-only ``--profile_server``,
+``--compile_cache`` and ``--xla_opt`` for good.
 """
 
 from __future__ import annotations
@@ -121,11 +126,19 @@ def main(argv=None) -> dict:
         print(f"holdout: {len(holdout_ds)} rows held out "
               f"({cfg.data.holdout_frac:.0%}), {len(ds)} train rows",
               flush=True)
-    ld = data_loader.Loader(ds, cfg.data.batch_size,
-                            shuffle=not cfg.data.serial_batches,
-                            num_threads=cfg.data.num_threads,
-                            seed=cfg.train.seed,
-                            resize_to=data_loader.host_resize_size(cfg))
+    if cfg.data.device_cache:
+        # the whole (train-split) dataset rides to the device once; epochs
+        # gather their batches there, in the host Loader's order
+        from pcgan_tpu_torch.data.device_cache import DeviceCacheLoader
+        ld = DeviceCacheLoader(cfg, ds, device,
+                               shuffle=not cfg.data.serial_batches,
+                               seed=cfg.train.seed)
+    else:
+        ld = data_loader.Loader(ds, cfg.data.batch_size,
+                                shuffle=not cfg.data.serial_batches,
+                                num_threads=cfg.data.num_threads,
+                                seed=cfg.train.seed,
+                                resize_to=data_loader.host_resize_size(cfg))
     steps_per_epoch = max(1, len(ld))
     print(f"device: {device}; dataset [{cfg.data.dataset_mode}] size "
           f"{len(ds)}, {steps_per_epoch} steps/epoch", flush=True)
@@ -140,7 +153,6 @@ def main(argv=None) -> dict:
 def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
                holdout_ds=None) -> dict:
     import torch
-    from pcgan_tpu_torch.data.loader import prefetch, with_bins
     from pcgan_tpu_torch.models import define_D, define_G
     from pcgan_tpu_torch.ops.preprocess import make_preprocess
     from pcgan_tpu_torch.train import (PlateauScheduler, create_train_state,
@@ -173,17 +185,9 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
                                torch.Generator().manual_seed(seed + 2),
                                steps_per_epoch, C=C, bin_anchors=bin_anchors,
                                vgg=vgg)
-    print("---------- Networks initialized -------------", flush=True)
-    nets = [("G", G), ("D", D)]
-    if C is not None:
-        nets.append(("C (frozen)", C))
-    for name, net in nets:
-        if cfg.run.verbose:
-            print(net, flush=True)
-        n = sum(p.numel() for p in net.parameters())
-        print(f"[Network {name}] Total number of parameters : "
-              f"{n / 1e6:.3f} M", flush=True)
-    print("-----------------------------------------------", flush=True)
+    from pcgan_tpu_torch.utils.summary import print_networks
+    print_networks({"G": G, "D": D, "C (frozen)": C},
+                   verbose=cfg.run.verbose)
 
     epochs_done = resume_skip = 0
     resume_losses = []
@@ -282,14 +286,13 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
         ld.skip_next, resume_skip = resume_skip, 0
         steps = 0
         t_first = None
-        for raw in prefetch(with_bins(iter(ld), cfg.data.n_age_bins,
-                                      cfg.data.max_age), cfg.data.prefetch):
+        for raw in _epoch_batches(cfg, ld):
             if t_first is None:
                 t_first = time.perf_counter()
             profiler.tick()
-            images = torch.from_numpy(raw["image"]).to(device)
+            images = _to_device(raw["image"], device)
             batch = pre(state.generator, {"image": images})
-            batch["bin"] = torch.from_numpy(raw["bin"]).to(device)
+            batch["bin"] = _to_device(raw["bin"], device)
             metrics = step_fn(state, batch)
             gstep += 1
             steps += 1
@@ -358,6 +361,24 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
             "epochs": epochs, "evals": evals}
 
 
+def _to_device(v, device):
+    """A batch entry on ``device``: host numpy arrays are uploaded, the
+    device cache's tensors are already there."""
+    import torch
+    return torch.as_tensor(v).to(device)
+
+
+def _epoch_batches(cfg, ld):
+    """One epoch of raw batches with age bins: gathered on the device under
+    ``--device_cache`` (no host stage), else made on the host by the
+    ``--prefetch`` thread."""
+    from pcgan_tpu_torch.data.loader import prefetch, with_bins
+    if getattr(ld, "is_device_cache", False):
+        return iter(ld)
+    return prefetch(with_bins(iter(ld), cfg.data.n_age_bins,
+                              cfg.data.max_age), cfg.data.prefetch)
+
+
 def _make_fid_eval(cfg, device, G, state, bin_anchors, ld, holdout_ds,
                    logger):
     """In-training FID (root ``train.py:298-372``): the startup guards, the
@@ -383,7 +404,16 @@ def _make_fid_eval(cfg, device, G, state, bin_anchors, ld, holdout_ds,
                                   num_threads=d.num_threads,
                                   resize_to=data_loader.host_resize_size(cfg))
 
-    sources = [("eval_", loader(ld.ds))]
+    def d_bins(it):
+        return data_loader.with_bins(it, d.n_age_bins, d.max_age)
+
+    if getattr(ld, "is_device_cache", False):
+        # the train-side eval reads the resident cache in the host eval
+        # loader's order; the held-out rows still stream from the host
+        sources = [("eval_", ld.eval_iter)]
+    else:
+        train_ld = loader(ld.ds)
+        sources = [("eval_", lambda: d_bins(iter(train_ld)))]
     if holdout_ds is not None:
         h_ld = loader(holdout_ds)
         if len(h_ld) == 0:
@@ -391,7 +421,7 @@ def _make_fid_eval(cfg, device, G, state, bin_anchors, ld, holdout_ds,
                 f"--holdout_frac {d.holdout_frac} leaves fewer than one batch "
                 f"({len(holdout_ds)} rows < --batch_size {d.batch_size}) for "
                 f"eval")
-        sources.append(("eval_h_", h_ld))
+        sources.append(("eval_h_", lambda: d_bins(iter(h_ld))))
     # --eval_use_ema scores the EMA twin (what ships): a copy of G that
     # takes the EMA parameters (and G's norm state) before each eval
     twin = copy.deepcopy(G) if t.eval_use_ema else None
@@ -404,10 +434,9 @@ def _make_fid_eval(cfg, device, G, state, bin_anchors, ld, holdout_ds,
             net = twin
         t0 = time.perf_counter()
         out = {}
-        for prefix, eval_ld in sources:
-            rec = run_fid(net, data_loader.with_bins(
-                iter(eval_ld), d.n_age_bins, d.max_age),
-                max_images=t.eval_fid_images, seed=t.seed)
+        for prefix, source in sources:
+            rec = run_fid(net, source(), max_images=t.eval_fid_images,
+                          seed=t.seed)
             out.update({prefix + k: float(v) for k, v in rec.items()})
         logger.log(state.step, out, epoch=epoch)
         print(f"eval (epoch {epoch}): " + ", ".join(
@@ -447,9 +476,16 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
     train_ds, eval_ds = held_out_split(ds, t.cmp_eval_frac, t.seed)
     n_eval = 0 if eval_ds is None else len(eval_ds)
     resize_to = data_loader.host_resize_size(cfg)
-    ld = data_loader.Loader(train_ds, d.batch_size, shuffle=True,
-                            num_threads=d.num_threads, seed=t.seed,
-                            resize_to=resize_to)
+    if d.device_cache:
+        # pair batches (image_a / image_b canvases, labels) cache as the
+        # GAN's do; the held-out and anchor loaders stay on the host
+        from pcgan_tpu_torch.data.device_cache import DeviceCacheLoader
+        ld = DeviceCacheLoader(cfg, train_ds, device, shuffle=True,
+                               seed=t.seed)
+    else:
+        ld = data_loader.Loader(train_ds, d.batch_size, shuffle=True,
+                                num_threads=d.num_threads, seed=t.seed,
+                                resize_to=resize_to)
     steps_per_epoch = max(1, len(ld))
     print(f"device: {device}; comparator pairs: {len(train_ds)} train / "
           f"{n_eval} held out, {steps_per_epoch} steps/epoch", flush=True)
@@ -458,10 +494,8 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
     state = create_comparator_state(cfg, C,
                                     torch.Generator().manual_seed(t.seed + 1),
                                     steps_per_epoch)
-    print(f"[Network C] Total number of parameters : "
-          f"{sum(p.numel() for p in C.parameters()) / 1e6:.3f} M", flush=True)
-    if cfg.run.verbose:
-        print(C, flush=True)
+    from pcgan_tpu_torch.utils.summary import print_networks
+    print_networks({"C": C}, verbose=cfg.run.verbose)
     epochs_done = resume_skip = 0
     if t.continue_train and ckpt.state_exists(cfg.run.checkpoints_dir,
                                               cfg.run.name, "cmp_latest"):
@@ -477,7 +511,7 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
     eval_pre = make_pair_preprocess(cfg, train=False)   # center crop, no flip
 
     def upload(raw):
-        return {k: torch.from_numpy(raw[k]).to(device)
+        return {k: _to_device(raw[k], device)
                 for k in ("image_a", "image_b", "label")}
 
     @torch.no_grad()
@@ -512,7 +546,8 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
     for epoch in range(t.epoch_count + epochs_done, total_epochs + 1):
         ld.skip_next, resume_skip = resume_skip, 0
         steps, t_first = 0, None
-        for raw in data_loader.prefetch(iter(ld), d.prefetch):
+        for raw in (iter(ld) if d.device_cache
+                    else data_loader.prefetch(iter(ld), d.prefetch)):
             if t_first is None:
                 t_first = time.perf_counter()
             metrics = step_fn(state, pre(state.generator, upload(raw)))
@@ -701,7 +736,7 @@ def _make_display(cfg, G, run_dir, device):
 
     def display(state, raw, epoch):
         if "preview" not in cache:
-            img = torch.from_numpy(raw["image"][:2]).to(device)
+            img = _to_device(raw["image"][:2], device)
             cache["preview"] = pre(None, {"image": img})["image"].float()
         real = cache["preview"]
         fakes = sampler(real).cpu().numpy()           # (n, nb, H, W, C)

@@ -56,7 +56,9 @@ def test_files_exist():
             "pcgan_tpu_torch/ops/quant.py",
             "pcgan_tpu_torch/tools/export_serving.py",
             "pcgan_tpu_torch/tools/serve_http.py",
-            "pcgan_tpu_torch/tools/loadtest.py"} <= rel
+            "pcgan_tpu_torch/tools/loadtest.py",
+            "pcgan_tpu_torch/data/device_cache.py",
+            "pcgan_tpu_torch/utils/summary.py"} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: os.path.relpath(p, ROOT))

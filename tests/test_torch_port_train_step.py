@@ -248,9 +248,10 @@ def test_unported_training_flags_raise(tmp_path):
                       (["--spectral_norm"], "NLayer")):
         assert type(define_D(tcfg.parse_config(argv))).__name__.startswith(
             cls)
-    # what still raises: the device cache, the multi-device flags, and the
-    # XLA-only flags for good
-    for argv, flag in ((["--device_cache"], "--device_cache"),
+    # what still raises: the sharded device cache, the multi-device flags,
+    # and the XLA-only flags for good
+    for argv, flag in ((["--device_cache_sharded"],
+                        "--device_cache_sharded"),
                        (["--zero1"], "--zero1"),
                        (["--xla_opt", "x"], "XLA-only"),
                        (["--compile_cache", "d"], "XLA-only"),

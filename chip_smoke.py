@@ -140,7 +140,28 @@ the one named in phase 2):
     as close as two streaming runs are), steps/s and host-to-device bytes
     a step from ``--profile_steps`` traces; a resident cache of 8,192
     canvases (upload s, steps/s against the host Loader). B2 stays off
-    every new CLI path.
+    every new CLI path;
+20. the tools at ``bench.py``'s config (resnet_9blocks, ngf/ndf 64, 128
+    px, batch 64, bf16, 10 bins), each through its ``main(argv)``: (a) the
+    bench's headline (B1's launches counted inside its timed loop),
+    ``--e2e`` over 512 synthetic JPEGs, ``--e2e --packed``, ``--e2e
+    --device_cache``, ``--infer`` live, ``--serving`` and
+    ``--quant_int8``, and ``--latency`` with its traced ``device_ms``,
+    each line checked for its JAX metric name and a finite positive
+    value; (b) ``profile_step`` over 10 steps: its class shares, its
+    device ms a step against the headline's wall time a step and within
+    15% of an independent profile of ``train_main`` at the same config;
+    (c) ``profile_e2e``, every stage positive; (d) ``tune_batch`` over
+    batch 32 and 64, then batch 64 with the process capped to 0.5% of
+    the card: out of memory on every rung of the dial ladder; (e)
+    ``memory_plan --sweep`` at 256 px, batch 64: remat and accumulation 4
+    peak below the base row; (f) ``doctor``; (g) a seeded
+    resnet_9blocks and phase 19's unet_128 exported to ``.pth`` through
+    the mirror template and imported back bit-identical, the mirror's f32
+    forward on the card within 1e-4 of the port's G; (h)
+    ``average_ckpts`` over phase 8's epochs 2-3 (their mean) and
+    ``test.main --epoch swa``, ``plot_losses`` and ``compare_runs`` over
+    phase 14's and phase 8's metrics, a two-combination ``sweep``.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -3441,6 +3462,375 @@ def phase_variants(torch, tmp, folder, bundle_dir, plain) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: the tools on the card
+# --------------------------------------------------------------------------- #
+
+TOOLS_B = 64                      # bench.py's headline batch at 128 px
+TOOLS_E2E_STEPS = 10              # each --e2e run's timed steps
+PROFILE_STEPS = 10                # profile_step's traced steps
+PROFILE_TOL = 0.15                # its device ms a step vs _profile_train's
+OOM_FRACTION = 0.005              # of the card: 0.4 GB, below any step
+SWEEP_ARGV = ["--dataset_mode", "synthetic", "--max_dataset_size", "8",
+              "--batch_size", "4", "--netG", "resnet_6blocks", "--ngf", "8",
+              "--ndf", "8", "--crop_size", "32", "--load_size", "36",
+              "--n_age_bins", "4", "--niter", "1", "--niter_decay", "0",
+              "--print_freq", "1"]
+
+
+def _counted(torch, fn, *args):
+    """fn(*args) with B1's and B2's counts zeroed before and read after:
+    (result, B1 launches)."""
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.ops import cuda_wgrad as cw
+    cp.launches = cw.launches = 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        out = fn(*args)
+    torch.cuda.synchronize()
+    check(cw.launches == 0, f"tools: {cw.launches} B2 launches")
+    return out, cp.launches
+
+
+def _bench_line(torch, argv, metric, launches_want):
+    from pcgan_tpu_torch import bench
+    line, b1 = _counted(torch, bench.main, argv)
+    check(line["metric"] == metric, f"bench {argv}: metric {line['metric']}, "
+          f"want {metric}")
+    check(bool(np.isfinite(line["value"])) and line["value"] > 0,
+          f"bench {argv}: value {line['value']}")
+    check(line["device"] == torch.cuda.get_device_name(0),
+          f"bench {argv}: device {line['device']}")
+    check(b1 == launches_want, f"bench {argv}: {b1} B1 launches, want "
+          f"{launches_want}")
+    say(f"bench {' '.join(argv) or '(headline)'}: {json.dumps(line)}; "
+        f"B1 launches {b1}")
+    return line, b1
+
+
+def _tools_bench(torch) -> tuple:
+    """(a) every mode of the bench at bench.py's config."""
+    out, launches = {}, {}
+    head, launches["headline"] = _bench_line(
+        torch, ["--skip_e2e"], f"train_imgs_per_sec_per_chip_{CROP}px",
+        3 + 30)
+    out["headline"] = head
+    out["headline_wall_ms_per_step"] = TOOLS_B / head["value"] * 1e3
+    steps = ["--steps", str(TOOLS_E2E_STEPS)]
+    for flags, tag in ((["--e2e"], "_e2e"), (["--e2e", "--packed"],
+                                            "_e2e_packed"),
+                       (["--e2e", "--device_cache"], "_e2e_cached")):
+        out[tag[1:]], launches[tag[1:]] = _bench_line(
+            torch, flags + steps, f"train_imgs_per_sec_per_chip_{CROP}px{tag}",
+            3 + TOOLS_E2E_STEPS)
+    for flags, tag in ((["--infer"], ""), (["--infer", "--serving"],
+                                           "_serving"),
+                       (["--infer", "--quant_int8"], "_int8")):
+        out["infer" + tag], _ = _bench_line(
+            torch, flags, f"infer_imgs_per_sec_per_chip_{CROP}px{tag}", 0)
+    lat, _ = _bench_line(torch, ["--latency"], f"sample_latency_p50_{CROP}px",
+                         0)
+    check(lat["device_ms"] is not None and lat["device_ms"] > 0
+          and lat["p99_ms"] >= lat["value"],
+          f"bench --latency: device_ms {lat['device_ms']}, p99 "
+          f"{lat['p99_ms']}")
+    out["latency"] = lat
+    say(f"bench headline {head['value']} imgs/s at batch {TOOLS_B} "
+        f"({out['headline_wall_ms_per_step']:.2f} ms a step, B1 in the "
+        f"timed loop); e2e {out['e2e']['value']}, packed "
+        f"{out['e2e_packed']['value']}, cached {out['e2e_cached']['value']}; "
+        f"infer {out['infer']['value']}, serving "
+        f"{out['infer_serving']['value']}, int8 {out['infer_int8']['value']}"
+        f" imgs/s; latency p50 {lat['value']} p99 {lat['p99_ms']} ms, "
+        f"device {lat['device_ms']} ms")
+    return out, launches
+
+
+def _bench_train_argv(tmp, name, steps):
+    """train_main at bench.py's headline config over the synthetic set."""
+    return ["--dataset_mode", "synthetic", "--max_dataset_size",
+            str(TOOLS_B * steps), "--batch_size", str(TOOLS_B), "--netG",
+            NETG, "--ngf", str(NGF), "--ndf", "64", "--crop_size", str(CROP),
+            "--load_size", str(LOAD), "--n_age_bins", str(NB), "--dtype",
+            "bfloat16", "--pool_size", str(TOOLS_B), "--niter", "2",
+            "--niter_decay", "0", "--print_freq", str(steps),
+            "--save_epoch_freq", "1", "--name", name,
+            "--checkpoints_dir", os.path.join(tmp, "tools")]
+
+
+def _tools_profile_step(torch, tmp, head_ms) -> tuple:
+    """(b) profile_step: its classes, its step time against the headline's
+    wall time, its device ms against an independent profiler read."""
+    from pcgan_tpu_torch.tools import profile_step
+    trace_dir = os.path.join(tmp, "tools", "profile_step")
+    rep, b1 = _counted(torch, profile_step.main, [
+        "--steps", str(PROFILE_STEPS), "--trace_dir", trace_dir])
+    check(b1 == 5 + PROFILE_STEPS, f"profile_step: {b1} B1 launches")
+    check(rep["steps"] == PROFILE_STEPS and rep["total_device_us"] > 0,
+          f"profile_step: {rep['steps']} steps, {rep['total_device_us']} "
+          f"device us")
+    pct = sum(c["pct"] for c in rep["by_class"].values())
+    check(abs(pct - 100) <= 0.01 * len(rep["by_class"]),
+          f"profile_step: class shares sum to {pct}")
+    check(rep["mean_step_ms"] <= head_ms,
+          f"profile_step: {rep['mean_step_ms']} device ms a step > the "
+          f"headline's {head_ms:.3f} ms wall a step")
+    indep = _profile_train(torch, tmp, steps=4, argv=_bench_train_argv(
+        tmp, "bench_profile", 4), what="bench-config")
+    ratio = rep["roofline"]["device_ms_per_step"] / indep[
+        "device_ms_per_step"]
+    say(f"profile_step: {rep['mean_step_ms']} device ms a step (headline "
+        f"wall {head_ms:.3f} ms), independent read "
+        f"{indep['device_ms_per_step']:.3f} ms: x{ratio:.4f} (limit "
+        f"1 +- {PROFILE_TOL}); floor {rep['roofline']['floor_ms_per_step']} "
+        f"ms from counted FLOPs, {rep['roofline']['uncounted_ms_per_step']} "
+        f"ms uncounted; classes "
+        + ", ".join(f"{k} {v['pct']}%" for k, v in rep["by_class"].items()))
+    check(abs(ratio - 1) <= PROFILE_TOL,
+          f"profile_step: device ms a step x{ratio:.4f} the independent "
+          f"read's")
+    for t in rep["top_ops"][:10]:
+        say(f"  {t['us'] / PROFILE_STEPS:10.1f} us/step {t['launches'] / PROFILE_STEPS:6.1f} "
+            f"launches/step  {t['category']:<28s} {t['kernel'][:80]}")
+    rep.pop("trace_file")
+    return {"report": rep, "independent": indep, "ratio": ratio}, {
+        "profile_step": b1, "profile_step_check": indep["launches"]}
+
+
+def _tools_tune(torch) -> tuple:
+    """(d) tune_batch over 32 and 64, then one candidate under a memory cap:
+    out of memory on every rung of the ladder."""
+    import gc
+    from pcgan_tpu_torch.tools import tune_batch
+    out, b1 = _counted(torch, tune_batch.main, [
+        "--size", "128", "--candidates", "32,64", "--steps", "3"])
+    check(all(r.get("imgs_per_sec_per_chip", 0) > 0 for r in out["rows"])
+          and out["best"] is not None,
+          f"tune_batch: rows {out['rows']}, best {out['best']}")
+    tried = []
+    measure = tune_batch.try_measure
+
+    def recording(cfg, steps, warmup=3):
+        tried.append((cfg.model.remat, cfg.train.grad_accum))
+        return measure(cfg, steps, warmup)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    tune_batch.try_measure = recording
+    torch.cuda.set_per_process_memory_fraction(OOM_FRACTION, 0)
+    try:
+        capped, b1c = _counted(torch, tune_batch.main, [
+            "--size", "128", "--candidates", "64", "--steps", "3"])
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, 0)
+        tune_batch.try_measure = measure
+    row = capped["rows"][0]
+    check(capped["best"] is None and "out of memory" in row.get("error", "")
+          and tried == [(False, 1), (True, 1), (True, 2), (True, 4)],
+          f"tune_batch capped to {OOM_FRACTION} of the card: row {row}, "
+          f"rungs {tried}")
+    say(f"tune_batch: {json.dumps(out)}; capped to {OOM_FRACTION} of the "
+        f"card: rungs {tried}, DOES NOT FIT ({row['error'][:60]}...)")
+    return {"run": out, "capped": capped, "rungs": tried}, {
+        "tune_batch": b1, "tune_batch_capped": b1c}
+
+
+def _tools_memory_plan(torch) -> tuple:
+    """(e) memory_plan --sweep at 256 px, batch 64: remat and accumulation
+    4 below the base row's peak."""
+    from pcgan_tpu_torch.tools import memory_plan
+    out, b1 = _counted(torch, memory_plan.main, [
+        "--size", "256", "--batch", "64", "--sweep"])
+    rows = {(r["remat"], r["grad_accum"]): r for r in out["rows"]}
+    check(all(r.get("peak_gib") for r in out["rows"]),
+          f"memory_plan: rows {out['rows']}")
+    base = rows[(False, 1)]["peak_gib"]
+    ratios = {f"remat={int(k[0])} accum={k[1]}": r["peak_gib"] / base
+              for k, r in rows.items()}
+    check(rows[(True, 1)]["peak_gib"] < base
+          and rows[(False, 4)]["peak_gib"] < base,
+          f"memory_plan: peaks {ratios} of the base row's")
+    say(f"memory_plan 256 px batch 64 (measured, limit "
+        f"{out['hbm_limit_gib']} GiB): base peak {base} GiB; "
+        + ", ".join(f"{k} x{v:.3f}" for k, v in ratios.items())
+        + " (phase 18 at 128/256 px: accumulation 0.48x, remat 0.51x)")
+    return {"run": out, "peak_over_base": ratios}, {"memory_plan": b1}
+
+
+def _tools_doctor(torch) -> dict:
+    """(f) doctor: the kernels built, the device check, the card's line."""
+    from pcgan_tpu_torch.tools import doctor
+    rep, _ = _counted(torch, doctor.main, [])
+    check(rep["device_check"] == "ok"
+          and rep["kernels"] == {"B1 preprocess": "built",
+                                 "B2 wgrad": "built"}
+          and rep["card"] == torch.cuda.get_device_name(0)
+          and rep["power_limit"],
+          f"doctor: {rep}")
+    say(f"doctor: {rep['card']}, {rep['memory_gib']} GiB, power "
+        f"{rep['power_limit']}; nvcc {rep['nvcc']}; decoder "
+        f"{rep['jpeg_decoder'][:60]}; device check {rep['device_check']}")
+    return rep
+
+
+def _tools_pth_case(torch, tmp, netG, inject, run_dir=None) -> dict:
+    """Export a G to .pth through the mirror template, import it back
+    (bit-identical), and the mirror's f32 forward on the exported weights
+    against the port's G on the card."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_G
+    from pcgan_tpu_torch.tools import export_pth, import_pth
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    from pcgan_tpu_torch.utils import pth_mirror
+    arch = ["--netG", netG, "--ngf", str(NGF), "--norm", "instance",
+            "--cond_inject", inject, "--crop_size", str(CROP),
+            "--n_age_bins", str(NB)]
+    cfg = parse_config(arch + ["--dtype", "float32"], is_train=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        G = define_G(cfg, torch.Generator().manual_seed(7))
+    ck = os.path.join(tmp, "tools", "pth")
+    if run_dir is None:
+        name = f"seeded_{netG}"
+        ckpt.save_generator(G, ck, name)
+    else:                                   # a trained run's checkpoint
+        ck, name = os.path.split(run_dir)
+        ckpt.restore_generator(G, ck, name)
+    pth = os.path.join(tmp, "tools", f"{netG}_net_G.pth")
+    export_pth.main(["--name", name, "--checkpoints_dir", ck, "--out", pth,
+                     *arch])
+    back = import_pth.main(["--pth", pth, "--name", f"back_{netG}",
+                            "--checkpoints_dir", os.path.join(tmp, "tools",
+                                                              "pth"), *arch])
+    got = torch.load(back, weights_only=True)
+    want = G.state_dict()
+    check(set(got) == set(want) and all(torch.equal(got[k], v)
+                                        for k, v in want.items()),
+          f"pth {netG}: the round trip is not bit-identical")
+    sd = torch.load(pth, weights_only=True)
+    stem = 3 + (NB if inject == "input" else 0)
+    if netG.startswith("unet_"):
+        mirror = pth_mirror.build_unet(stem, 3, int(netG[5:]).bit_length()
+                                       - 1, ngf=NGF)
+    else:
+        mirror = pth_mirror.ResnetG(stem, 3, ngf=NGF,
+                                    n_blocks=int(netG.split("_")[1][0]),
+                                    cond_nc=NB, cond_inject=inject)
+    mirror.load_state_dict(sd)
+    mirror, G = mirror.to(DEV).eval(), G.to(DEV).eval()
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(-1, 1, (4, CROP, CROP, 3)).astype(
+        np.float32)).to(DEV)
+    c = torch.from_numpy(np.eye(NB, dtype=np.float32)[
+        [0, NB // 3, 2 * NB // 3, NB - 1]]).to(DEV)
+    with torch.no_grad():
+        y = G(x, c)
+        xin = x.permute(0, 3, 1, 2)
+        if inject == "input":
+            cmap = c[:, :, None, None].expand(-1, -1, CROP, CROP)
+            ym = mirror(torch.cat([xin, cmap], 1))
+        else:
+            ym = mirror(xin, c)
+        err = float((ym.permute(0, 2, 3, 1) - y).abs().max())
+    check(err <= PARITY_TOL, f"pth {netG}: mirror vs port G max err {err:.3g}")
+    say(f"pth {netG} ({inject}, {'trained' if run_dir else 'seeded'}): "
+        f"{len(sd)} tensors exported, imported back bit-identical, mirror "
+        f"f32 forward vs the port's G on the card max err {err:.3g}")
+    return {"tensors": len(sd), "max_abs_err": err}
+
+
+def _tools_run_tools(torch, tmp) -> tuple:
+    """(h) SWA over phase 8's epoch tags and a grid from it, the plots over
+    phase 14's and phase 8's metrics, a two-combination sweep."""
+    from pcgan_tpu_torch import test as port_test
+    from pcgan_tpu_torch.tools import (average_ckpts, compare_runs,
+                                       plot_losses, sweep)
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    out = {}
+    train = os.path.join(tmp, "train")
+    average_ckpts.main(["--checkpoints_dir", train, "--name", "smoke_train",
+                        "--tags", "epoch_2,epoch_3", "--out", "swa"])
+    sds = [torch.load(ckpt.generator_path(train, "smoke_train", t),
+                      weights_only=True) for t in ("epoch_2", "epoch_3",
+                                                   "swa")]
+    for k, v in sds[2].items():
+        want = ((sds[0][k].double() + sds[1][k].double()) / 2).float()
+        check(torch.equal(v, want if average_ckpts.is_param(k, v)
+                          else sds[1][k]), f"average_ckpts: {k}")
+    argv = _argv(tmp, "smoke_train", "bottleneck", num_test=16)
+    argv[argv.index("--checkpoints_dir") + 1] = train
+    res, b1 = _counted(torch, port_test.main, argv + ["--epoch", "swa"])
+    check(b1 == 2 and res["done"] == 16,
+          f"test --epoch swa: {res['done']} grids, {b1} B1 launches")
+    out["swa_grids"] = res["done"]
+    real = os.path.join(tmp, "real", "real_utk128")
+    svg = plot_losses.main([real, "--out", os.path.join(tmp, "tools",
+                                                        "loss.svg")])
+    cmp_svg = compare_runs.main([
+        "--runs", f"{real},{os.path.join(train, 'smoke_train')}", "--key",
+        "loss_G", "--out", os.path.join(tmp, "tools", "compare.svg")])
+    with open(svg) as f, open(cmp_svg) as g:
+        n_plot, n_cmp = f.read().count("<polyline"), g.read().count(
+            "<polyline")
+    check(n_plot >= 4 and n_cmp == 2,
+          f"plot_losses {n_plot} series, compare_runs {n_cmp}")
+    t0 = time.perf_counter()
+    rc = sweep.main(["--grid", "lambda_L1=50,100", "--name", "sw",
+                     "--checkpoints_dir", os.path.join(tmp, "tools",
+                                                       "sweep"), "--",
+                     *SWEEP_ARGV])
+    with open(os.path.join(tmp, "tools", "sweep", "sw_sweep.json")) as f:
+        summary = json.load(f)
+    check(rc == 0 and [r["returncode"] for r in summary["runs"]] == [0, 0]
+          and all(np.isfinite(r["metrics"]["loss_G"])
+                  for r in summary["runs"]),
+          f"sweep: rc {rc}, {summary['runs']}")
+    out.update(plot_series=n_plot, compare_series=n_cmp,
+               sweep_s=time.perf_counter() - t0, sweep_best=summary["best"])
+    say(f"run tools: SWA of epochs 2-3 = their mean, {res['done']} grids "
+        f"from it; loss plot {n_plot} series, comparison {n_cmp}; sweep of "
+        f"2 combinations in {out['sweep_s']:.1f} s, best {summary['best']}")
+    return out, {"test_swa": b1}
+
+
+def phase_tools(torch, tmp) -> dict:
+    """Phase 20: every ported tool through its main(argv) on the card, at
+    bench.py's config unless stated."""
+    t_phase = time.perf_counter()
+    out, launches = {}, {}
+    out["bench"], la = _tools_bench(torch)
+    launches.update(la)
+    head_ms = out["bench"]["headline_wall_ms_per_step"]
+    out["profile_step"], la = _tools_profile_step(torch, tmp, head_ms)
+    launches.update(la)
+    from pcgan_tpu_torch.tools import profile_e2e
+    rep, launches["profile_e2e"] = _counted(torch, profile_e2e.main,
+                                            ["--steps", "10"])
+    stages = ("decode_ms_per_batch", "with_bins_ms", "upload_ms",
+              "dispatch_ms", "step_ms", "e2e_ms")
+    check(all(rep[k] > 0 for k in stages) and launches["profile_e2e"] == 36,
+          f"profile_e2e: {rep}, {launches['profile_e2e']} B1 launches")
+    say(f"profile_e2e: {json.dumps(rep)}")
+    out["profile_e2e"] = rep
+    out["tune_batch"], la = _tools_tune(torch)
+    launches.update(la)
+    out["memory_plan"], la = _tools_memory_plan(torch)
+    launches.update(la)
+    out["doctor"] = _tools_doctor(torch)
+    out["pth"] = {"resnet_9blocks": _tools_pth_case(
+        torch, tmp, NETG, "bottleneck")}
+    unet = os.path.join(tmp, "levers", "unet128")
+    if os.path.isfile(os.path.join(unet, "latest_G.pt")):
+        out["pth"]["unet_128"] = _tools_pth_case(torch, tmp, "unet_128",
+                                                 "input", run_dir=unet)
+    out["run_tools"], la = _tools_run_tools(torch, tmp)
+    launches.update(la)
+    out["launches_per_run"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 20 (tools): {out['seconds']:.1f} s; B1 launches {launches}")
+    return out
+
+
 def _face_row(folder, i) -> np.ndarray:
     """Image i of the folder as the host's image routes give it to G: f32
     [-1, 1] at the crop size (the folder's 200 px canvas resized)."""
@@ -3497,6 +3887,7 @@ def main() -> None:
         levers = phase_levers(torch, tmp)
         variants = phase_variants(torch, tmp, folder, path3["bundle_dir"],
                                   levers["plain_profile"])
+        tools = phase_tools(torch, tmp)
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
         "training": path1["launches_per_run"], "bench_lowch": 0,
@@ -3507,7 +3898,8 @@ def main() -> None:
         "evaluation": evaluation["launches_per_run"],
         "serving": serving["launches_per_run"],
         "levers": levers["launches_per_run"],
-        "g_variants": variants["launches_per_run"]}
+        "g_variants": variants["launches_per_run"],
+        "tools": tools["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
@@ -3517,6 +3909,7 @@ def main() -> None:
                                "training_cond": 0, "real_images": 0,
                                "label_free": 0, "evaluation": 0,
                                "serving": 0, "levers": 0, "g_variants": 0,
+                               "tools": 0,
                                "tail_forms": variants["b2_tail_launches"]}
     b2["launches"] = (path2["launches"] + path1["b2_launches"]
                       + variants["b2_tail_launches"])
@@ -3524,7 +3917,7 @@ def main() -> None:
           and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants}, default=_jsonable)}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)

@@ -652,7 +652,7 @@ def _mem_metrics(device, on: bool) -> dict:
 
 
 class _Profiler:
-    """--profile_steps N: a ``torch.profiler`` trace (CPU and, on the card,
+    """--profile_steps N: a ``utils.profiling.trace`` (CPU and, on the card,
     CUDA activity) of N steady-state steps after 3 warm-up steps, written to
     ``{run_dir}/trace/trace.json`` (chrome trace format)."""
 
@@ -669,11 +669,9 @@ class _Profiler:
             self.skip -= 1
             return
         if self.prof is None:
-            import torch
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self.prof = torch.profiler.profile(activities=acts)
+            from pcgan_tpu_torch.utils.profiling import trace
+            self.prof = trace(os.path.join(self.run_dir, "trace"),
+                              self.device)
             self.prof.__enter__()
             print(f"profiling {self.left} steps -> {self.run_dir}/trace",
                   flush=True)
@@ -685,13 +683,7 @@ class _Profiler:
     def close(self) -> None:
         if self.prof is None:
             return
-        import torch
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.prof.__exit__(None, None, None)
-        out = os.path.join(self.run_dir, "trace")
-        os.makedirs(out, exist_ok=True)
-        self.prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        self.prof.__exit__(None, None, None)    # syncs, writes the trace
         self.prof, self.left = None, 0
         print("profile trace written", flush=True)
 

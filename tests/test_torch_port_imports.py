@@ -1,5 +1,7 @@
 """The port stands alone: no module of pcgan_tpu_torch and no line of
-chip_smoke.py imports jax, flax or the JAX package pcgan_tpu.
+chip_smoke.py imports jax, flax, the JAX package pcgan_tpu or the JAX
+side's benchmarks folder (the port keeps its own copy of the torch mirror,
+``utils/pth_mirror.py``).
 
 Checked on the source (AST), not on sys.modules: the test process itself
 imports jax (tests/conftest.py), so a module's import-time effects would not
@@ -13,7 +15,7 @@ import os
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "flax", "pcgan_tpu")
+FORBIDDEN = ("jax", "flax", "pcgan_tpu", "benchmarks", "torch_baseline")
 FILES = sorted(glob.glob(os.path.join(ROOT, "pcgan_tpu_torch", "**", "*.py"),
                          recursive=True)) + [os.path.join(ROOT, "chip_smoke.py")]
 
@@ -43,6 +45,7 @@ def test_forbidden_prefix_rule():
     assert forbidden("pcgan_tpu") and forbidden("pcgan_tpu.ops.preprocess")
     assert not forbidden("pcgan_tpu_torch") and not forbidden("pcgan_tpu_torch.ops")
     assert not forbidden("jaxlib_like") and not forbidden("numpy")
+    assert forbidden("benchmarks.torch_baseline") and forbidden("torch_baseline")
 
 
 def test_files_exist():
@@ -59,6 +62,16 @@ def test_files_exist():
             "pcgan_tpu_torch/tools/loadtest.py",
             "pcgan_tpu_torch/data/device_cache.py",
             "pcgan_tpu_torch/utils/summary.py"} <= rel
+    # the tools (the JAX bench, tools/ and utils/pth_*, profiling)
+    assert {"pcgan_tpu_torch/bench.py",
+            "pcgan_tpu_torch/utils/profiling.py",
+            "pcgan_tpu_torch/utils/pth_import.py",
+            "pcgan_tpu_torch/utils/pth_export.py",
+            "pcgan_tpu_torch/utils/pth_mirror.py",
+            *(f"pcgan_tpu_torch/tools/{t}.py" for t in (
+                "profile_step", "profile_e2e", "tune_batch", "memory_plan",
+                "doctor", "average_ckpts", "compare_runs", "plot_losses",
+                "sweep", "export_pth", "import_pth"))} <= rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: os.path.relpath(p, ROOT))

@@ -135,9 +135,11 @@ the one named in phase 2):
     direct conv, the s2d conv and ``lowch_reflect_conv`` (B2), held
     against each other; (e) card vs CPU: an f32 unet step, an f32
     ``@resize_conv --g_attn`` forward, the bf16 routes against the
-    direct conv; (f) ``--device_cache`` at path 4's flags: the batches
-    bit-identical to the streaming run's, the loss streams (identical, or
-    as close as two streaming runs are), steps/s and host-to-device bytes
+    direct conv; (f) at path 4's flags with cuDNN deterministic: two
+    streaming runs (the second traced by ``--profile_steps``) with the same
+    losses and the same final state bit for bit, one more under ``torch.use_deterministic_algorithms(True)`` (no
+    op may raise), ``--device_cache``'s batches and loss stream
+    bit-identical to the streaming run's, steps/s and host-to-device bytes
     a step from ``--profile_steps`` traces; a resident cache of 8,192
     canvases (upload s, steps/s against the host Loader). B2 stays off
     every new CLI path;
@@ -148,9 +150,12 @@ the one named in phase 2):
     --device_cache``, ``--infer`` live, ``--serving`` and
     ``--quant_int8``, and ``--latency`` with its traced ``device_ms``,
     each line checked for its JAX metric name and a finite positive
-    value; (b) ``profile_step`` over 10 steps: its class shares, its
+    value; (b) ``profile_step`` over 6 steps: its class shares, its
     device ms a step against the headline's wall time a step and within
-    15% of an independent profile of ``train_main`` at the same config;
+    15% of an independent profile of ``train_main`` at the same config,
+    its roofline (each op call floored at max(FLOPs / peak, bytes / peak
+    bandwidth) from its recorded shapes): the floor must cover >= 95% of
+    the device ms a step and no op may run below 0.95x its floor;
     (c) ``profile_e2e``, every stage positive; (d) ``tune_batch`` over
     batch 32 and 64, then batch 64 with the process capped to 0.5% of
     the card: out of memory on every rung of the dial ladder; (e)
@@ -161,7 +166,18 @@ the one named in phase 2):
     forward on the card within 1e-4 of the port's G; (h)
     ``average_ckpts`` over phase 8's epochs 2-3 (their mean) and
     ``test.main --epoch swa``, ``plot_losses`` and ``compare_runs`` over
-    phase 14's and phase 8's metrics, a two-combination ``sweep``.
+    phase 14's and phase 8's metrics, a two-combination ``sweep``;
+21. the repairs and the last one-card flags: (a) phase 19 (f)'s
+    bit-for-bit runs restated, and the device ms a step of the port's pad
+    backward (``ops/pad.py``) in phase 20's bench trace beside the 9.4 ms
+    ATen's atomic backward took there, and the headline beside its rate
+    then; (b) phase 20's floor,
+    ``ratio_to_floor`` and covered share; (c) ``--dtype float16`` at phase
+    18's plain shape (20 profiled steps, every loss finite, B1's launches,
+    device ms, launches and steps/s beside phase 18's bf16 profile), the
+    f16 G card vs CPU on the same weights within the CPU test's limits; (d) a ``--no-pallas_pipeline`` run (B1 launched no
+    time) and its plain route on a CUDA batch against B1's within B1's
+    gates.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -1066,7 +1082,7 @@ def _profile_train(torch, tmp, steps: int = 4, argv=None,
                r[0] for r in rows if "preprocess_kernel" in r[2]),
            "top_kernels_ms_per_step": [[round(ms, 4), cnt, name[:100]]
                                        for ms, cnt, name in rows[:20]]}
-    say(f"{what} profile (bf16, 2 epochs of {steps} steps, "
+    say(f"{what} profile (2 epochs of {steps} steps, "
         f"every step traced, no checkpoint writes): device "
         f"{device_ms:.3f} ms of {window_ms:.3f} ms window per step, busy "
         f"share {device_ms / window_ms:.3f}, "
@@ -3286,15 +3302,39 @@ def _summing(to_device, sums):
     return spy
 
 
+def _state_diff(torch, path_a, path_b) -> list:
+    """The keys of two checkpoints whose tensors are not bit-identical."""
+    def flat(v, key=""):
+        if isinstance(v, dict):
+            for k, x in v.items():
+                yield from flat(x, f"{key}/{k}")
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                yield from flat(x, f"{key}/{i}")
+        else:
+            yield key, v
+    a, b = [dict(flat(torch.load(p, map_location="cpu", weights_only=True)))
+            for p in (path_a, path_b)]
+    bad = sorted(set(a) ^ set(b))
+    for k in sorted(set(a) & set(b)):
+        x, y = a[k], b[k]
+        same = (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                and isinstance(y, torch.Tensor) else x == y)
+        if not same:
+            bad.append(k)
+    return bad
+
+
 def _device_cache(torch, tmp, folder, bundle_dir) -> dict:
-    """(f) --device_cache at path 4's flags over the folder: the batches of
-    a cached run equal the streaming run's bit for bit and so does the
-    loss stream of metrics.jsonl (or, where the card's atomics make two
-    streaming runs differ, it differs from the streaming run no more than
-    20x as much as they do), steps/s both ways, host-to-device bytes per
-    step from a --profile_steps 4 trace of each; then a resident cache of
-    CACHE_N synthetic canvases from a pack: its decode and upload seconds,
-    and steps/s against the host Loader at batch 32."""
+    """(f) --device_cache at path 4's flags over the folder: two streaming
+    runs give the same losses and the same final state (parameters, Adam
+    moments) bit for bit, the batches and the loss stream of a cached run
+    equal the streaming run's bit for bit, one more streaming run under
+    ``torch.use_deterministic_algorithms(True)`` (which raises at any op
+    with no deterministic CUDA kernel), steps/s both ways, host-to-device
+    bytes per step from a --profile_steps 4 trace of each; then a resident
+    cache of CACHE_N synthetic canvases from a pack: its decode and upload
+    seconds, and steps/s against the host Loader at batch 32."""
     from pcgan_tpu_torch import train_main
     from pcgan_tpu_torch.data.device_cache import DeviceCacheLoader
     from pcgan_tpu_torch.data.loader import Loader, create_dataset
@@ -3303,21 +3343,33 @@ def _device_cache(torch, tmp, folder, bundle_dir) -> dict:
     out, launches, runs = {}, {}, {}
     steps = 2 * REAL_STEPS
     real_to_device = train_main._to_device
-    # cuDNN's deterministic algorithms: what is left of run-to-run noise is
-    # the atomics of the reflect pads' backward
+    # cuDNN's deterministic algorithms; the pads and the comparison loss
+    # differentiate without atomics (ops/pad.py), so the runs repeat bit
+    # for bit
     torch.backends.cudnn.deterministic = True
     try:
-        for name, extra in (("stream", ()), ("cache", ("--device_cache",)),
+        for name, extra in (("stream", ()), ("stream_strict", ()),
+                            ("cache", ("--device_cache",)),
                             ("stream_profiled", ("--profile_steps", "4")),
                             ("cache_profiled", ("--device_cache",
                                                 "--profile_steps", "4"))):
             sums = []
             train_main._to_device = _summing(real_to_device, sums)
+            strict = name == "stream_strict"
+            if strict:
+                # every op of the step must have a deterministic CUDA
+                # kernel: torch raises at one that has not (cuBLAS asks for
+                # a fixed workspace first)
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+                torch.use_deterministic_algorithms(True)
             try:
                 res, b1, b2, wall = _train_run(torch, _real_argv(
                     tmp, folder, f"cache_{name}", 2, cond + extra))
             finally:
                 train_main._to_device = real_to_device
+                if strict:
+                    torch.use_deterministic_algorithms(False)
+                    os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
             check(res["step"] == steps and b1 == steps and b2 == 0
                   and len(sums) == steps,
                   f"cache {name}: {res['step']} steps, {b1} B1 / {b2} B2 "
@@ -3344,21 +3396,35 @@ def _device_cache(torch, tmp, folder, bundle_dir) -> dict:
     check(len(s) == len(c) > 0 and all(set(a) == set(b)
                                        for a, b in zip(s, c)),
           "device cache: metrics rows differ in shape")
-    noise = gap(runs["stream_profiled"]["losses"], s)
+    # the second streaming run is the traced one: tracing reads the step,
+    # it does not change it
+    again = runs["stream_profiled"]["losses"]
+    state_diff = _state_diff(torch, *[
+        os.path.join(tmp, "real", f"cache_{n}", "latest.pt")
+        for n in ("stream", "stream_profiled")])
+    check(again == s and not state_diff,
+          f"two streaming runs differ: losses {gap(again, s)} apart, state "
+          f"tensors {state_diff[:8]}")
     diff = gap(c, s)
     identical = c == s
-    check(identical or (noise > 0 and diff <= 20 * noise),
-          f"device cache: loss stream {diff} from the streaming run's, "
-          f"two streaming runs {noise} apart")
-    out["loss_stream"] = {"identical": identical, "max_rel_gap": diff,
-                          "stream_vs_stream_max_rel_gap": noise,
-                          "cache_profiled_max_rel_gap": gap(
-                              runs["cache_profiled"]["losses"], s)}
+    check(identical, f"device cache: loss stream {diff} from the streaming "
+          f"run's (bit for bit wanted)")
+    strict_same = runs["stream_strict"]["losses"] == s
+    out["loss_stream"] = {
+        "identical": identical, "max_rel_gap": diff,
+        "stream_vs_stream_identical": True,
+        "stream_vs_stream_state_identical": True,
+        "strict_deterministic_ran": True,
+        "strict_identical": strict_same,
+        "cache_profiled_max_rel_gap": gap(runs["cache_profiled"]["losses"],
+                                          s)}
     out["runs"] = {n: {k: v for k, v in r.items() if k != "sums"}
                    for n, r in runs.items()}
-    say(f"device cache (path 4's flags, {steps} steps): batches bit-identical"
-        f" to the streaming run's; loss stream identical {identical} (max "
-        f"rel gap {diff}, two streaming runs {noise}); epoch-2 steps/s "
+    say(f"device cache (path 4's flags, {steps} steps): two streaming runs "
+        f"bit-identical in losses and in the final state; the run under "
+        f"use_deterministic_algorithms raised nothing (losses identical "
+        f"{strict_same}); the cached run's batches and loss stream "
+        f"bit-identical to the streaming run's; epoch-2 steps/s "
         f"stream {runs['stream']['rates']['pooled']:.3f}, cache "
         f"{runs['cache']['rates']['pooled']:.3f}; host-to-device bytes per "
         f"step stream {runs['stream_profiled']['h2d_bytes_per_step']:.0f}, "
@@ -3468,8 +3534,10 @@ def phase_variants(torch, tmp, folder, bundle_dir, plain) -> dict:
 
 TOOLS_B = 64                      # bench.py's headline batch at 128 px
 TOOLS_E2E_STEPS = 10              # each --e2e run's timed steps
-PROFILE_STEPS = 10                # profile_step's traced steps
+PROFILE_STEPS = 6                 # profile_step's traced steps
 PROFILE_TOL = 0.15                # its device ms a step vs _profile_train's
+COVER_MIN = 0.95                  # the floor's share of the device ms a step
+FLOOR_MIN = 0.95                  # no op below its floor by more than 5%
 OOM_FRACTION = 0.005              # of the card: 0.4 GB, below any step
 SWEEP_ARGV = ["--dataset_mode", "synthetic", "--max_dataset_size", "8",
               "--batch_size", "4", "--netG", "resnet_6blocks", "--ngf", "8",
@@ -3572,23 +3640,41 @@ def _tools_profile_step(torch, tmp, head_ms) -> tuple:
     pct = sum(c["pct"] for c in rep["by_class"].values())
     check(abs(pct - 100) <= 0.01 * len(rep["by_class"]),
           f"profile_step: class shares sum to {pct}")
-    check(rep["mean_step_ms"] <= head_ms,
-          f"profile_step: {rep['mean_step_ms']} device ms a step > the "
-          f"headline's {head_ms:.3f} ms wall a step")
+    roof = rep["roofline"]
+    check(roof["device_ms_per_step"] <= head_ms,
+          f"profile_step: {roof['device_ms_per_step']} device ms a step > "
+          f"the headline's {head_ms:.3f} ms wall a step")
     indep = _profile_train(torch, tmp, steps=4, argv=_bench_train_argv(
         tmp, "bench_profile", 4), what="bench-config")
-    ratio = rep["roofline"]["device_ms_per_step"] / indep[
-        "device_ms_per_step"]
-    say(f"profile_step: {rep['mean_step_ms']} device ms a step (headline "
-        f"wall {head_ms:.3f} ms), independent read "
+    ratio = roof["device_ms_per_step"] / indep["device_ms_per_step"]
+    say(f"profile_step: {roof['device_ms_per_step']} device ms a step, "
+        f"mean step span {rep['mean_step_ms']} ms (headline wall "
+        f"{head_ms:.3f} ms), independent read "
         f"{indep['device_ms_per_step']:.3f} ms: x{ratio:.4f} (limit "
-        f"1 +- {PROFILE_TOL}); floor {rep['roofline']['floor_ms_per_step']} "
-        f"ms from counted FLOPs, {rep['roofline']['uncounted_ms_per_step']} "
-        f"ms uncounted; classes "
+        f"1 +- {PROFILE_TOL}); classes "
         + ", ".join(f"{k} {v['pct']}%" for k, v in rep["by_class"].items()))
+    say(f"roofline: floor {roof['floor_ms_per_step']} ms a step, "
+        f"ratio_to_floor {roof['ratio_to_floor']}, covered "
+        f"{roof['covered_share']} of the device ms "
+        f"({roof['counted_ms_per_step']} of {roof['device_ms_per_step']}; "
+        f"uncounted {roof['uncounted_ms_per_step']} ms), the lowest op "
+        f"x{roof['min_op_ratio']} its floor")
+    for o in roof["ops"][:12]:
+        say(f"  {o['us'] / PROFILE_STEPS:10.1f} us/step  floor "
+            f"{o['floor_us'] / PROFILE_STEPS:9.1f}  x{o['ratio']}  {o['op']}")
     check(abs(ratio - 1) <= PROFILE_TOL,
           f"profile_step: device ms a step x{ratio:.4f} the independent "
           f"read's")
+    check(roof["covered_share"] is not None
+          and roof["covered_share"] >= COVER_MIN,
+          f"roofline: the floor covers {roof['covered_share']} of the "
+          f"device ms a step, want >= {COVER_MIN}")
+    low = [o for o in roof["ops"] if o["ratio"] is not None
+           and o["ratio"] < FLOOR_MIN]
+    check(roof["min_op_ratio"] is not None and not low
+          and roof["min_op_ratio"] >= FLOOR_MIN,
+          f"roofline: ops under {FLOOR_MIN}x their floor (a miscounted "
+          f"cost): {low}, lowest x{roof['min_op_ratio']}")
     for t in rep["top_ops"][:10]:
         say(f"  {t['us'] / PROFILE_STEPS:10.1f} us/step {t['launches'] / PROFILE_STEPS:6.1f} "
             f"launches/step  {t['category']:<28s} {t['kernel'][:80]}")
@@ -3831,6 +3917,232 @@ def phase_tools(torch, tmp) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: the repaired step and roofline, --dtype float16, the leftovers
+# --------------------------------------------------------------------------- #
+
+# before the fold, on an H100 80GB HBM3 at 700 W: ATen's atomic pad
+# backward in a bench step, and train_imgs_per_sec_per_chip_128px
+ATEN_PAD_BWD_MS = 9.4
+ATEN_PAD_HEADLINE = 516.75
+F16_STEPS = 10                    # an epoch of the profiled f16 run
+# the f16 G, card against CPU, at the CPU test's shape and limits
+# (tests/test_torch_port_f16.py: max 6.25e-3, mean 6.25e-4)
+F16_MAX, F16_MEAN = 6.25e-3, 6.25e-4
+PAD_NODES = ("ReflectPad2dBackward", "ReplicatePad2dBackward")
+
+
+def _pad_backward_ms(trace_dir, steps) -> tuple:
+    """(device ms a step, kernels a step, pad backward calls a step) of the
+    kernels launched inside the port's pad Functions' backward nodes in a
+    ``utils.profiling.trace``."""
+    import collections
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    ops, ranges = {}, collections.defaultdict(list)
+    for e in events:
+        if e.get("cat") != "cpu_op" or "dur" not in e:
+            continue
+        ops[e.get("args", {}).get("External id")] = e
+        if e["name"] in PAD_NODES:
+            t0 = float(e["ts"])
+            ranges[(e["pid"], e["tid"])].append((t0, t0 + float(e["dur"])))
+    us = kernels = 0
+    for e in events:
+        if e.get("cat") != "kernel" or "dur" not in e:
+            continue
+        op = ops.get(e.get("args", {}).get("External id"))
+        if op is None:
+            continue
+        t = float(op["ts"])
+        if any(a <= t <= b for a, b in ranges[(op["pid"], op["tid"])]):
+            us += float(e["dur"])
+            kernels += 1
+    calls = sum(len(v) for v in ranges.values())
+    return us / steps / 1e3, kernels / steps, calls / steps
+
+
+def _f16_runs(torch, tmp, bf16) -> tuple:
+    """(c) phase 18's plain step shape in f16, profiled for 2 x F16_STEPS
+    steps (every loss finite, B1's launches, device ms, launches and
+    window a step) beside ``bf16``, phase 18's profiled plain step at the
+    same shape."""
+    prof = _profile_train(torch, tmp, steps=F16_STEPS, what="f16 plain step",
+                          argv=_lever_argv(tmp, "dtype_f16", 2,
+                                           steps=F16_STEPS, extra=(
+                                               "--dtype", "float16",
+                                               "--print_freq", "1")))
+    rows = _lever_rows(os.path.join(tmp, "levers", "dtype_f16"),
+                       ("loss_G", "loss_D", "loss_G_GAN", "loss_G_L1",
+                        "loss_D_real", "loss_D_fake"), "f16 run")
+    check(len(rows) == 2 * F16_STEPS,
+          f"f16 run: {len(rows)} metrics rows, want {2 * F16_STEPS}")
+    keys = ("device_ms_per_step", "device_launches_per_step",
+            "window_ms_per_step", "device_busy_share")
+    out = {"float16": {"b1_launches": prof["launches"],
+                       "finite_steps": len(rows),
+                       "last_losses": {k: v for k, v in rows[-1].items()
+                                       if k.startswith("loss")},
+                       **{k: prof[k] for k in keys}},
+           "bfloat16": {k: bf16[k] for k in keys}}
+    f16, bf = out["float16"], out["bfloat16"]
+    out["f16_over_bf16_device_ms"] = (f16["device_ms_per_step"]
+                                      / bf["device_ms_per_step"])
+    say(f"--dtype float16 at phase 18's plain shape: {f16['finite_steps']} "
+        f"finite steps, B1 {f16['b1_launches']} launches; "
+        f"{f16['device_ms_per_step']:.3f} device ms, "
+        f"{f16['device_launches_per_step']:.1f} launches and "
+        f"{f16['window_ms_per_step']:.3f} ms window a step "
+        f"({1e3 / f16['window_ms_per_step']:.3f} steps/s), against phase "
+        f"18's bf16 {bf['device_ms_per_step']:.3f} device ms, "
+        f"{bf['device_launches_per_step']:.1f} launches, "
+        f"{bf['window_ms_per_step']:.3f} ms window "
+        f"({1e3 / bf['window_ms_per_step']:.3f} steps/s) (f16 "
+        f"x{out['f16_over_bf16_device_ms']:.3f} the bf16 device ms; no gain "
+        f"claimed)")
+    return out, {"float16_run": prof["launches"]}
+
+
+def _f16_parity(torch) -> dict:
+    """(c) The f16 G on the card against the same seeded weights on the
+    CPU, at the CPU test's shape (resnet_6blocks, ngf 8, 32 px, 4 bins) and
+    within its limits; the full-width gap is reported beside it."""
+    import copy
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_G
+    out = {}
+    for what, flags, gate in (
+            ("small", ["--netG", "resnet_6blocks", "--ngf", "8",
+                       "--crop_size", "32", "--load_size", "36",
+                       "--n_age_bins", "4"], True),
+            ("full", ["--netG", NETG, "--ngf", str(NGF), "--crop_size",
+                      str(CROP), "--n_age_bins", str(NB)], False)):
+        cfg = parse_config(flags + ["--dtype", "float16", "--cond_inject",
+                                    "bottleneck", "--device", "cpu"])
+        G = define_G(cfg, torch.Generator().manual_seed(3)).eval()
+        s, nb = cfg.data.crop_size, cfg.data.n_age_bins
+        rng = np.random.default_rng(3)
+        x = torch.from_numpy(rng.uniform(-1, 1, (2, s, s, 3)).astype(
+            np.float32))
+        c = torch.eye(nb)[rng.integers(0, nb, 2)]
+        with torch.no_grad():
+            want = G(x, c).numpy()
+            got = copy.deepcopy(G).to(DEV)(x.to(DEV), c.to(DEV)).cpu().numpy()
+        err = np.abs(got - want)
+        out[what] = {"max": float(err.max()), "mean": float(err.mean())}
+        check(bool(np.isfinite(got).all()), f"f16 G {what} on the card: "
+              f"non-finite")
+        if gate:
+            check(err.max() <= F16_MAX and err.mean() <= F16_MEAN,
+                  f"f16 G card vs CPU: max {err.max()}, mean {err.mean()} "
+                  f"(limits {F16_MAX}, {F16_MEAN})")
+    say(f"f16 G card vs CPU, same weights: CPU test's shape max "
+        f"{out['small']['max']:.3e} mean {out['small']['mean']:.3e} (limits "
+        f"{F16_MAX}, {F16_MEAN}); full width max {out['full']['max']:.3e} "
+        f"mean {out['full']['mean']:.3e} (reported)")
+    return out
+
+
+def _no_pallas(torch, tmp) -> dict:
+    """(d) --no-pallas_pipeline: a training run on the card launches B1 no
+    time; make_preprocess with the flag off equals the kernel's route on
+    the same CUDA batch and draws within B1's gates, in f32 and bf16."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.ops.preprocess import make_preprocess
+    steps = 4
+    res, b1, b2, _ = _train_run(torch, _lever_argv(
+        tmp, "no_pallas", 1, steps=steps, extra=("--no-pallas_pipeline",)))
+    check(res["step"] == steps and b1 == 0 and b2 == 0,
+          f"--no-pallas_pipeline run: {res['step']} steps, {b1} B1 / {b2} "
+          f"B2 launches (want 0)")
+    _lever_rows(os.path.join(tmp, "levers", "no_pallas"),
+                ("loss_G", "loss_D"), "--no-pallas_pipeline run")
+    rng = np.random.default_rng(21)
+    imgs = torch.from_numpy(rng.integers(0, 256, (REAL_B, NATIVE, NATIVE, C),
+                                         dtype=np.uint8)).to(DEV)
+    out = {"run_b1_launches": b1, "steps": res["step"]}
+    for dt, name in ((torch.float32, "float32"), (torch.bfloat16,
+                                                   "bfloat16")):
+        got = {}
+        for flag in ("--pallas_pipeline", "--no-pallas_pipeline"):
+            cfg = parse_config(["--load_size", str(LOAD), "--crop_size",
+                                str(CROP), "--dtype", name, flag,
+                                "--device", DEV])
+            cp.launches = 0
+            got[flag] = make_preprocess(cfg, train=True)(
+                torch.Generator().manual_seed(5), {"image": imgs})["image"]
+            torch.cuda.synchronize()
+            check(cp.launches == (1 if flag == "--pallas_pipeline" else 0),
+                  f"preprocess {flag}: {cp.launches} B1 launches")
+        k = got["--pallas_pipeline"].float().cpu().numpy()
+        t = got["--no-pallas_pipeline"].float().cpu().numpy()
+        err = np.abs(k - t)
+        if dt == torch.float32:
+            out["f32_max_abs_err"] = float(err.max())
+            check(err.max() <= F32_TOL, f"twin vs B1 f32: {err.max()}")
+        else:
+            out["bf16_max_ulps"] = float((err / bf16_ulp(k)).max())
+            check(out["bf16_max_ulps"] <= 1.0,
+                  f"twin vs B1 bf16: {out['bf16_max_ulps']} ulps")
+    say(f"--no-pallas_pipeline: {steps} steps with 0 B1 launches; the plain "
+        f"route on the card vs B1 on the same batch and draws (B {REAL_B}, "
+        f"{NATIVE} -> {LOAD} -> {CROP}): f32 {out['f32_max_abs_err']:.3e}, "
+        f"bf16 {out['bf16_max_ulps']:.2f} ulps")
+    return out
+
+
+def phase_leftovers(torch, tmp, levers, variants, tools) -> dict:
+    """Phase 21: (a) the deterministic step (phase 19 (f)'s bit-for-bit
+    checks, the pad backward's device ms in the bench's step), (b) the
+    roofline (phase 20's floor and its covered share), (c) --dtype float16
+    at phase 18's plain shape beside its bf16 profile, the f16 G card vs
+    CPU, (d)
+    --no-pallas_pipeline."""
+    t0 = time.perf_counter()
+    out, launches = {}, {}
+    ls = variants["cache"]["loss_stream"]
+    pad_ms, pad_kernels, pad_calls = _pad_backward_ms(
+        os.path.join(tmp, "tools", "profile_step"), PROFILE_STEPS)
+    check(pad_calls > 0 and pad_kernels > 0,
+          f"no pad backward found in the bench's trace ({pad_calls} calls)")
+    head = tools["bench"]["headline"]["value"]
+    out["c1"] = {"stream_vs_stream_identical":
+                 ls["stream_vs_stream_identical"],
+                 "cache_identical": ls["identical"],
+                 "strict_identical": ls["strict_identical"],
+                 "pad_backward_ms_per_step": pad_ms,
+                 "pad_backward_kernels_per_step": pad_kernels,
+                 "pad_backward_calls_per_step": pad_calls,
+                 "aten_pad_backward_ms": ATEN_PAD_BWD_MS,
+                 "headline_imgs_s": head,
+                 "aten_pad_headline_imgs_s": ATEN_PAD_HEADLINE}
+    say(f"C1: two streaming runs and the cached run bit-identical (phase 19 "
+        f"(f)); the pad backward in the bench's step {pad_ms:.3f} ms a step "
+        f"({pad_calls:.0f} calls, {pad_kernels:.0f} kernels) against ATen's "
+        f"{ATEN_PAD_BWD_MS} before the fold; headline {head} imgs/s against "
+        f"{ATEN_PAD_HEADLINE} then")
+    roof = tools["profile_step"]["report"]["roofline"]
+    out["c2"] = {k: roof[k] for k in (
+        "floor_ms_per_step", "device_ms_per_step", "ratio_to_floor",
+        "covered_share", "min_op_ratio", "uncounted_ms_per_step")}
+    out["c2"]["mean_step_ms"] = tools["profile_step"]["report"]["mean_step_ms"]
+    say(f"C2: floor {roof['floor_ms_per_step']} ms of "
+        f"{roof['device_ms_per_step']} device ms a step, ratio_to_floor "
+        f"{roof['ratio_to_floor']}, covered {roof['covered_share']}, lowest "
+        f"op x{roof['min_op_ratio']} its floor")
+    out["f16"], la = _f16_runs(torch, tmp, levers["plain_profile"])
+    launches.update(la)
+    out["f16"]["parity"] = _f16_parity(torch)
+    out["no_pallas"] = _no_pallas(torch, tmp)
+    launches["no_pallas_run"] = out["no_pallas"]["run_b1_launches"]
+    out["launches_per_run"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    say(f"phase 21 (repairs, float16, leftovers): {out['seconds']:.1f} s; "
+        f"B1 launches {launches}")
+    return out
+
+
 def _face_row(folder, i) -> np.ndarray:
     """Image i of the folder as the host's image routes give it to G: f32
     [-1, 1] at the crop size (the folder's 200 px canvas resized)."""
@@ -3888,6 +4200,7 @@ def main() -> None:
         variants = phase_variants(torch, tmp, folder, path3["bundle_dir"],
                                   levers["plain_profile"])
         tools = phase_tools(torch, tmp)
+        leftovers = phase_leftovers(torch, tmp, levers, variants, tools)
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
         "training": path1["launches_per_run"], "bench_lowch": 0,
@@ -3899,7 +4212,8 @@ def main() -> None:
         "serving": serving["launches_per_run"],
         "levers": levers["launches_per_run"],
         "g_variants": variants["launches_per_run"],
-        "tools": tools["launches_per_run"]}
+        "tools": tools["launches_per_run"],
+        "leftovers": leftovers["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
@@ -3909,7 +4223,7 @@ def main() -> None:
                                "training_cond": 0, "real_images": 0,
                                "label_free": 0, "evaluation": 0,
                                "serving": 0, "levers": 0, "g_variants": 0,
-                               "tools": 0,
+                               "tools": 0, "leftovers": 0,
                                "tail_forms": variants["b2_tail_launches"]}
     b2["launches"] = (path2["launches"] + path1["b2_launches"]
                       + variants["b2_tail_launches"])
@@ -3917,7 +4231,7 @@ def main() -> None:
           and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools}, default=_jsonable)}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools, 'leftovers': leftovers}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)

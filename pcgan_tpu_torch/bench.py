@@ -233,8 +233,8 @@ def measure_e2e(cfg: Config, steps: int, warmup: int = 3,
 def infer_inputs(cfg: Config, device: torch.device, bs: int, seed: int = 0):
     """(x, cond) for G at batch ``bs`` in the compute dtype: seeded normal
     images and one-hot (or, in score mode, uniform [-1, 1]) conditions."""
-    from pcgan_tpu_torch.models.registry import DTYPES
-    dt = DTYPES[cfg.model.dtype]
+    from pcgan_tpu_torch.models.registry import compute_dtype
+    dt = compute_dtype(cfg.model.dtype)
     s = cfg.data.crop_size
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal(

@@ -276,13 +276,17 @@ class UTKFaceDataset:
     def _off_canvas(self, p: str) -> np.ndarray:
         """An image the native decode did not serve (another size, CMYK, a
         PNG or another format): decoded at its own size, then resized
-        bicubic to the canvas."""
+        bicubic to the canvas. A JPEG at ``decode_m < 8`` takes the JAX
+        package's route (``pcgan_tpu/data/utkface.py:123-130``): PIL's
+        ``draft`` to the nearest power-of-two DCT scale at or above the
+        canvas, then the bicubic resize (an approximation of libjpeg's
+        m/8 scale, as there)."""
         if self.decode_m < 8 and sniff(p) == "jpeg":
-            raise NotImplementedError(
-                f"{p}: --host_decode_m {self.decode_m} on a JPEG off the "
-                f"{self.native}px canvas (or CMYK) is not ported to "
-                f"pcgan_tpu_torch (the JAX package's PIL draft route there "
-                f"is approximate); use --host_decode_m 8 or a uniform folder")
+            s = self.out_size
+            with _pil().open(p) as im:
+                im.draft("RGB", (s, s))
+                img = np.asarray(im.convert("RGB"), np.uint8)
+            return pil_resize_np(img, s, "bicubic")
         return pil_resize_np(decode_image(p), self.out_size, "bicubic")
 
     def get_raw(self, i: int):

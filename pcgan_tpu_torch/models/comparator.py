@@ -91,7 +91,10 @@ def comparison_loss(mu_i, log_var_i, mu_j, log_var_j, label,
                     margin: float = 0.5) -> torch.Tensor:
     """Cross-entropy on 3-way labels (0: i older, 1: j older, 2: tie)."""
     logp = pairwise_log_probs(mu_i, log_var_i, mu_j, log_var_j, margin)
-    return -torch.mean(logp.gather(-1, label.long()[:, None]))
+    # the label's column by a mask, not ``gather``: gather's backward adds
+    # by atomics on the card
+    pick = label.long()[:, None] == torch.arange(3, device=logp.device)
+    return -torch.mean(torch.where(pick, logp, 0.0).sum(-1))
 
 
 def comparison_accuracy(mu_i, log_var_i, mu_j, log_var_j, label,

@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pcgan_tpu_torch.ops.pad import pad2d
+
 # --------------------------------------------------------------------------- #
 # init (normal | xavier | kaiming | orthogonal), JAX semantics
 # --------------------------------------------------------------------------- #
@@ -122,7 +124,7 @@ def init_weights(module: nn.Module, init: Callable,
 # convs
 # --------------------------------------------------------------------------- #
 
-_PAD_MODES = {"reflect": "reflect", "replicate": "replicate"}
+_PAD_MODES = ("reflect", "replicate")
 
 
 class _QuantSite(nn.Module):
@@ -259,15 +261,13 @@ class TorchConv(_QuantSite):
             wd = wd[:, :xc]
         if s2d:
             from pcgan_tpu_torch.ops.lowch_conv import s2d_conv_nchw
-            y = s2d_conv_nchw(F.pad(xd, (p, p, p, p), mode="reflect"), wd,
-                              self.s2d_r)
+            y = s2d_conv_nchw(pad2d(xd, p, "reflect"), wd, self.s2d_r)
         elif fused:
             from pcgan_tpu_torch.ops.lowch_conv import reflect_conv_nchw
             y = reflect_conv_nchw(xd, wd, p)
         else:
-            xp = xd
-            if p and self.pad_mode != "zero":
-                xp = F.pad(xd, (p, p, p, p), mode=_PAD_MODES[self.pad_mode])
+            xp = xd if self.pad_mode == "zero" else pad2d(xd, p,
+                                                          self.pad_mode)
             zero_pad = p if self.pad_mode == "zero" else 0
             if quant:
                 y = self._int8_conv(

@@ -5,7 +5,10 @@ initial weights from an explicit ``torch.Generator`` (seeded from
 ``--seed`` when none is given). ``--netG`` is ``resnet_{6,9}blocks``,
 optionally ``@<variant>`` (any variant but ``deconv`` upsamples by a
 resize conv, as in the JAX registry), or ``unet_<size>`` with size a
-power of 2. ``--dtype float16`` raises: it is not ported.
+power of 2. ``--dtype`` sets the modules' dtype (``DTYPES``: bfloat16,
+float32 or float16; params stay f32); ``compute_dtype`` gives the step's
+and the inputs' dtype, which is f32 for any run that is not bf16, as in
+the JAX package (``pcgan_tpu/train.py:265``).
 """
 
 from __future__ import annotations
@@ -24,7 +27,16 @@ from pcgan_tpu_torch.models.discriminator import (MultiScaleDiscriminator,
 from pcgan_tpu_torch.models.generator import ResnetGenerator, UnetGenerator
 from pcgan_tpu_torch.models.layers import NORMS, init_weights, make_initializer
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+
+
+def compute_dtype(name: str) -> torch.dtype:
+    """The step's compute dtype for ``--dtype name``: bf16 for bfloat16,
+    else f32. An f16 run's modules cast per layer (convs in f16, norm
+    moments in f32) while its step, its preprocessed images and its
+    conditions stay f32; there is no loss scaling."""
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 _N_BLOCKS = {"resnet_9blocks": 9, "resnet_6blocks": 6}
 
@@ -34,9 +46,7 @@ def _reject_unported_common(cfg: Config) -> None:
     if m.norm not in NORMS:
         raise NotImplementedError(f"norm [{m.norm}] not implemented")
     if m.dtype not in DTYPES:
-        raise NotImplementedError(
-            f"--dtype {m.dtype} is not ported to pcgan_tpu_torch yet "
-            f"({' | '.join(DTYPES)})")
+        raise ValueError(f"--dtype {m.dtype}: one of {' | '.join(DTYPES)}")
 
 
 def unet_num_downs(name: str) -> int:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from pcgan_tpu_torch.models.registry import compute_dtype
 from pcgan_tpu_torch.ops.cuda_preprocess import preprocess_batch_cuda
 from pcgan_tpu_torch.ops.resize import resize_matrix
 
@@ -76,7 +77,10 @@ def make_preprocess(cfg, train: bool = True):
     center crop and no flip (the reference's test transform). In training,
     crop offsets and flips come from ``generator`` (a CPU torch.Generator).
     On a CUDA tensor the hand-written kernel runs; on a CPU tensor the plain
-    version; any other device raises.
+    version; any other device raises. With ``--no-pallas_pipeline`` the
+    plain version runs on whatever device the batch is on (the JAX
+    package's plain XLA route, ``pcgan_tpu/ops/preprocess.py:169``): the
+    user's choice, never a fallback.
     """
     d = cfg.data
     mode = d.preprocess
@@ -89,16 +93,12 @@ def make_preprocess(cfg, train: bool = True):
     # --host_resize needs nothing here: the loader delivers load_size
     # canvases, and the device resize of a batch already at load_size is
     # the identity
-    if not d.pallas_pipeline:
-        raise NotImplementedError(
-            "--no-pallas_pipeline is not ported to pcgan_tpu_torch: a CUDA "
-            "batch always goes through the preprocessing kernel, a CPU batch "
-            "through the plain version")
-    load =d.load_size if "resize" in mode else None
+    use_kernel = bool(d.pallas_pipeline)
+    load = d.load_size if "resize" in mode else None
     # no 'crop' in the mode -> output the resized size (or, for 'none', the
     # native size: crop=None resolves to the incoming image size below)
     crop = d.crop_size if "crop" in mode else load
-    out_dtype = torch.bfloat16 if cfg.model.dtype == "bfloat16" else torch.float32
+    out_dtype = compute_dtype(cfg.model.dtype)
 
     def fn(generator, raw):
         imgs = raw["image"]
@@ -118,7 +118,7 @@ def make_preprocess(cfg, train: bool = True):
             fl = torch.zeros(b, dtype=torch.bool)
         out = {k: v for k, v in raw.items() if k != "image"}
         if imgs.device.type == "cuda":
-            run = preprocess_batch_cuda
+            run = preprocess_batch_cuda if use_kernel else preprocess_batch
         elif imgs.device.type == "cpu":
             run = preprocess_batch
         else:

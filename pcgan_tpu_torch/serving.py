@@ -41,11 +41,6 @@ PLATFORMS = ("cuda", "cpu")
 _EXAMPLE_BATCH = 2
 
 
-def _dtype(name: str):
-    import torch
-    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
-
-
 def check_platforms(platforms: Sequence[str]) -> list:
     """The export's platforms: a non-empty subset of ``cuda``, ``cpu``."""
     platforms = list(platforms)
@@ -62,12 +57,15 @@ def make_infer_fn(cfg, G):
     """The fixed serving contract around ``G`` as a module: (images f32,
     cond f32) -> f32 fakes, with the compute-dtype casts inside."""
     import torch
+    from pcgan_tpu_torch.models.registry import compute_dtype
 
     class ServeG(torch.nn.Module):
         def __init__(self):
             super().__init__()
             self.G = G
-            self.compute_dtype = _dtype(cfg.model.dtype)
+            # bf16 for a bf16 model, else f32 (an f16 model's layers cast
+            # inside), as pcgan_tpu/serving.py
+            self.compute_dtype = compute_dtype(cfg.model.dtype)
 
         def forward(self, images, cond):
             out = self.G(images.to(self.compute_dtype),
@@ -166,9 +164,10 @@ def export_comparator(cfg, C, out_dir: str,
     ``out_dir/comparator.pt2``: f32 [-1, 1] NHWC images -> (mu, log_var)
     f32, in ``cfg.model.dtype`` inside."""
     import torch
+    from pcgan_tpu_torch.models.registry import compute_dtype
     platforms = check_platforms(platforms)
     _guard_out_dir(out_dir, "comparator")
-    dt = _dtype(cfg.model.dtype)
+    dt = compute_dtype(cfg.model.dtype)
 
     class ServeC(torch.nn.Module):
         def __init__(self):

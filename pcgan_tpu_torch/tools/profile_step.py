@@ -8,10 +8,10 @@ of ``tools/profile_step.py``).
 Runs the bench's headline step (``bench.train_step_fn``: kernel B1 on a
 resident native-size u8 batch, then the fused G/D step) for 5 unprofiled
 steps, then ``--steps`` steps under ``utils.profiling.trace`` (each inside
-a ``train_step`` range, FLOPs recorded), and mines the chrome trace
+a ``train_step`` range, shapes and FLOPs recorded), and mines the chrome trace
 (``mine_trace``): device time by kernel class and by kernel, and a floor
-per step from the FLOPs the profiler counted. Prints the report as JSON
-and writes it to ``--out``.
+per step from each op call's FLOPs and bytes (``utils.profiling.op_cost``).
+Prints the report as JSON and writes it to ``--out``.
 """
 
 from __future__ import annotations
@@ -23,9 +23,12 @@ import json
 import os
 import tempfile
 
+from pcgan_tpu_torch.utils.profiling import COSTS_FILE
+
 # H100 SXM published peaks (dense): bf16 on the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20            # the H100's L2 cache
 STEP_RANGE = "train_step"
 
 # chrome-trace categories of device work: kernels, copies, fills
@@ -63,30 +66,10 @@ def _trace_file(trace_dir: str) -> str:
         return trace_dir
     files = sorted(glob.glob(os.path.join(trace_dir, "**", "*.json"),
                              recursive=True))
-    files = [f for f in files if not f.endswith("op_flops.json")]
+    files = [f for f in files if not f.endswith(COSTS_FILE)]
     if not files:
         raise FileNotFoundError(f"no chrome trace under {trace_dir}")
     return files[-1]
-
-
-def _op_parents(ops):
-    """{id(op event): its enclosing op events, innermost first}, by time
-    containment among the ops of one thread."""
-    by_thread = collections.defaultdict(list)
-    for e in ops:
-        by_thread[(e.get("pid"), e.get("tid"))].append(e)
-    parents = {}
-    for evs in by_thread.values():
-        evs.sort(key=lambda e: (float(e["ts"]), -float(e["dur"])))
-        stack = []
-        for e in evs:
-            start = float(e["ts"])
-            while stack and float(stack[-1]["ts"]) + float(
-                    stack[-1]["dur"]) <= start:
-                stack.pop()
-            parents[id(e)] = list(reversed(stack))
-            stack.append(e)
-    return parents
 
 
 def mine_trace(trace_dir: str, top_k: int = 25,
@@ -98,47 +81,52 @@ def mine_trace(trace_dir: str, top_k: int = 25,
     Device time is the sum of the GPU kernel, memcpy and memset events
     (ranges annotated on the device lanes are left out: they overlap the
     kernels in them). ``steps`` counts the ``train_step`` ranges and
-    ``mean_step_ms`` is the device time a step. The floor of a kernel is
-    its share of the FLOPs that the profiler counted for the innermost
-    enclosing op with a count (``op_flops.json`` beside the trace) over
-    ``peak_flops``, and of a copy its bytes over ``peak_bytes_per_s``; a
-    kernel under no counted op gets no floor, and its time is reported as
-    ``uncounted``. A trace without a device lane (a CPU run) gives 0
-    device us."""
+    ``mean_step_ms`` is their mean wall span; ``device_ms_per_step`` is the
+    device time a step. Each device event is floored with the ATen op call
+    that launched it (its ``External id``): the call's max(FLOPs /
+    ``peak_flops``, bytes / ``peak_bytes_per_s``) from ``op_costs.json``
+    beside the trace, counted once for all the call's kernels. The bytes
+    are those that must cross HBM: an input the size of what the op call
+    just before it on the device wrote, when that fits in the 50 MiB L2,
+    is read from the L2 and left out (``l2_reads_ms_per_step``); a copy or
+    fill under no costed op is floored at its own bytes. Only an event
+    under no ATen op stays without a floor (``uncounted_ms_per_step``).
+    ``ratio_to_floor`` is the total device time over the summed floor, as
+    in the JAX tool; ``ops`` gives every op's device time beside its floor
+    (``min_op_ratio`` the lowest ratio).
+    A trace without a device lane (a CPU run) gives 0 device us."""
     path = _trace_file(trace_dir)
     with open(path) as f:
         trace = json.load(f)
     events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    flops_path = os.path.join(os.path.dirname(path), "op_flops.json")
-    op_flops = {}
-    if os.path.exists(flops_path):
-        with open(flops_path) as f:
-            op_flops = json.load(f)
+    costs_path = os.path.join(os.path.dirname(path), COSTS_FILE)
+    costs = {}
+    if os.path.exists(costs_path):
+        with open(costs_path) as f:
+            costs = json.load(f)
 
     pid_names = {e["pid"]: e["args"].get("name", "") for e in events
                  if e.get("ph") == "M" and e.get("name") == "process_name"}
-    ops = [e for e in events if e.get("ph") == "X" and "dur" in e
-           and e.get("cat") == "cpu_op"]
-    by_ext = {e["args"]["External id"]: e for e in ops
-              if "External id" in e.get("args", {})}
-    parents = _op_parents(ops)
-    steps = sum(1 for e in events if e.get("ph") == "X"
-                and e.get("cat") == "user_annotation"
-                and e.get("name") == STEP_RANGE)
+    spans = [float(e["dur"]) for e in events
+             if e.get("ph") == "X" and "dur" in e
+             and e.get("cat") == "user_annotation"
+             and e.get("name") == STEP_RANGE]
 
     per_kernel = collections.Counter()
     launches = collections.Counter()
     kernel_class = {}
     per_class = collections.Counter()
-    per_op_us = collections.Counter()      # device us under each counted op
-    floors = collections.Counter()         # floor us per counted op / copy
+    per_op_us = collections.Counter()      # device us under each op name
+    floors = collections.Counter()         # floor us per op name / copy
     tracks = set()
     total = counted = 0.0
-    counted_ops = set()
+    calls = set()                          # op calls with a device event
+    device = []
     for e in events:
         kind = DEVICE_CATS.get(e.get("cat"))
         if e.get("ph") != "X" or "dur" not in e or kind is None:
             continue
+        device.append(e)
         dur = float(e["dur"])                                   # us
         name = e.get("name", "?")
         args = e.get("args", {})
@@ -149,46 +137,68 @@ def mine_trace(trace_dir: str, top_k: int = 25,
         kernel_class[name] = cls
         per_class[cls] += dur
         tracks.add(pid_names.get(e.get("pid"), str(e.get("pid"))))
-        if kind != "kernel":
-            by = float(args.get("bytes", 0) or 0)
-            if by:
-                key = f"{kind} ({name})"
-                floors[key] += by / peak_bytes_per_s * 1e6
-                per_op_us[key] += dur
-                counted += dur
-            continue
-        op = by_ext.get(args.get("External id"))
-        chain = [] if op is None else [op] + parents[id(op)]
-        owner = next((o for o in chain if o["name"] in op_flops), None)
-        if owner is not None:
-            per_op_us[owner["name"]] += dur
-            counted_ops.add(owner["name"])
+        ext = str(args.get("External id"))
+        if ext in costs:
+            per_op_us[costs[ext]["op"]] += dur
+            calls.add(ext)
             counted += dur
-    for name in counted_ops:
-        # the profiler's count covers every call of the op in the window
-        floors[name] += op_flops[name] / peak_flops * 1e6
+        elif kind != "kernel" and float(args.get("bytes", 0) or 0):
+            key = f"{kind} ({name})"
+            floors[key] += float(args["bytes"]) / peak_bytes_per_s * 1e6
+            per_op_us[key] += dur
+            counted += dur
+    # the op call that ran just before each call on the device (None after
+    # a kernel of no costed call): a tensor it wrote that fits in the L2 is
+    # still there, so an input of that size is not read from HBM
+    order, prev = {}, None
+    for e in sorted(device, key=lambda e: float(e["ts"])):
+        ext = str(e.get("args", {}).get("External id"))
+        ext = ext if ext in costs else None
+        if ext != prev and ext is not None and ext not in order:
+            order[ext] = prev
+        prev = ext
+    l2_us = 0.0
+    for ext in calls:
+        c = costs[ext]
+        reads = list(c["reads"])
+        before = costs.get(order.get(ext))
+        if before and 0 < before["writes"] <= L2_BYTES \
+                and before["writes"] in reads:
+            reads.remove(before["writes"])
+            l2_us += before["writes"] / peak_bytes_per_s * 1e6
+        floors[c["op"]] += max(c["flops"] / peak_flops,
+                               (sum(reads) + c["writes"]) / peak_bytes_per_s
+                               ) * 1e6
     floor_total = sum(floors.values())
-    n = max(steps, 1)
+    n = max(len(spans), 1)
     pct = (lambda v: round(100 * v / total, 2)) if total else (lambda v: 0.0)
     gaps = collections.Counter({k: per_op_us[k] - floors[k]
                                 for k in per_op_us})
+    ops = [{"op": k, "us": round(v, 1), "floor_us": round(floors[k], 1),
+            "ratio": round(v / floors[k], 3) if floors[k] else None}
+           for k, v in per_op_us.most_common()]
+    ratios = [o["ratio"] for o in ops if o["ratio"] is not None]
     return {
         "trace_file": path,
         "total_device_us": total,
-        "steps": steps,
-        "mean_step_ms": round(total / n / 1e3, 3),
+        "steps": len(spans),
+        "mean_step_ms": round(sum(spans) / n / 1e3, 3),
         "device_tracks": sorted(tracks),
         "roofline": {
             "peak_flops": peak_flops, "peak_bytes_per_s": peak_bytes_per_s,
             "floor_ms_per_step": round(floor_total / n / 1e3, 4),
             "device_ms_per_step": round(total / n / 1e3, 3),
             "counted_ms_per_step": round(counted / n / 1e3, 3),
+            "l2_reads_ms_per_step": round(l2_us / n / 1e3, 4),
             "uncounted_ms_per_step": round((total - counted) / n / 1e3, 3),
-            "ratio_to_floor": (round(counted / floor_total, 3)
+            "covered_share": round(counted / total, 4) if total else None,
+            "ratio_to_floor": (round(total / floor_total, 3)
                                if floor_total else None),
+            "min_op_ratio": min(ratios) if ratios else None,
             "top_gaps_us_per_step": [
                 {"op": k, "us": round(v / n, 1)}
                 for k, v in gaps.most_common(10)],
+            "ops": ops,
         },
         "by_class": {k: {"us": round(v, 1), "pct": pct(v)}
                      for k, v in per_class.most_common()},

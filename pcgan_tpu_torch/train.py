@@ -62,7 +62,7 @@ from pcgan_tpu_torch.models.comparator import (comparison_accuracy,
                                                condition_consistency_loss)
 from pcgan_tpu_torch.models.layers import (frozen_stats, load_stats_state,
                                            stats_state)
-from pcgan_tpu_torch.models.registry import DTYPES
+from pcgan_tpu_torch.models.registry import compute_dtype
 from pcgan_tpu_torch.models.vgg import vgg_perceptual_loss
 from pcgan_tpu_torch.ops.diffaug import Augment, parse_policy
 from pcgan_tpu_torch.ops.gan_loss import (feature_matching_loss, gan_loss,
@@ -387,7 +387,7 @@ class StepParts:
         t = cfg.train
         self.cfg, self.t, self.G, self.D, self.C = cfg, t, G, D, C
         self.nb = cfg.data.n_age_bins
-        self.cd = DTYPES[cfg.model.dtype]
+        self.cd = compute_dtype(cfg.model.dtype)
         self.use_cond_loss = t.lambda_cond > 0.0 and C is not None
         self.score_mode = cfg.model.cond_mode == "score"
         # batch norm: real and fake take two sequential D passes, the
@@ -717,7 +717,7 @@ def make_comparator_step(cfg: Config, C: nn.Module) -> Callable:
     reject_unported_train(cfg)
     margin = cfg.model.tie_margin
     skip_n = cfg.train.skip_nonfinite
-    cd = DTYPES[cfg.model.dtype]
+    cd = compute_dtype(cfg.model.dtype)
     params = list(C.parameters())
 
     def step(state: ComparatorState, batch: Dict) -> Dict[str, torch.Tensor]:

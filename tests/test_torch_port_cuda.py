@@ -384,3 +384,35 @@ def test_cpu_exported_artifact_runs_on_card(cuda_device, tmp_path):
                  torch.from_numpy(c).to(cuda_device).bfloat16())
     np.testing.assert_array_equal(load_exported(str(tmp_path / "int8"))(x, c),
                                   want.float().cpu().numpy())
+
+
+@pytest.mark.parametrize("mode", ["reflect", "replicate"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pad_backward_is_deterministic_on_card(cuda_device, mode, dtype):
+    """The port's reflect/replicate pad (``ops/pad.py``) differentiates
+    without atomics: two backward passes give the same bits, the reflect
+    fold equals the CPU's (the same elementwise adds in the same order; the
+    replicate fold's border sums may reduce in another order), and the pad
+    runs under
+    ``torch.use_deterministic_algorithms(True)``, where ATen's own
+    reflection pad backward raises on the card."""
+    from pcgan_tpu_torch.ops.pad import pad2d
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 34, 34)).astype(
+        np.float32)).to(dtype)
+    g = torch.from_numpy(rng.standard_normal((4, 64, 40, 40)).astype(
+        np.float32)).to(dtype)
+
+    def grad(device):
+        xd = x.to(device).requires_grad_(True)
+        (dx,) = torch.autograd.grad(pad2d(xd, 3, mode), xd, g.to(device))
+        return dx
+    a, b = grad(cuda_device), grad(cuda_device)
+    assert torch.equal(a, b)
+    if mode == "reflect":
+        assert torch.equal(a.cpu(), grad("cpu"))
+    torch.use_deterministic_algorithms(True)
+    try:
+        assert torch.equal(grad(cuda_device), a)
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -132,11 +132,16 @@ def test_define_G_warnings_fire():
                                           "--remat_blocks", "2"]))
 
 
-@pytest.mark.parametrize("flags", [["--dtype", "float16"]])
-def test_unported_flags_raise(flags):
-    cfg = port_parse(SMALL + ["--cond_inject", "bottleneck"] + flags)
-    with pytest.raises(NotImplementedError):
-        port_define_G(cfg)
+@pytest.mark.parametrize("dtype,want", [("float16", torch.float16),
+                                        ("bfloat16", torch.bfloat16),
+                                        ("float32", torch.float32)])
+def test_dtype_flag_sets_the_module_dtype(dtype, want):
+    """--dtype (float16 ported too) sets every layer's compute dtype; the
+    params stay f32."""
+    G = port_define_G(port_parse(SMALL + ["--cond_inject", "bottleneck",
+                                          "--dtype", dtype]))
+    assert G.compute_dtype == G.stem.compute_dtype == want
+    assert all(p.dtype == torch.float32 for p in G.parameters())
 
 
 def test_seeded_init_is_reproducible():

@@ -153,14 +153,43 @@ def test_kernel_wrapper_never_falls_back():
         fn(None, {"image": imgs.to("meta")})
 
 
-def test_no_pallas_pipeline_is_rejected():
-    """--no-pallas_pipeline (the plain version on the accelerator) is not
-    ported: it raises instead of being ignored."""
+class _CudaBatch:
+    """Stands for a u8 batch on the card: make_preprocess reads only its
+    shape and device before handing it on."""
+    shape = (2, 40, 40, 3)
+    device = torch.device("cuda")
+
+
+@pytest.mark.parametrize("flag,want", [("--pallas_pipeline", "kernel"),
+                                       ("--no-pallas_pipeline", "plain")])
+def test_pallas_pipeline_flag_picks_the_route(monkeypatch, flag, want):
+    """--no-pallas_pipeline runs the plain version on the batch's device,
+    as the JAX package runs its plain XLA route; with the flag on a CUDA
+    batch goes to the kernel and never to the plain version. A CPU batch
+    takes the plain version either way, with the same result."""
     from pcgan_tpu_torch.config import parse_config
-    cfg = parse_config(["--no-pallas_pipeline", "--device", "cpu"],
-                       is_train=False)
-    with pytest.raises(NotImplementedError, match="pallas_pipeline"):
-        port_pre.make_preprocess(cfg, train=False)
+    cfg = parse_config(["--load_size", "36", "--crop_size", "32", flag,
+                        "--dtype", "float32",
+                        "--device", "cpu"], is_train=False)
+    took = []
+    monkeypatch.setattr(port_pre, "preprocess_batch_cuda",
+                        lambda *a, **k: took.append("kernel"))
+    plain = port_pre.preprocess_batch
+
+    def spy(imgs, *a, **k):
+        took.append("plain")
+        return plain(imgs, *a, **k) if isinstance(imgs, torch.Tensor) else None
+    monkeypatch.setattr(port_pre, "preprocess_batch", spy)
+    fn = port_pre.make_preprocess(cfg, train=False)
+    fn(None, {"image": _CudaBatch()})
+    assert took == [want]
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 40, 40, 3), dtype=np.uint8))
+    got = fn(None, {"image": imgs})["image"]
+    assert took[1:] == ["plain"]
+    assert torch.equal(got, plain(imgs, torch.full((2,), 2),
+                                  torch.full((2,), 2),
+                                  torch.zeros(2, dtype=torch.bool), 36, 32))
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):

@@ -30,7 +30,9 @@ def test_mine_trace_on_the_fixture():
     rep = profile_step.mine_trace(FIXTURE)
     # two steps of 100 + 20 + 10 + 5 us of kernels, a 30 us copy, a 2 us set
     assert rep["total_device_us"] == 302.0
-    assert rep["steps"] == 2 and rep["mean_step_ms"] == 0.151
+    # mean_step_ms is the train_step ranges' mean wall span (500 us), as the
+    # JAX tool's Steps lane; the device time a step is 151 us
+    assert rep["steps"] == 2 and rep["mean_step_ms"] == 0.5
     assert rep["device_tracks"] == ["GPU 0"]
     assert rep["by_class"] == {
         "tensor-core GEMM/conv": {"us": 200.0, "pct": 66.23},
@@ -46,14 +48,160 @@ def test_mine_trace_on_the_fixture():
                       "pct": 3.31, "launches": 2,
                       "category": "B1 preprocess (hand kernel)"}
     roof = rep["roofline"]
-    # counted: the conv's kernels under aten::conv2d (2 GFLOP) and the
-    # copy's 3.35 MB; the add, B1 and the empty memset have no count
-    assert roof["counted_ms_per_step"] == 0.135
-    assert roof["uncounted_ms_per_step"] == 0.016
-    floor_us = 2e9 / profile_step.PEAK_BF16_FLOPS * 1e6 + 1.0
+    assert roof["device_ms_per_step"] == 0.151
+    # counted: the conv's two kernels under aten::cudnn_convolution, the
+    # add's under aten::add_ (each floored once a call from its shapes),
+    # the copy at its own 3.35 MB; B1 (no op) and the empty memset are not
+    assert roof["counted_ms_per_step"] == 0.145
+    assert roof["uncounted_ms_per_step"] == 0.006
+    assert roof["covered_share"] == round(290 / 302, 4)
+    peak_f, peak_b = profile_step.PEAK_BF16_FLOPS, profile_step.PEAK_BYTES_PER_S
+    # conv: 2*N*K*C*R*S*P*Q FLOPs; x, w and y in bf16
+    conv_flops = 2 * 8 * 64 * 64 * 3 * 3 * 32 * 32
+    conv_bytes = (2 * 8 * 64 * 32 * 32 + 64 * 64 * 9) * 2
+    conv_us = max(conv_flops / peak_f, conv_bytes / peak_b) * 1e6
+    # in-place f32 add of a broadcast (64,) bias: self read and written
+    add_us = (2 * 8 * 64 * 32 * 32 + 64) * 4 / peak_b * 1e6
+    floor_us = 2 * (conv_us + add_us) + 1.0
     assert roof["floor_ms_per_step"] == round(floor_us / 2 / 1e3, 4)
-    assert roof["ratio_to_floor"] == round(270.0 / floor_us, 3)
-    assert roof["top_gaps_us_per_step"][0]["op"] == "aten::conv2d"
+    assert roof["ratio_to_floor"] == round(302.0 / floor_us, 3)
+    ops = {o["op"]: o for o in roof["ops"]}
+    assert ops["aten::cudnn_convolution"]["us"] == 240.0
+    assert ops["aten::cudnn_convolution"]["floor_us"] == round(2 * conv_us, 1)
+    assert roof["min_op_ratio"] == min(o["ratio"] for o in roof["ops"])
+    assert roof["top_gaps_us_per_step"][0]["op"] == "aten::cudnn_convolution"
+
+
+def test_fixture_costs_follow_from_its_shapes():
+    """The committed ``op_costs.json`` is what ``op_costs`` gives the
+    fixture's events (with the profiler's count on aten::conv2d)."""
+    with open(os.path.join(FIXTURE, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    with open(os.path.join(FIXTURE, profiling.COSTS_FILE)) as f:
+        want = json.load(f)
+    flops = 2 * 8 * 64 * 64 * 3 * 3 * 32 * 32
+    assert profiling.op_costs(events, {1: flops, 101: flops}) == want
+
+
+def _args(dims, types, concrete=(), strides=None):
+    return {"Input Dims": dims, "Input type": types,
+            "Concrete Inputs": list(concrete),
+            **({"Input Strides": strides} if strides else {})}
+
+
+F32, BF16 = "float", "c10::BFloat16"
+
+
+@pytest.mark.parametrize("name,args,want", [
+    # out-of-place elementwise: inputs plus the broadcast output
+    ("aten::mul", _args([[4, 8], [8], []], [BF16, F32, ""]),
+     (0, (32 * 2 + 8 * 4) + 32 * 4)),
+    # an expanded (stride 0) input is read once
+    ("aten::add", _args([[4, 8], [4, 8], []], [F32, F32, "Scalar"],
+                        strides=[[8, 1], [0, 1], []]),
+     (0, (32 + 8) * 4 + 32 * 4)),
+    # in place: self read and written; copy_: src read, dst written
+    ("aten::add_", _args([[4, 8], [4, 8], []], [F32, F32, "Scalar"]),
+     (0, 3 * 32 * 4)),
+    ("aten::copy_", _args([[4, 8], [4, 8], []], [BF16, F32, "Scalar"]),
+     (0, 32 * 2 + 32 * 4)),
+    ("aten::fill_", _args([[4, 8], []], [F32, "Scalar"]), (0, 32 * 4)),
+    ("aten::eq", _args([[6], [6]], ["long int", "long int"]),
+     (0, 2 * 6 * 8 + 6)),
+    ("aten::sum", _args([[4, 8], []], [F32, ""]), (0, 32 * 4)),
+    ("aten::cat", _args([[[2, 3], [2, 3]], []], ["TensorList", "Scalar"]),
+     (0, 2 * 12 * 2)),
+    # the fused Adam reads params, grads and both moments, writes three
+    ("aten::_fused_adam_", _args(
+        [[[5]], [[5]], [[5]], [[5]], [], [[]]],
+        ["TensorList"] * 6), (0, (4 * 5 + 1) * 4 + 3 * 5 * 4)),
+    # a gather reads its index, a scatter its index and values
+    ("aten::index_select", _args([[100, 8], [], [3]],
+                                 [F32, "Scalar", "long int"]), (0, 3 * 8)),
+    ("aten::index_put_", _args([[100, 8], [[3]], [3, 8], []],
+                               [F32, "GenericList", F32, "Scalar"]),
+     (0, 2 * 24 * 4)),
+    ("aten::reflection_pad2d", _args([[1, 2, 5, 6], []], [F32, "ScalarList"],
+                                     ["", "[1, 1, 2, 2]"]),
+     (0, (60 + 2 * 9 * 8) * 4)),
+    # matmuls: 2mnk FLOPs unless the profiler counted the call
+    ("aten::addmm", _args([[3], [4, 6], [6, 3], [], []],
+                          [F32, F32, F32, "Scalar", "Scalar"]),
+     (2 * 4 * 3 * 6, (3 + 24 + 18 + 12) * 4)),
+    # a stride-2 conv: 8 -> 4
+    ("aten::cudnn_convolution", _args(
+        [[2, 3, 8, 8], [5, 3, 3, 3], [], [], [], []],
+        [BF16, BF16, "ScalarList", "ScalarList", "ScalarList", "Scalar"],
+        ["", "", "[1, 1]", "[2, 2]", "[1, 1]", "1"]),
+     (2 * 2 * 5 * 16 * 27, (2 * 3 * 64 + 5 * 27 + 2 * 5 * 16) * 2)),
+    # a transposed conv, stride 2 with output padding 1: 5 -> 10
+    ("aten::cudnn_convolution_transpose", _args(
+        [[1, 4, 5, 5], [4, 2, 3, 3], [], [], [], [], []],
+        [F32, F32, "ScalarList", "ScalarList", "ScalarList", "ScalarList",
+         "Scalar"],
+        ["", "", "[1, 1]", "[1, 1]", "[2, 2]", "[1, 1]", "1"]),
+     (2 * 100 * 18, (100 + 72 + 2 * 100) * 4)),
+])
+def test_op_cost_rules(name, args, want):
+    flops, reads, writes = profiling.op_cost(name, args)
+    assert (flops, sum(reads) + writes) == tuple(map(float, want))
+
+
+@pytest.mark.parametrize("mask,grads", [("[True, True, False]", 2),
+                                        ("[False, True, True]", 1)])
+def test_conv_backward_cost(mask, grads):
+    """2*N*K*C*R*S*P*Q FLOPs per gradient it returns: the data gradient
+    reads grad_output and the weight and writes the input's size, the
+    weight gradient reads grad_output and the input."""
+    g, x, w = [2, 5, 4, 4], [2, 3, 8, 8], [5, 3, 3, 3]
+    args = _args([g, x, w, [], [], [], [], [], [], [], []],
+                 [F32] * 3 + ["ScalarList"] * 4 + ["Scalar", "ScalarList",
+                                                   "Scalar", "ScalarList"],
+                 ["", "", "", "[5]", "[2, 2]", "[1, 1]", "[1, 1]", "False",
+                  "[0, 0]", "1", mask])
+    flops, reads, writes = profiling.op_cost("aten::convolution_backward",
+                                             args)
+    assert flops == grads * 2 * 2 * 5 * 3 * 3 * 3 * 4 * 4
+    m = [v == "True" for v in mask[1:-1].split(", ")]
+    assert reads == [160 * 4] + [384 * 4] * m[1] + [135 * 4] * m[0]
+    assert writes == (m[0] * 384 + m[1] * 135 + m[2] * 5) * 4
+
+
+def _l2_trace(tmp_path, size):
+    """Two op calls in a row: a copy writing ``size`` f32 elements, then a
+    tanh reading them, 10 us each, in one train_step range."""
+    dims = [[size], [size], []]
+    ev = [{"ph": "X", "cat": "user_annotation", "name": "train_step",
+           "pid": 1, "tid": 1, "ts": 0, "dur": 100, "args": {}}]
+    for i, (op, args) in enumerate((
+            ("aten::copy_", _args(dims, [F32, BF16, "Scalar"])),
+            ("aten::tanh", _args([[size]], [F32])))):
+        ev.append({"ph": "X", "cat": "cpu_op", "name": op, "pid": 1,
+                   "tid": 1, "ts": 10 * i, "dur": 5,
+                   "args": {"External id": i, **args}})
+        ev.append({"ph": "X", "cat": "kernel", "name": f"k{i}", "pid": 0,
+                   "tid": 7, "ts": 50 + 10 * i, "dur": 10,
+                   "args": {"External id": i}})
+    with open(tmp_path / "trace.json", "w") as f:
+        json.dump({"traceEvents": ev}, f)
+    with open(tmp_path / profiling.COSTS_FILE, "w") as f:
+        json.dump(profiling.op_costs(ev), f)
+    return profile_step.mine_trace(str(tmp_path))
+
+
+@pytest.mark.parametrize("mib,cached", [(24, True), (60, False)])
+def test_an_input_just_written_is_read_from_the_l2(tmp_path, mib, cached):
+    """The tanh's input is what the copy before it wrote: when that fits
+    in the 50 MiB L2 it is not read from HBM again."""
+    size = mib * 2 ** 20 // 4
+    roof = _l2_trace(tmp_path, size)["roofline"]
+    peak_b = profile_step.PEAK_BYTES_PER_S
+    ops = {o["op"]: o for o in roof["ops"]}
+    want_tanh = (1 if cached else 2) * size * 4 / peak_b * 1e6
+    assert ops["aten::tanh"]["floor_us"] == round(want_tanh, 1)
+    assert ops["aten::copy_"]["floor_us"] == round(size * 6 / peak_b * 1e6, 1)
+    assert roof["l2_reads_ms_per_step"] == round(
+        cached * size * 4 / peak_b * 1e3, 4)
 
 
 def test_classes():
@@ -77,10 +225,12 @@ def test_profile_step_on_a_cpu_trace(tmp_path):
                              "--out", str(tmp_path / "rep.json")])
     assert rep["total_device_us"] == 0 and rep["steps"] == 2
     assert rep["by_class"] == {} and rep["top_ops"] == []
-    assert rep["mean_step_ms"] == 0.0
-    with open(tmp_path / "op_flops.json") as f:
-        flops = json.load(f)
-    assert flops.get("aten::conv2d", 0) > 0
+    # the steps' wall spans, which a CPU trace has too
+    assert rep["mean_step_ms"] > 0
+    with open(tmp_path / profiling.COSTS_FILE) as f:
+        costs = json.load(f).values()
+    convs = [c for c in costs if c["op"] == "aten::convolution_backward"]
+    assert convs and all(c["flops"] > 0 and c["bytes"] > 0 for c in convs)
     with open(tmp_path / "rep.json") as f:
         assert json.load(f) == rep
 
@@ -92,8 +242,10 @@ def test_trace_annotate_timed(tmp_path):
     with open(tmp_path / profiling.TRACE_FILE) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert "region" in names
-    with open(tmp_path / profiling.FLOPS_FILE) as f:
-        assert json.load(f)["aten::mm"] == 2 * 4 * 4 * 4
+    with open(tmp_path / profiling.COSTS_FILE) as f:
+        costs = json.load(f).values()
+    assert [(c["flops"], c["bytes"]) for c in costs
+            if c["op"] == "aten::mm"] == [(2 * 4 * 4 * 4, 3 * 16 * 4)]
     out, secs = profiling.timed(lambda a: a * 2)(torch.ones(3))
     assert torch.equal(out, torch.full((3,), 2.0)) and secs >= 0
     # a body that raises writes nothing

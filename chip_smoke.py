@@ -177,7 +177,30 @@ the one named in phase 2):
     device ms, launches and steps/s beside phase 18's bf16 profile), the
     f16 G card vs CPU on the same weights within the CPU test's limits; (d) a ``--no-pallas_pipeline`` run (B1 launched no
     time) and its plain route on a CUDA batch against B1's within B1's
-    gates.
+    gates;
+22. data parallelism across processes (``parallel/``): (a) two ranks
+    spawned on the one card over gloo (CUDA tensors, f32, TF32 off, pool
+    off, target bins pinned; the default GAN at full width, global batch
+    16, B1 center-cropping each rank's rows) take 3 steps from one warm
+    state: every loss within TRAIN_STEP_TOL of one rank's on the whole
+    batch, the parameters within the lockstep's Adam envelope, the ranks
+    bit-identical, B1's launches on each rank, the two ranks' FID within
+    2e-3 of one rank's; their images/s, two ranks time-slicing one card
+    through host-staged gloo, is no data-parallel speed; (b)
+    ``train_utkface_128_dp8.sh``'s flags (batch 256, bf16, phase 10's
+    comparator) over phase 14's faces under four names each (512 images)
+    through ``torchrun --standalone --nproc_per_node 1`` on NCCL (this
+    script re-entered with ``--dp-worker``), profiled, its loss stream
+    bit-identical to the same run without torchrun (cuDNN deterministic
+    for both): steps/s, images/s, device ms and launches a step, the NCCL
+    kernels and their ms, peak memory; (c) ``--device_cache_sharded`` under
+    NCCL: every batch bit-identical to the replicated cache's, the
+    gather's ms; (d) ``evaluate`` under torchrun: its record equal to the
+    plain run's.
+
+``python3 chip_smoke.py --cards N`` on a machine with N cards runs only
+phase 22 (a) with one NCCL rank a card, the collectives' kernels of one
+profiled step, and the sharded cache across the ranks.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -1081,7 +1104,16 @@ def _profile_train(torch, tmp, steps: int = 4, argv=None,
            "preprocess_kernel_ms_per_step": sum(
                r[0] for r in rows if "preprocess_kernel" in r[2]),
            "top_kernels_ms_per_step": [[round(ms, 4), cnt, name[:100]]
-                                       for ms, cnt, name in rows[:20]]}
+                                       for ms, cnt, name in rows[:20]],
+           "nccl_ms_per_step": [[round(ms, 4), cnt, name[:100]]
+                                for ms, cnt, name in rows
+                                if "nccl" in name.lower()],
+           # the host side of the collectives (c10d's "<backend>:<op>"
+           # records): NCCL launches no kernel for an in-place all-reduce
+           # of one rank
+           "collectives_per_step": {
+               e.key: e.count / n for e in prof.key_averages()
+               if e.key.startswith(("nccl:", "gloo:"))}}
     say(f"{what} profile (2 epochs of {steps} steps, "
         f"every step traced, no checkpoint writes): device "
         f"{device_ms:.3f} ms of {window_ms:.3f} ms window per step, busy "
@@ -4143,6 +4175,559 @@ def phase_leftovers(torch, tmp, levers, variants, tools) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 22: data parallelism across processes
+# --------------------------------------------------------------------------- #
+
+DP_B, DP_STEPS = 16, 3           # (a): the two ranks' global batch, steps
+DP_EVAL_N = 64                   # (a): eval rows, 4 global batches
+DP_EVAL_TOL = 2e-3               # FID, two ranks vs one (the CPU tests')
+DP_TIMEOUT = 240                 # s: a spawned cohort or torchrun is killed
+DP8_B, DP8_STEPS = 256, 2        # (b): train_utkface_128_dp8.sh's batch
+DP8_COPIES = 4                   # names a phase-14 file: 512 faces, 2 steps
+DP8_EVAL_N, DP8_EVAL_B = 256, 64  # (d)
+DP8_EXTRA = ()                   # flags a CPU rehearsal appends to (b)
+
+
+def _dp_inputs() -> dict:
+    """Phase 22 (a)'s config and inputs, which its spawned ranks read from
+    a file: the default GAN at full width in f32 parity mode (pool off,
+    target bins pinned by the batches; ``--cond_inject input``, the
+    scripts' default, where the stem's instance norm cancels the
+    condition, so the evaluator's target permutation moves no fake), and
+    seeded u8 global batches: a warm-up step's, DP_STEPS steps' and the
+    eval rows'."""
+    rng = np.random.default_rng(22)
+
+    def batch(targets=True):
+        b = {"image": rng.integers(0, 256, (DP_B, NATIVE, NATIVE, C),
+                                   dtype=np.uint8),
+             "bin": rng.integers(0, NB, DP_B)}
+        if targets:
+            b["target_bin"] = rng.integers(0, NB, DP_B)
+        return b
+    return {"dev": DEV, "argv": [
+        "--netG", NETG, "--ngf", str(NGF), "--netD", "basic", "--ndf",
+        str(NGF), "--norm", "instance", "--crop_size", str(CROP),
+        "--load_size", str(LOAD), "--n_age_bins", str(NB), "--batch_size",
+        str(DP_B), "--dtype", "float32", "--pool_size", "0", "--gan_mode",
+        "lsgan", "--lambda_L1", "100", "--lr_policy", "constant",
+        "--cond_inject", "input"],
+        "batches": [batch() for _ in range(1 + DP_STEPS)],
+        "evals": [batch(False) for _ in range(DP_EVAL_N // DP_B)]}
+
+
+def _dp_steps(torch, mesh, inputs, work):
+    """The steps of ``inputs`` with the data-parallel step (B1
+    center-crops each rank's rows: no draw, so one rank and two see the
+    same images), each from the one-rank reference's state before it
+    (``{work}/s{i}.pt``, as the CPU locksteps start each step from JAX's
+    state), then the evaluator over the eval rows with the warm state's G
+    (``s0.pt``). ``mesh`` None is the
+    reference on the whole batch: it starts from ``s0.pt`` (the warm
+    state), goes on from its own states and writes them."""
+    import warnings as _w
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.eval_lib import make_fid_evaluator
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_train_step, shard_train_state)
+    from pcgan_tpu_torch.train import create_train_state
+    from pcgan_tpu_torch.utils.checkpoint import load_state, save_state
+    cfg = parse_config(inputs["argv"], is_train=True)
+    batches, evals = inputs["batches"], inputs["evals"]
+    dev = torch.device(inputs["dev"]) if mesh is None else mesh.device
+    with _w.catch_warnings():
+        _w.simplefilter("ignore", RuntimeWarning)   # input injection
+        G, D = define_G(cfg).to(dev), define_D(cfg).to(dev)
+    state = shard_train_state(create_train_state(
+        cfg, G, D, torch.Generator().manual_seed(0)), mesh)
+    step = make_parallel_train_step(cfg, G, D, mesh=mesh,
+                                    train_preprocess=False)
+
+    def rows(b):
+        b = b if mesh is None else mesh.local_rows(b)
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    cp.launches = 0
+    losses, secs, params = [], [], []
+    for i, b in enumerate(batches[1:]):
+        if mesh is None and i:
+            save_state(state, os.path.dirname(work), os.path.basename(work),
+                       f"s{i}")
+        elif mesh is not None or not i:
+            load_state(state, torch.load(os.path.join(work, f"s{i}.pt"),
+                                         weights_only=True))
+        raw = rows(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, raw)
+        losses.append({k: float(v) for k, v in m.items()})   # syncs
+        secs.append(time.perf_counter() - t0)
+        params.append({f"{n}.{k}": v.detach().cpu().clone() for n, net in
+                       (("G", G), ("D", D))
+                       for k, v in net.named_parameters()})
+    train_b1 = cp.launches
+    out = {"losses": losses, "step_s": secs, "params": params}
+    if mesh is not None and inputs.get("profile"):
+        out["collective_kernels"] = _dp_profiled_step(torch, step, state,
+                                                      rows(batches[-1]))
+    # the evaluator scores the warm state's G, the same bits on every
+    # rank and in the reference: the FIDs then differ by the evaluator's
+    # reduction alone, not by the steps' sign flips
+    load_state(state, torch.load(os.path.join(work, "s0.pt"),
+                                 weights_only=True))
+    cp.launches = 0
+    out["eval"] = make_fid_evaluator(cfg, None, dev, mesh)(
+        G, iter([rows(e) for e in evals]),
+        max_images=sum(len(e["bin"]) for e in evals), seed=0)
+    out["b1"] = {"train": train_b1, "eval": cp.launches}
+    if mesh is not None and inputs.get("cache_argv"):
+        out["cache"] = _dp_cache_ranks(torch, mesh, inputs["cache_argv"])
+    return out
+
+
+def _dp_profiled_step(torch, step, state, raw) -> list:
+    """One more step under torch.profiler: (device ms, launches, name) of
+    each collective kernel in it."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        float(step(state, raw)["loss_G"])
+    return [[round(ms, 4), cnt, name[:100]]
+            for ms, cnt, name in _device_rows(torch, prof, 1)
+            if "nccl" in name.lower()]
+
+
+def _dp_cache_ranks(torch, mesh, argv) -> dict:
+    """The sharded cache over ``mesh``: this rank's rows of every batch of
+    an epoch and of the eval pass equal to its rows of the replicated
+    cache's batch; the two gathers' ms."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.data.device_cache import DeviceCacheLoader
+    from pcgan_tpu_torch.data.loader import create_dataset
+    cfg = parse_config(argv, is_train=True)
+    ds = create_dataset(cfg, train=True)
+    shard = DeviceCacheLoader(cfg, ds, mesh.device, seed=cfg.train.seed,
+                              mesh=mesh, sharded=True)
+    whole = DeviceCacheLoader(cfg, ds, mesh.device, seed=cfg.train.seed)
+    n = 0
+    for a, b in zip([*shard, *shard.eval_iter()],
+                    [*whole, *whole.eval_iter()]):
+        b = mesh.local_rows(b)
+        check(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b),
+              f"sharded cache, rank {mesh.rank}: a batch differs from its "
+              f"rows of the replicated cache's")
+        n += 1
+    idx = np.arange(cfg.data.batch_size)
+    return {"batches_identical": n, "n_loc": shard.n_loc,
+            "gather_ms_sharded": cuda_ms(torch, lambda: shard._gather(idx),
+                                         iters=20, warmup=3),
+            "gather_ms_replicated": cuda_ms(
+                torch, lambda: whole._gather(idx), iters=20, warmup=3)}
+
+
+def _dp_rank(rank, port, work):
+    """A spawned rank of phase 22 (a) (gloo over CUDA tensors, every rank
+    on cuda:0), or of ``--cards N`` (NCCL, rank r on cuda:r)."""
+    sys.path.insert(0, HERE)
+    import torch
+    from pcgan_tpu_torch.parallel.mesh import init_distributed
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    mesh = init_distributed(inputs["dev"], backend=inputs["backend"],
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=inputs["world"],
+                            local_rank=0 if inputs["shared"] else rank)
+    try:
+        torch.save(_dp_steps(torch, mesh, inputs, work),
+                   os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        mesh.close()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_ranks(torch, tmp, world=2, backend="gloo", shared=True,
+              cache_argv=None) -> dict:
+    """(a) ``world`` ranks spawned over ``backend`` (``shared``: all on the
+    one card) against one rank, each step from the one rank's state before
+    it: the loss of every step within TRAIN_STEP_TOL abs + rel, the
+    parameters after it within the lockstep's one-step Adam envelope, the
+    ranks alike bit for bit, the FID within DP_EVAL_TOL. On cards of their
+    own (``not shared``) the ranks also profile one more step for the
+    collectives' kernels and, with ``cache_argv``, check the sharded cache
+    across them."""
+    import torch.multiprocessing as mp
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_train_step)
+    from pcgan_tpu_torch.train import create_train_state
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    from pcgan_tpu_torch.config import parse_config
+    name = f"dp_{world}_{backend}"
+    work = os.path.join(tmp, name)
+    os.makedirs(work)
+    inputs = {**_dp_inputs(), "world": world, "backend": backend,
+              "shared": shared, "profile": not shared,
+              "cache_argv": cache_argv}
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    cfg = parse_config(inputs["argv"], is_train=True)
+    batches = inputs["batches"]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        G = define_G(cfg, torch.Generator().manual_seed(1)).to(DEV)
+        D = define_D(cfg, torch.Generator().manual_seed(2)).to(DEV)
+    state = create_train_state(cfg, G, D, torch.Generator().manual_seed(0))
+    # one warm-up step, so Adam's moments scale every compared update
+    make_parallel_train_step(cfg, G, D, train_preprocess=False)(
+        state, {k: torch.from_numpy(v).to(DEV) for k, v in
+                batches[0].items()})
+    ckpt.save_state(state, tmp, name, "s0")
+    del state, G, D
+    one = _dp_steps(torch, None, inputs, work)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_dp_rank, args=(_free_port(), work),
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=2):
+            check(time.perf_counter() - t0 < DP_TIMEOUT,
+                  f"{world} ranks: not done in {DP_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in range(world)]
+    two = ranks[0]
+    check(all(r["losses"] == two["losses"]
+              and all(torch.equal(v, r["params"][i][k])
+                      for i, ps in enumerate(two["params"])
+                      for k, v in ps.items()) for r in ranks[1:]),
+          f"{world} ranks: the ranks' losses or parameters differ")
+    gap = 0.0
+    for i, (a, b) in enumerate(zip(two["losses"], one["losses"])):
+        check(set(a) == set(b), f"{world} ranks: step {i} metric keys "
+              f"differ")
+        for k in b:
+            d = abs(a[k] - b[k])
+            gap = max(gap, d / (1.0 + abs(b[k])))
+            check(d <= TRAIN_STEP_TOL + TRAIN_STEP_TOL * abs(b[k]),
+                  f"{world} ranks: step {i} {k} {a[k]} vs one rank {b[k]}")
+    worst = {"median": 0.0, "max": 0.0, "share": 0.0}
+    for i, (ps, ref) in enumerate(zip(two["params"], one["params"])):
+        for k, v in ref.items():
+            diff = (ps[k] - v).abs().numpy()
+            if k == "G.stem.weight":
+                # the stem's condition channels: instance norm cancels
+                # them, so their gradient is zero and a step moves them by
+                # +-lr on the sign of f32 noise; only the sign-flip bound
+                # applies
+                check(diff[:, C:].max() <= 2.1 * LR,
+                      f"{world} ranks: step {i}: the stem's condition "
+                      f"channels moved by {diff[:, C:].max()}")
+                diff = diff[:, :C]
+            med, mx = float(np.median(diff)), float(diff.max())
+            share = float((diff > 0.25 * LR).mean())
+            worst = {"median": max(worst["median"], med),
+                     "max": max(worst["max"], mx),
+                     "share": max(worst["share"], share)}
+            check(med < 2e-6 and mx <= 2.1 * LR and share < 2e-3,
+                  f"{world} ranks: step {i}: {k} off one rank's by median "
+                  f"{med}, max {mx}, share {share}")
+    fid1, fid2 = one["eval"]["fid"], two["eval"]["fid"]
+    check(two["eval"]["fid_images"] == one["eval"]["fid_images"] == DP_EVAL_N
+          and abs(fid2 - fid1) <= DP_EVAL_TOL * max(1.0, abs(fid1)),
+          f"{world}-rank eval: fid {fid2} vs one rank's {fid1}")
+    b1 = {f"rank{r}": x["b1"] for r, x in enumerate(ranks)}
+    check(all(v == {"train": DP_STEPS, "eval": DP_EVAL_N // DP_B}
+              for v in b1.values()),
+          f"{world} ranks: B1 launches {b1}")
+    rate = DP_B / float(np.mean(two["step_s"][1:]))
+    out = {"world": world, "backend": backend, "shared_card": shared,
+           "loss_max_rel_gap": gap, "param_diff": worst,
+           "eval": {"fid_ranks": fid2, "fid_one_rank": fid1},
+           "b1_launches": b1, "one_rank_b1": one["b1"],
+           "images_per_s_ranks": rate,
+           "images_per_s_one_rank": DP_B / float(np.mean(
+               one["step_s"][1:])), "spawn_wall_s": wall}
+    how = ("time-slicing one card through host-staged gloo, not a "
+           "data-parallel speed" if shared else f"one card each, {backend}")
+    say(f"(a) {world} {backend} ranks ({how}; f32, full width, global batch "
+        f"{DP_B}): losses within {gap:.3g} (rel) of one rank's over "
+        f"{DP_STEPS} steps, parameters median/max/share "
+        f"{worst['median']:.3g}/{worst['max']:.3g}/{worst['share']:.3g}, "
+        f"ranks bit-identical; FID {fid2:.6g} vs {fid1:.6g}; B1 {b1}; "
+        f"{rate:.1f} images/s, one rank {out['images_per_s_one_rank']:.1f}")
+    if not shared:
+        out["collective_kernels"] = [r["collective_kernels"] for r in ranks]
+        say(f"  collectives of one profiled step, rank 0: "
+            f"{out['collective_kernels'][0]}")
+    if cache_argv:
+        out["cache"] = [r["cache"] for r in ranks]
+        check(all(c["batches_identical"] > 0 for c in out["cache"]),
+              f"sharded cache across ranks: {out['cache']}")
+        say(f"  sharded cache across {world} ranks: every rank's rows of "
+            f"{out['cache'][0]['batches_identical']} batches bit-identical "
+            f"to the replicated cache's; gather ms a rank (sharded, "
+            f"replicated) {[(round(c['gather_ms_sharded'], 4), round(c['gather_ms_replicated'], 4)) for c in out['cache']]}")
+    return out
+
+
+def _dp_folder(tmp, folder):
+    """Phase 14's faces under DP8_COPIES names each (another stamp digit):
+    512 images, two batches of train_utkface_128_dp8.sh's 256."""
+    out = os.path.join(tmp, "faces_dp8")
+    os.makedirs(out)
+    for name in sorted(os.listdir(folder)):
+        stem, ext = os.path.splitext(name)
+        for k in range(DP8_COPIES):
+            with open(os.path.join(folder, name), "rb") as f, open(
+                    os.path.join(out, f"{stem}{k}{ext}"), "wb") as g:
+                g.write(f.read())
+    return out
+
+
+def _dp8_argv(tmp, folder, bundle_dir, name):
+    """train_utkface_128_dp8.sh's flags: only --dataroot, the epochs and
+    the cadences differ; bf16 as phase 8."""
+    return ["--dataroot", folder, "--name", name, "--model", "pcgan",
+            "--dataset_mode", "aging", "--netG", NETG, "--netD", "basic",
+            "--norm", "instance", "--load_size", str(LOAD), "--crop_size",
+            str(CROP), "--batch_size", str(DP8_B), "--n_age_bins", str(NB),
+            "--gan_mode", "lsgan", "--lambda_L1", "100", "--lambda_cond",
+            "10", "--comparator_path", bundle_dir, "--niter", "2",
+            "--niter_decay", "0", "--lr", "0.0002", "--beta1", "0.5",
+            "--pool_size", "64", "--print_freq", "1", "--save_epoch_freq",
+            "0", "--num_threads", "16", "--mesh_shape", "-1", "--dtype",
+            "bfloat16", "--checkpoints_dir", os.path.join(tmp, "dp8"),
+            *DP8_EXTRA]
+
+
+def _dp8_eval_argv(tmp, folder, results):
+    """evaluate over the 512 faces from phase 14's checkpoint."""
+    return ["--name", "real_utk128", "--checkpoints_dir",
+            os.path.join(tmp, "real"), "--dataroot", folder,
+            "--dataset_mode", "aging", "--num_test", str(DP8_EVAL_N),
+            "--batch_size", str(DP8_EVAL_B), "--mesh_shape", "-1",
+            "--results_dir", os.path.join(tmp, results), *DP8_EXTRA]
+
+
+def _dp_cache_check(torch, mesh, argv) -> dict:
+    """(c) the sharded cache over ``mesh`` (one NCCL rank): every batch of
+    an epoch and of the eval pass equal to the replicated cache's bit for
+    bit; the gather's ms beside the replicated one's."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.data.device_cache import DeviceCacheLoader
+    from pcgan_tpu_torch.data.loader import create_dataset
+    cfg = parse_config(argv, is_train=True)
+    ds = create_dataset(cfg, train=True)
+    shard = DeviceCacheLoader(cfg, ds, mesh.device, seed=cfg.train.seed,
+                              mesh=mesh, sharded=True)
+    whole = DeviceCacheLoader(cfg, ds, mesh.device, seed=cfg.train.seed)
+    n = 0
+    for a, b in zip([*shard, *shard.eval_iter()],
+                    [*whole, *whole.eval_iter()]):
+        check(set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b),
+              "sharded cache: a batch differs from the replicated cache's")
+        n += 1
+    check(n == 2 * len(whole) > 0, f"sharded cache: {n} batches compared")
+    idx = np.arange(cfg.data.batch_size)
+    return {"batches_identical": n,
+            "gather_ms_sharded": cuda_ms(torch, lambda: shard._gather(idx),
+                                         iters=20, warmup=3),
+            "gather_ms_replicated": cuda_ms(
+                torch, lambda: whole._gather(idx), iters=20, warmup=3)}
+
+
+def _dp_worker(spec_path: str) -> None:
+    """``chip_smoke.py --dp-worker <spec>`` under ``torchrun
+    --nproc_per_node 1``: (b) the dp8 run on NCCL, profiled, (c) the
+    sharded cache, (d) evaluate's CLI; writes the results to the spec's
+    ``out``."""
+    sys.path.insert(0, HERE)
+    import torch
+    import torch.distributed as dist
+    from pcgan_tpu_torch.parallel.mesh import init_distributed
+    with open(spec_path) as f:
+        spec = json.load(f)
+    mesh = init_distributed(spec["dev"])   # torchrun's rank: NCCL on cuda
+    want = "nccl" if spec["dev"] == "cuda" else "gloo"
+    check(mesh.group is not None and mesh.world == 1
+          and dist.get_backend(mesh.group) == want,
+          f"torchrun worker: world {mesh.world}, group {mesh.group}")
+    torch.backends.cudnn.deterministic = True   # as the plain runs
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        out = {"backend": dist.get_backend(mesh.group),
+               "profile": _profile_train(torch, spec["tmp"], spec["steps"],
+                                         spec["train_argv"],
+                                         "(b) dp8 under torchrun (NCCL)"),
+               "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+        out["cache"] = _dp_cache_check(torch, mesh, spec["train_argv"])
+        out["eval"], out["eval_b1"], _ = _eval_cli(torch, spec["eval_argv"])
+    finally:
+        mesh.close()
+    with open(spec["out"], "w") as f:
+        json.dump(out, f, default=_jsonable)
+
+
+def _torchrun_worker(spec_path: str):
+    """(exit code, output) of ``torchrun --standalone --nproc_per_node 1
+    chip_smoke.py --dp-worker <spec>``; past DP_TIMEOUT the launcher and its
+    rank are killed together."""
+    import signal
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    p = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", os.path.join(HERE, "chip_smoke.py"),
+         "--dp-worker", spec_path], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log = p.communicate(timeout=DP_TIMEOUT)[0]
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    return p.returncode, log
+
+
+def _dp_metrics(tmp, name):
+    with open(os.path.join(tmp, "dp8", name, "metrics.jsonl")) as f:
+        return [{k: v for k, v in json.loads(line).items()
+                 if k.startswith("loss")} for line in f]
+
+
+def phase_data_parallel(torch, tmp, folder, bundle_dir) -> dict:
+    """Phase 22: (a) two gloo ranks on the one card against one rank; (b)
+    train_utkface_128_dp8.sh's flags under ``torchrun --standalone
+    --nproc_per_node 1`` (NCCL), its loss stream bit-identical to the same
+    run without torchrun, both profiled; (c) the sharded cache under NCCL
+    against the replicated one; (d) evaluate's CLI under torchrun against
+    the plain run."""
+    t_phase = time.perf_counter()
+    out = {"two_ranks": _dp_ranks(torch, tmp)}
+    faces = _dp_folder(tmp, folder)
+    torch.cuda.empty_cache()
+    spec = {"tmp": tmp, "dev": DEV, "steps": DP8_STEPS,
+            "out": os.path.join(tmp, "dp_worker.json"),
+            "train_argv": _dp8_argv(tmp, faces, bundle_dir, "dp8_torchrun"),
+            "eval_argv": _dp8_eval_argv(tmp, faces, "dp_eval_torchrun")}
+    spec_path = os.path.join(tmp, "dp_worker_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    rc, log = _torchrun_worker(spec_path)
+    torchrun_s = time.perf_counter() - t0
+    for line in log.splitlines():
+        if line.startswith("[chip_smoke]"):
+            say(f"  torchrun| {line[len('[chip_smoke] '):]}")
+    check(rc == 0, f"torchrun worker exited {rc}:\n{log[-4000:]}")
+    with open(spec["out"]) as f:
+        worker = json.load(f)
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = _profile_train(torch, tmp, DP8_STEPS,
+                               _dp8_argv(tmp, faces, bundle_dir, "dp8_plain"),
+                               "(b) dp8 without torchrun")
+        rec, eval_b1, _ = _eval_cli(torch,
+                                    _dp8_eval_argv(tmp, faces, "dp_eval"))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, b = _dp_metrics(tmp, "dp8_torchrun"), _dp_metrics(tmp, "dp8_plain")
+    check(len(a) == 2 * DP8_STEPS and a == b,
+          f"(b) the torchrun loss stream differs from the plain run's: "
+          f"{a} vs {b}")
+    check(worker["eval"] == rec,
+          f"(d) evaluate under torchrun {worker['eval']} vs plain {rec}")
+    want = "nccl:" if DEV == "cuda" else "gloo:"
+    check(any(k.startswith(want)
+              for k in worker["profile"]["collectives_per_step"]),
+          f"(b) no {want[:-1]} collective in the torchrun run's trace")
+    prof = worker["profile"]
+    steps_per_s = 1e3 / prof["window_ms_per_step"]
+    out["dp8"] = {
+        "loss_stream_identical": True, "steps": len(a),
+        "torchrun": prof, "plain": plain,
+        "steps_per_s_profiled": steps_per_s,
+        "images_per_s_profiled": DP8_B * steps_per_s,
+        "device_ms_per_step": prof["device_ms_per_step"],
+        "device_ms_per_step_plain": plain["device_ms_per_step"],
+        "launches_per_step": prof["device_launches_per_step"],
+        "nccl_ms_per_step": prof["nccl_ms_per_step"],
+        "collectives_per_step": prof["collectives_per_step"],
+        "peak_gb": worker["peak_gb"], "torchrun_call_s": torchrun_s}
+    out["cache"] = worker["cache"]
+    out["eval"] = {"identical": True, "record": rec,
+                   "b1_torchrun": worker["eval_b1"], "b1_plain": eval_b1}
+    nccl = sum(r[0] for r in prof["nccl_ms_per_step"])
+    say(f"(b) train_utkface_128_dp8.sh's flags (batch {DP8_B}, bf16) under "
+        f"torchrun on NCCL, world 1: loss stream bit-identical to the plain "
+        f"run over {len(a)} steps; {steps_per_s:.3f} steps/s = "
+        f"{DP8_B * steps_per_s:.1f} images/s under the profiler; device "
+        f"{prof['device_ms_per_step']:.3f} ms a step (plain "
+        f"{plain['device_ms_per_step']:.3f}), "
+        f"{prof['device_launches_per_step']:.1f} launches a step (plain "
+        f"{plain['device_launches_per_step']:.1f}); collectives a step "
+        f"{prof['collectives_per_step']}, NCCL kernels {nccl:.4f} ms a step "
+        f"in {prof['nccl_ms_per_step']}; peak {worker['peak_gb']:.2f} GiB")
+    say(f"(c) sharded cache under NCCL: {worker['cache']['batches_identical']}"
+        f" batches bit-identical to the replicated cache's; gather "
+        f"{worker['cache']['gather_ms_sharded']:.4f} ms against "
+        f"{worker['cache']['gather_ms_replicated']:.4f} ms replicated")
+    say(f"(d) evaluate under torchrun equals the plain run: fid "
+        f"{rec['fid']:.6g} over {rec['fid_images']} images")
+    out["launches_per_run"] = {
+        "two_ranks": sum(sum(v.values()) for v in
+                         out["two_ranks"]["b1_launches"].values()),
+        "one_rank": sum(out["two_ranks"]["one_rank_b1"].values()),
+        "dp8_torchrun": prof["launches"], "dp8_plain": plain["launches"],
+        "eval_torchrun": worker["eval_b1"], "eval_plain": eval_b1}
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"phase 22: {out['phase_s']:.1f} s")
+    return out
+
+
+DP_CARDS_CACHE = ["--dataset_mode", "synthetic", "--max_dataset_size",
+                  "1000", "--batch_size", "256", "--crop_size", "128",
+                  "--load_size", "143"]   # --cards: the sharded cache's rows
+
+
+def main_cards(n: int) -> None:
+    """``chip_smoke.py --cards N``, on a machine with N cards: phase 22 (a)
+    with one NCCL rank a card (rank r on cuda:r) against one rank, the
+    collectives' kernels of one profiled step on each rank, and the
+    sharded cache across the ranks (every rank's rows against the
+    replicated cache's). Prints the card line, then a JSON summary."""
+    if not os.path.isdir(os.path.join(HERE, "pcgan_tpu_torch")):
+        fail("run chip_smoke.py from a checkout of the repository "
+             "(pcgan_tpu_torch/ is missing)")
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        fail(f"--cards {n}: needs {n} CUDA cards")
+    sys.path.insert(0, HERE)
+    from pcgan_tpu_torch.device import resolve_device
+    resolve_device("cuda")
+    t0 = time.perf_counter()
+    card = phase_device(torch)
+    phase_build()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = _dp_ranks(torch, tmp, n, "nccl", shared=False,
+                        cache_argv=DP_CARDS_CACHE)
+    say(f"total {time.perf_counter() - t0:.1f} s")
+    print(card, flush=True)
+    print(json.dumps({"cards": n, "data_parallel": out}, default=_jsonable),
+          flush=True)
+
+
 def _face_row(folder, i) -> np.ndarray:
     """Image i of the folder as the host's image routes give it to G: f32
     [-1, 1] at the crop size (the folder's 200 px canvas resized)."""
@@ -4201,6 +4786,7 @@ def main() -> None:
                                   levers["plain_profile"])
         tools = phase_tools(torch, tmp)
         leftovers = phase_leftovers(torch, tmp, levers, variants, tools)
+        dp = phase_data_parallel(torch, tmp, folder, path3["bundle_dir"])
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
         "training": path1["launches_per_run"], "bench_lowch": 0,
@@ -4213,7 +4799,8 @@ def main() -> None:
         "levers": levers["launches_per_run"],
         "g_variants": variants["launches_per_run"],
         "tools": tools["launches_per_run"],
-        "leftovers": leftovers["launches_per_run"]}
+        "leftovers": leftovers["launches_per_run"],
+        "data_parallel": dp["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
@@ -4224,6 +4811,7 @@ def main() -> None:
                                "label_free": 0, "evaluation": 0,
                                "serving": 0, "levers": 0, "g_variants": 0,
                                "tools": 0, "leftovers": 0,
+                               "data_parallel": 0,
                                "tail_forms": variants["b2_tail_launches"]}
     b2["launches"] = (path2["launches"] + path1["b2_launches"]
                       + variants["b2_tail_launches"])
@@ -4231,7 +4819,7 @@ def main() -> None:
           and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools, 'leftovers': leftovers}, default=_jsonable)}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools, 'leftovers': leftovers, 'data_parallel': dp}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)
@@ -4241,4 +4829,9 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-worker"]:
+        _dp_worker(sys.argv[2])         # phase 22's rank under torchrun
+    elif sys.argv[1:2] == ["--cards"]:
+        main_cards(int(sys.argv[2]))    # phase 22 (a) over N cards
+    else:
+        main()

@@ -34,14 +34,18 @@ from pcgan_tpu_torch.utils import image_pool
 
 
 def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
-                          C: Optional[nn.Module] = None) -> Callable:
+                          C: Optional[nn.Module] = None, group=None
+                          ) -> Callable:
     """Drop-in for ``train.make_train_step`` when ``--grad_accum`` > 1
-    (same state, same batch, same metrics)."""
+    (same state, same batch, same metrics). ``group`` averages over the
+    data axis where the JAX step calls ``pmean``: the accumulated D and G
+    gradients, the microbatch-mean r_t, the metrics and the norm state
+    (``pcgan_tpu/accum.py:276, 284-285, 373, 411, 424-426``)."""
     accum = int(cfg.train.grad_accum)
     if accum < 2:
         raise ValueError("make_accum_train_step needs grad_accum >= 2; use "
                          "train.make_train_step otherwise")
-    parts = StepParts(cfg, G, D, C)
+    parts = StepParts(cfg, G, D, C, group)
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         big = batch["image"].shape[0]
@@ -80,11 +84,13 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
                 torch._foreach_add_(d_sum, grads)
             sums += torch.stack([v.detach().float() for v in losses])
         d_grads = torch._foreach_div(d_sum, float(accum))
-        parts.update(state, "D", d_grads)
         d_mean = sums / accum
+        # the microbatch-mean r_t (d_mean[4]) rides in D's collective
+        *d_grads, rt = parts.mean([*d_grads, d_mean[4]])
+        parts.update(state, "D", d_grads)
         if parts.use_ada:
             # the microbatch-mean r_t is the full batch's
-            parts.ada_update(state, d_mean[4], big)
+            parts.ada_update(state, rt, big * parts.world)
 
         # ---- phase B: G gradients against the updated D --------------------
         g_new, d_new = stats_state(G), stats_state(D)
@@ -108,16 +114,17 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
             gsums += torch.stack([v.detach().float() for v in losses])
         load_stats_state(G, g_new)
         load_stats_state(D, d_new)
-        g_grads = torch._foreach_div(g_sum, float(accum))
+        g_grads = parts.mean(list(torch._foreach_div(g_sum, float(accum))))
         parts.update(state, "G", g_grads)
         if state.ema is not None:
             parts.ema_update(state)
         state.step += 1
+        parts.sync_stats()
         g_mean = gsums / accum
         names_g = ("loss_G", "loss_G_GAN", "loss_G_L1", "loss_G_cond",
                    "loss_G_feat", "loss_G_vgg")
         names_d = ("loss_D", "loss_D_real", "loss_D_fake", "loss_D_r1")
         losses = {**dict(zip(names_g, g_mean)), **dict(zip(names_d, d_mean))}
-        return parts.metrics(state, losses, g_grads, d_grads, d_mean[4])
+        return parts.metrics(state, losses, g_grads, d_grads, rt)
 
     return train_step

@@ -25,6 +25,13 @@ Prints ONE JSON line under the JAX bench's metric names:
   ``torch.profiler`` trace (``tools/profile_step.py mine_trace``; null
   where the trace has no device lane).
 
+Under ``torchrun --nproc_per_node N`` the headline and ``--e2e`` split
+the global batch over the ranks (``parallel/train_parallel.py``; the e2e
+loader shards every epoch, ``--device_cache_sharded`` splits the cache's
+rows), ``train_imgs_per_sec_per_chip_*`` divides the global rate by N, as
+the root ``bench.py`` divides by its mesh's chips, and rank 0 prints the
+line.
+
 Every line names the device it ran on. ``vs_baseline`` divides by
 ``benchmarks/baseline_torch.json``'s rate only when that file's ``device``
 is the kind of device this run used, else it is null. The device is
@@ -91,36 +98,43 @@ def device_name(device: torch.device) -> str:
             else "cpu")
 
 
-def train_step_fn(cfg: Config, device: torch.device):
+def train_step_fn(cfg: Config, device: torch.device, mesh=None):
     """(state, run): the seeded G, D and train state on ``device`` and
     ``run(raw) -> metrics``, one B1 preprocessing of ``raw`` ({'image':
-    (B, N, N, 3) u8, 'bin': (B,)} on the device) and one fused step."""
+    (b, N, N, 3) u8, 'bin': (b,)} on the device) and one fused step,
+    data-parallel over ``mesh`` (``raw`` is then the rank's rows)."""
     from pcgan_tpu_torch.models import define_D, define_G
-    from pcgan_tpu_torch.ops.preprocess import make_preprocess
-    from pcgan_tpu_torch.train import create_train_state, make_train_step
+    from pcgan_tpu_torch.parallel.mesh import rank_seed
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_train_step, pool_for_mesh, shard_train_state)
+    from pcgan_tpu_torch.train import create_train_state
+    cfg = pool_for_mesh(cfg, mesh)
     G = define_G(cfg, torch.Generator().manual_seed(0)).to(device)
     D = define_D(cfg, torch.Generator().manual_seed(1)).to(device)
-    state = create_train_state(cfg, G, D, torch.Generator().manual_seed(2),
-                               1000)
-    step = make_train_step(cfg, G, D)
-    pre = make_preprocess(cfg, train=True)
+    rank = 0 if mesh is None else mesh.rank
+    state = shard_train_state(create_train_state(
+        cfg, G, D, torch.Generator().manual_seed(rank_seed(2, rank)), 1000),
+        mesh)
+    step = make_parallel_train_step(cfg, G, D, mesh=mesh)
 
     def run(raw):
-        batch = pre(state.generator, {"image": raw["image"]})
-        batch["bin"] = raw["bin"]
-        return step(state, batch)
+        return step(state, raw)
 
     return state, run
 
 
-def raw_batch(cfg: Config, device: torch.device, seed: int = 0) -> dict:
-    """A seeded native-size u8 batch and its bins, resident on ``device``."""
+def raw_batch(cfg: Config, device: torch.device, seed: int = 0,
+              mesh=None) -> dict:
+    """A seeded native-size u8 global batch and its bins (the rank's rows
+    of it under ``mesh``), resident on ``device``."""
     rng = np.random.default_rng(seed)
     b = cfg.data.batch_size
-    return {"image": torch.from_numpy(rng.integers(
-                0, 256, (b, NATIVE, NATIVE, 3), dtype=np.uint8)).to(device),
-            "bin": torch.from_numpy(rng.integers(
-                0, cfg.data.n_age_bins, b)).to(device)}
+    raw = {"image": rng.integers(0, 256, (b, NATIVE, NATIVE, 3),
+                                 dtype=np.uint8),
+           "bin": rng.integers(0, cfg.data.n_age_bins, b)}
+    if mesh is not None:
+        raw = mesh.local_rows(raw)
+    return {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
 
 
 def _sync(metrics) -> float:
@@ -141,13 +155,19 @@ def _timed_steps(run, batches, steps: int, warmup: int) -> float:
     return time.perf_counter() - t0
 
 
-def measure(cfg: Config, steps: int, warmup: int = 3) -> float:
-    """The headline: images/s of B1 + the fused step on a resident batch."""
-    device = _device(cfg)
-    _, run = train_step_fn(cfg, device)
-    dt = _timed_steps(run, itertools.repeat(raw_batch(cfg, device)), steps,
-                      warmup)
-    return cfg.data.batch_size * steps / dt
+def _world(mesh) -> int:
+    return 1 if mesh is None else mesh.world
+
+
+def measure(cfg: Config, steps: int, warmup: int = 3, mesh=None) -> float:
+    """The headline: images/s per device of B1 + the fused step on a
+    resident batch (over ``mesh``: the global rate over its ranks)."""
+    device = _device(cfg) if mesh is None else mesh.device
+    _, run = train_step_fn(cfg, device, mesh)
+    dt = _timed_steps(run, itertools.repeat(raw_batch(cfg, device,
+                                                      mesh=mesh)),
+                      steps, warmup)
+    return cfg.data.batch_size * steps / dt / _world(mesh)
 
 
 def write_jpegs(folder: str, n_images: int, seed: int = 0) -> None:
@@ -184,32 +204,30 @@ def host_batches(cfg: Config, ld):
 def measure_e2e(cfg: Config, steps: int, warmup: int = 3,
                 n_images: int = 512, packed: bool = False,
                 device_cache: bool = False,
-                cache_sharded: bool = False) -> float:
+                cache_sharded: bool = False, mesh=None) -> float:
     """The headline step fed from disk: synthetic JPEGs -> the native
-    decoder (or a pack, or the device cache) -> with_bins -> upload -> B1
-    -> step. Building the pack or the cache is outside the timed loop."""
-    from pcgan_tpu_torch.data.loader import Loader, host_resize_size
+    decoder (or a pack, or the device cache, whole or sharded over the
+    ranks) -> with_bins -> upload -> B1 -> step. Building the pack or the
+    cache is outside the timed loop. Over ``mesh`` every rank writes its
+    own copy of the files and loads its shard of every epoch."""
+    from pcgan_tpu_torch.data.loader import make_process_loader
     from pcgan_tpu_torch.data.utkface import UTKFaceDataset
-    if cache_sharded:
-        raise NotImplementedError(
-            "--device_cache_sharded shards the cache over several devices, "
-            "which pcgan_tpu_torch does not port yet (ROADMAP.md A10); use "
-            "--device_cache on one device")
-    device = _device(cfg)
+    device = _device(cfg) if mesh is None else mesh.device
     tmpdir = tempfile.mkdtemp(prefix="bench_e2e_")
     it = None
     try:
         write_jpegs(tmpdir, n_images)
-        _, run = train_step_fn(cfg, device)
+        _, run = train_step_fn(cfg, device, mesh)
         ds = UTKFaceDataset(tmpdir, decode_m=cfg.data.host_decode_m)
         if packed:
             from pcgan_tpu_torch.data.packed import PackedDataset, write_pack
             pack_dir = os.path.join(tmpdir, "pack")
             write_pack(ds, pack_dir, num_threads=cfg.data.num_threads)
             ds = PackedDataset(pack_dir)
-        if device_cache:
+        if device_cache or cache_sharded:
             from pcgan_tpu_torch.data.device_cache import DeviceCacheLoader
-            dc = DeviceCacheLoader(cfg, ds, device, shuffle=True, seed=0)
+            dc = DeviceCacheLoader(cfg, ds, device, shuffle=True, seed=0,
+                                   mesh=mesh, sharded=cache_sharded)
 
             def cached():
                 while True:
@@ -217,13 +235,11 @@ def measure_e2e(cfg: Config, steps: int, warmup: int = 3,
 
             batches = cached()
         else:
-            ld = Loader(ds, cfg.data.batch_size, shuffle=True,
-                        num_threads=cfg.data.num_threads,
-                        resize_to=host_resize_size(cfg))
+            ld = make_process_loader(cfg, ds, shuffle=True, mesh=mesh)
             it = host_batches(cfg, ld)
             batches = (upload(raw, device) for raw in it)
         dt = _timed_steps(run, batches, steps, warmup)
-        return cfg.data.batch_size * steps / dt
+        return cfg.data.batch_size * steps / dt / _world(mesh)
     finally:
         if it is not None:
             it.close()
@@ -364,7 +380,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device_cache", action="store_true",
                    help="e2e mode: dataset resident on the device")
     p.add_argument("--device_cache_sharded", action="store_true",
-                   help="e2e mode: the sharded cache (not ported: raises)")
+                   help="e2e mode: the cache's rows sharded over the ranks")
     p.add_argument("--skip_e2e", action="store_true",
                    help="omit the e2e riders from the default headline")
     p.add_argument("--batch", type=int, default=None)
@@ -383,19 +399,31 @@ def main(argv=None) -> dict:
         p.error("--quant_int8 is inference-only here; pass --infer")
     if args.packed and not args.e2e:
         p.error("--packed modifies --e2e; pass both")
-    if args.device_cache_sharded:
-        args.device_cache = True
-    if args.device_cache and not args.e2e:
+    if (args.device_cache or args.device_cache_sharded) and not args.e2e:
         p.error("--device_cache modifies --e2e here; pass both")
-    if args.device_cache and args.packed:
+    if (args.device_cache or args.device_cache_sharded) and args.packed:
         p.error("--device_cache and --packed are alternative input paths")
     cfg = bench_config(args.size, args.batch or 0, args.smoke,
                        args.host_decode_m, args.host_resize, args.quant_int8,
                        args.device)
+    from pcgan_tpu_torch.parallel.mesh import init_distributed
+    mesh = init_distributed(args.device)
+    try:
+        line = _bench(args, cfg, mesh)
+    finally:
+        mesh.close()
+    if mesh.rank == 0:
+        print(json.dumps(line), flush=True)
+    return line
+
+
+def _bench(args, cfg: Config, mesh) -> dict:
     steps = args.steps or (5 if args.smoke else 30)
-    device = _device(cfg)
+    device = mesh.device
     name = device_name(device)
     s = cfg.data.crop_size
+    # the one-process path keeps mesh None: no collective at all
+    dp = mesh if mesh.group is not None else None
 
     if args.latency:
         p50, p99, device_ms = measure_latency(cfg)
@@ -414,9 +442,10 @@ def main(argv=None) -> dict:
         if args.e2e:
             value = measure_e2e(cfg, steps, packed=args.packed,
                                 device_cache=args.device_cache,
-                                cache_sharded=args.device_cache_sharded)
+                                cache_sharded=args.device_cache_sharded,
+                                mesh=dp)
         else:
-            value = measure(cfg, steps)
+            value = measure(cfg, steps, mesh=dp)
         suffix = ("_e2e_cached_sharded"
                   if args.e2e and args.device_cache_sharded
                   else "_e2e_cached" if args.e2e and args.device_cache
@@ -430,7 +459,8 @@ def main(argv=None) -> dict:
             # the riders: the same step fed from disk, then from the
             # device cache; a rider that fails raises
             rider_steps = max(10, steps // 2)
-            line["e2e_imgs_s"] = round(measure_e2e(cfg, rider_steps), 2)
+            line["e2e_imgs_s"] = round(measure_e2e(cfg, rider_steps,
+                                                   mesh=dp), 2)
             flags = []
             if args.host_decode_m < 8:
                 flags.append(f"host_decode_m={args.host_decode_m} "
@@ -439,8 +469,10 @@ def main(argv=None) -> dict:
                 flags.append("host_resize (parity math, non-default route)")
             line["e2e_note"] = "; ".join(flags) or "parity input path"
             line["e2e_cached_imgs_s"] = round(measure_e2e(
-                cfg, rider_steps, device_cache=True), 2)
-    print(json.dumps(line), flush=True)
+                cfg, rider_steps, device_cache=True,
+                cache_sharded=dp is not None, mesh=dp), 2)
+        if dp is not None:
+            line["ranks"] = dp.world
     return line
 
 

@@ -7,8 +7,9 @@ all image math happens on the device (ops/preprocess.py), unless
 the synthetic sets, UTKFace-style folders (``aging``, ``single``), packs,
 comparator-sorted labels, the comparisons CSV and pairs over any of the
 age-labelled sources. ``split_holdout`` carves ``--holdout_frac``'s seeded
-held-out rows, the JAX package's split index for index. Multi-process
-sharding is not ported (ROADMAP.md A10).
+held-out rows, the JAX package's split index for index.
+``make_process_loader`` is the one way the CLIs build a loader: each rank
+of a data-parallel run iterates a disjoint shard of every epoch.
 """
 
 from __future__ import annotations
@@ -153,9 +154,27 @@ def host_resize_size(cfg: Config) -> int:
     return d.load_size if (d.host_resize and "resize" in d.preprocess) else 0
 
 
+def make_process_loader(cfg: Config, ds, *, shuffle: bool,
+                        drop_last: bool = True, seed: int = 0,
+                        mesh=None) -> "Loader":
+    """The loader of one rank (``pcgan_tpu/data/loader.py:195-212``): rank
+    r of N iterates shard r of every epoch's permutation at
+    ``batch_size // N`` rows a batch, the rows a one-process run would
+    place at device r; ``mesh=None`` (or a world of one) is a plain
+    Loader. Raises when the batch does not split over the ranks."""
+    n = 1 if mesh is None else mesh.world
+    if cfg.data.batch_size % n:
+        raise SystemExit(f"--batch_size {cfg.data.batch_size} must be "
+                         f"divisible by the process count ({n})")
+    return Loader(ds, cfg.data.batch_size // n, shuffle=shuffle,
+                  drop_last=drop_last, num_threads=cfg.data.num_threads,
+                  seed=seed, shard_id=0 if mesh is None else mesh.rank,
+                  num_shards=n, resize_to=host_resize_size(cfg))
+
+
 class Loader:
     """Iterable over stacked numpy batches, optional shuffle (the JAX
-    ``Loader``, ``pcgan_tpu/data/loader.py:215-303``, single process).
+    ``Loader``, ``pcgan_tpu/data/loader.py:215-303``).
 
     Each epoch yields len(ds)//batch (``drop_last``) or ceil(len(ds)/batch)
     batches of {'image': (B,H,W,C) u8, 'age': (B,) i64} (or the dataset's
@@ -165,14 +184,17 @@ class Loader:
     one native decode call a batch; a pack: one gather) serves whole
     batches; others go through ``get_raw`` on a thread pool.
     ``skip_next`` drops the first N batches of the next epoch at the index
-    level (exact mid-epoch resume). ``resize_to`` > 0 resizes every u8
+    level (exact mid-epoch resume). ``shard_id``/``num_shards``: iterate
+    every ``num_shards``-th row of each epoch's permutation from
+    ``shard_id`` on (the same seed on every rank, so the shards are
+    disjoint), ``batch_size`` being the per-shard batch. ``resize_to`` > 0 resizes every u8
     image key on the host to (resize_to, resize_to) with Pillow's bicubic
     (``pil_resize_np``, ``--host_resize``).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_threads: int = 4, seed: int = 0, drop_last: bool = True,
-                 resize_to: int = 0):
+                 resize_to: int = 0, shard_id: int = 0, num_shards: int = 1):
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -180,17 +202,20 @@ class Loader:
         self.drop_last = drop_last
         self.num_threads = max(1, num_threads)
         self.resize_to = int(resize_to)
+        self.shard_id, self.num_shards = shard_id, max(1, num_shards)
         self.epoch = 0
         self.skip_next = 0
 
     def __len__(self):
-        n = len(self.ds)
+        n = len(self.ds) // self.num_shards
         return n // self.bs if self.drop_last else -(-n // self.bs)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         order = np.arange(len(self.ds))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        if self.num_shards > 1:
+            order = order[self.shard_id::self.num_shards]
         self.epoch += 1
         nb = len(self)
         start, self.skip_next = min(self.skip_next, nb), 0

@@ -13,8 +13,12 @@ feature rows in buffers on the device; ``--ssim`` and ``--lpips`` fold
 per-batch sums; a comparator adds the condition accuracy. After the loop
 the statistics come to the host, where the Frechet ``eigh`` chain runs in
 f32 (as the JAX evaluator's epilogue does); KID, PRDC, the per-bin moments
-and the IS head's softmax run on the buffers' device. Single device only
-(multi-process eval is ROADMAP A10). Nothing falls back: a missing weight
+and the IS head's softmax run on the buffers' device. Across the ranks of
+a data-parallel run (``mesh``), each rank evaluates its disjoint rows, the
+streaming moments and sums are sum-reduced and the retained rows
+all-gathered (in the global batches' row order) before the epilogue, which
+every rank then runs alike; ``max_images`` counts global rows
+(``pcgan_tpu/eval_lib.py:237-253``). Nothing falls back: a missing weight
 file, a mismatched ``--fid_stats`` file, an absent comparator, a budget too
 small for a metric or an overflowing buffer raises.
 """
@@ -31,6 +35,7 @@ from pcgan_tpu_torch.config import Config
 from pcgan_tpu_torch.data.binning import (bin_to_onehot, bin_to_score,
                                           normalize_score)
 from pcgan_tpu_torch.ops import fid as fid_ops
+from pcgan_tpu_torch.parallel.mesh import all_reduce_flat
 
 
 def check_eval_budget(cfg: Config, budget: int, flag: str) -> None:
@@ -44,15 +49,6 @@ def check_eval_budget(cfg: Config, budget: int, flag: str) -> None:
     if r.prdc and budget <= r.prdc_k:
         raise SystemExit(f"--prdc needs {flag} > --prdc_k ({r.prdc_k}), "
                          f"got {budget}")
-
-
-def check_one_device(cfg: Config) -> None:
-    """Evaluation runs on one card: ``--mesh_shape 1`` or ``-1`` only."""
-    p = cfg.parallel
-    if p.mesh_shape not in ((-1,), (1,)) or p.mesh_axes != ("data",):
-        raise NotImplementedError(
-            "--mesh_shape/--mesh_axes: the port evaluates on one device "
-            "(1 or -1); multi-device eval is not ported yet")
 
 
 def make_feature_extractor(cfg: Config, comparator=None, device=None):
@@ -153,8 +149,8 @@ def _is_head(cfg: Config, d: int):
         "trunk has no class labels")
 
 
-def make_fid_evaluator(cfg: Config, comparator: Optional[Tuple] = None,
-                       device=None):
+def make_fid_evaluator(cfg: Config, comparator: Optional[Tuple], device,
+                       mesh=None):
     """Returns run(G, raw_batch_iter, max_images, seed) -> metrics dict.
 
     ``G``: the generator module on ``device`` (scored in eval mode; its
@@ -169,10 +165,16 @@ def make_fid_evaluator(cfg: Config, comparator: Optional[Tuple] = None,
     seconds spent in G, the feature nets, the rest of the loop and the
     epilogue (``g``, ``features``, ``other``, ``epilogue``), with the
     device synchronized at each boundary; without it nothing is timed or
-    synchronized."""
+    synchronized. ``device`` is required: nothing lands on the CPU by
+    omission. ``mesh`` (a ``parallel.mesh.DataMesh``): ``raw_batch_iter``
+    yields this rank's rows of each global batch, every rank runs the same
+    number of batches, and every rank returns the global metrics."""
     from pcgan_tpu_torch.ops.preprocess import make_preprocess
     from pcgan_tpu_torch.ops.ssim import ssim_pair
-    device = torch.device(device or "cpu")
+    device = torch.device(device)
+    group = None if mesh is None else mesh.group
+    world = 1 if group is None else mesh.world
+    rank = 0 if group is None else mesh.rank
     r = cfg.run
     nb = cfg.data.n_age_bins
     score_mode = cfg.model.cond_mode == "score"
@@ -219,23 +221,27 @@ def make_fid_evaluator(cfg: Config, comparator: Optional[Tuple] = None,
                     clock.start()
                     b = int(raw["image"].shape[0])
                     if retain and bufs is None:
-                        # sized once from the first batch: the loop stops
-                        # once seen >= max_images, so the last write starts
-                        # at row max_images - 1 at the latest
-                        cap = int(max_images) + b
+                        # sized once from the first (global) batch: the
+                        # loop stops once seen >= max_images, so the last
+                        # write starts at row max_images - 1 at the latest
+                        cap = int(max_images) + b * world
                         bufs = (torch.zeros((cap, d), device=device),
                                 torch.zeros((cap, d), device=device),
                                 torch.zeros((cap,), dtype=torch.int64,
                                             device=device),
                                 torch.zeros((cap,), dtype=torch.int64,
                                             device=device))
-                    if bufs is not None and seen + b > bufs[0].shape[0]:
+                    if (bufs is not None
+                            and seen + b * world > bufs[0].shape[0]):
                         raise ValueError(
                             f"eval batch at row {seen} exceeds the KID/"
                             f"per-bin feature buffers ({bufs[0].shape[0]} "
                             f"rows, sized from the first batch); feed "
                             f"fixed-size batches")
-                    perm = torch.from_numpy(_local_perm_slice(rng, b))
+                    # the rank's block of the global permutation, as
+                    # indices into its own rows
+                    perm = torch.from_numpy(_local_perm_slice(
+                        rng, b, world, rank) - rank * b)
                     images = torch.as_tensor(raw["image"]).to(device)
                     bins = torch.as_tensor(raw["bin"]).long().to(device)
                     real = pre(None, {"image": images})["image"].float()
@@ -274,12 +280,21 @@ def make_fid_evaluator(cfg: Config, comparator: Optional[Tuple] = None,
                         from pcgan_tpu_torch.ops.lpips import lpips_pair
                         lpips_sum += torch.sum(
                             lpips_pair(lpips[0], real, fake, lpips[1]))
-                    seen += b
+                    seen += b * world
                     clock.lap("other")
                     clock.batch()
                     if max_images and seen >= max_images:
                         break
                 clock.start()
+                if group is not None:
+                    r_stats = fid_ops.reduce_stats(r_stats, group)
+                    f_stats = fid_ops.reduce_stats(f_stats, group)
+                    hits, ssim_sum, lpips_sum = all_reduce_flat(
+                        [hits, ssim_sum, lpips_sum], group)
+                    n_cmp *= world
+                    if bufs is not None:
+                        bufs = _gather_rows(bufs, cursor, b, world, group)
+                        cursor *= world
                 out = _epilogue(cfg, r_stats, f_stats, frozen_real, seen,
                                 bufs, cursor, is_head, seed, nb)
                 clock.lap("epilogue")
@@ -398,7 +413,28 @@ def _per_bin_fid(feats_r, bins_r, feats_f, bins_f, nb: int
     return out
 
 
-def _local_perm_slice(rng: np.random.Generator, n: int) -> np.ndarray:
-    """The batch's target-bin permutation: the JAX evaluator's
-    ``_local_perm_slice`` with one process, ``rng.permutation(n)``."""
-    return rng.permutation(n)
+def _local_perm_slice(rng, local_n: int, n_proc: int, proc_idx: int):
+    """This rank's block of the global batch's target-bin permutation (the
+    JAX evaluator's function): rank i permutes its own rows, which lie at
+    [i*local_n, (i+1)*local_n) of the global batch, so the global
+    permutation is block-diagonal and keeps the condition marginal. Every
+    rank draws from ``rng`` alike (the same seed), so the streams stay
+    aligned batch over batch; one process draws a plain permutation."""
+    return rng.permutation(local_n) + proc_idx * local_n
+
+
+def _gather_rows(bufs, count: int, b: int, world: int, group):
+    """The retained rows of every rank in the global batches' order: each
+    rank holds ``count`` rows, ``b`` a batch; batch k of the result is
+    batch k of rank 0, then of rank 1, and so on (JAX's buffer rows)."""
+    import torch.distributed as dist
+    out = []
+    for buf in bufs:
+        mine = buf[:count].contiguous()
+        full = mine.new_empty((world * count,) + tuple(mine.shape[1:]))
+        dist.all_gather_into_tensor(full, mine, group=group)
+        n_b = count // b
+        rows = full.reshape((world, n_b, b) + tuple(mine.shape[1:]))
+        out.append(rows.transpose(0, 1).reshape(
+            (world * count,) + tuple(mine.shape[1:])))
+    return tuple(out)

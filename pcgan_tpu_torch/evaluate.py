@@ -13,8 +13,10 @@ frozen real statistics and keeps the streamed number as ``fid_stream``.
 ``--holdout_frac`` reproduces the training run's seeded split, checked
 against the split record in its ``opt.json``, and adds ``holdout_*`` keys
 for the rows training never saw. Prints one JSON line and appends it to
-``{results_dir}/{name}/eval.jsonl``. Runs on cuda unless ``--device cpu``,
-on one device.
+``{results_dir}/{name}/eval.jsonl``. Runs on cuda unless ``--device cpu``.
+Under ``torchrun --nproc_per_node N`` each rank evaluates its shard of the
+rows (``make_process_loader``), the statistics are reduced over the ranks
+and rank 0 alone writes the record; ``--num_test`` counts global rows.
 """
 
 from __future__ import annotations
@@ -80,17 +82,23 @@ def main(argv=None) -> dict:
     if cfg.data.device_cache or cfg.data.device_cache_sharded:
         print("note: --device_cache is a training-loop lever; evaluate "
               "streams from the host (flag ignored)", flush=True)
-    from pcgan_tpu_torch.eval_lib import (check_eval_budget, check_one_device,
-                                          make_fid_evaluator)
-    check_one_device(cfg)
+    from pcgan_tpu_torch.eval_lib import check_eval_budget
+    from pcgan_tpu_torch.parallel.mesh import mesh_from_config
     check_eval_budget(cfg, cfg.run.num_test, "--num_test")
+    mesh = mesh_from_config(cfg)
+    try:
+        return _evaluate(cfg, mesh)
+    finally:
+        mesh.close()
 
+
+def _evaluate(cfg, mesh) -> dict:
     from pcgan_tpu_torch.data import loader as data_loader
-    from pcgan_tpu_torch.device import resolve_device
+    from pcgan_tpu_torch.eval_lib import make_fid_evaluator
     from pcgan_tpu_torch.models import define_G
     from pcgan_tpu_torch.utils import checkpoint as ckpt
 
-    device = resolve_device(cfg.run.device)
+    device = mesh.device
     if not ckpt.exists(cfg.run.checkpoints_dir, cfg.run.name, cfg.run.epoch,
                        use_ema=cfg.run.use_ema):
         raise SystemExit(
@@ -102,7 +110,7 @@ def main(argv=None) -> dict:
                                use_ema=cfg.run.use_ema).to(device)
     bundle = (ckpt.load_comparator_bundle(cfg, device)
               if cfg.train.comparator_path else None)
-    run = make_fid_evaluator(cfg, bundle, device)
+    run = make_fid_evaluator(cfg, bundle, device, mesh)
 
     ds_cfg, split = (_holdout_dataset_cfg(cfg) if cfg.data.holdout_frac > 0
                      else (cfg, None))
@@ -122,9 +130,8 @@ def main(argv=None) -> dict:
                                             seed=cfg.train.seed)
 
     def loader(rows):
-        return data_loader.Loader(rows, cfg.data.batch_size, shuffle=False,
-                                  num_threads=cfg.data.num_threads,
-                                  resize_to=data_loader.host_resize_size(cfg))
+        return data_loader.make_process_loader(cfg, rows, shuffle=False,
+                                               mesh=mesh)
 
     def evaluate(rows):
         return run(G, data_loader.with_bins(iter(loader(rows)),
@@ -142,12 +149,12 @@ def main(argv=None) -> dict:
         rec_h = evaluate(ds_hold)
         rec.update({f"holdout_{k}": v for k, v in rec_h.items()})
     rec["epoch"] = cfg.run.epoch
-
-    out_dir = os.path.join(cfg.run.results_dir, cfg.run.name)
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "eval.jsonl"), "a") as f:
-        f.write(json.dumps(rec) + "\n")
-    print(json.dumps(rec), flush=True)
+    if mesh.rank == 0:
+        out_dir = os.path.join(cfg.run.results_dir, cfg.run.name)
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "eval.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        print(json.dumps(rec), flush=True)
     return rec
 
 

@@ -125,6 +125,14 @@ def update_stats(stats: FIDStats, feats: torch.Tensor) -> FIDStats:
                     ss=stats.ss + f.T @ f)
 
 
+def reduce_stats(stats: FIDStats, group) -> FIDStats:
+    """The statistics summed over a process group (the data axis), one
+    collective (``pcgan_tpu/ops/fid.py:92-94``'s ``psum``)."""
+    from pcgan_tpu_torch.parallel.mesh import all_reduce_flat
+    return FIDStats(*all_reduce_flat([stats.count, stats.s, stats.ss],
+                                     group))
+
+
 def merge_stats(a: FIDStats, b: FIDStats) -> FIDStats:
     return FIDStats(a.count + b.count, a.s + b.s, a.ss + b.ss)
 

@@ -363,7 +363,7 @@ class ServedGenerator:
     def data_parallel(self, mesh=None):
         raise NotImplementedError(
             "multi-GPU serving is not ported to pcgan_tpu_torch yet "
-            "(ROADMAP A10); serve one card per host process")
+            "(ROADMAP.md A10b); serve one card per host process")
 
 
 def load_exported(out_dir: str, device: str = "cuda"):

@@ -9,9 +9,10 @@ the devices, the card's name, total memory and power limit (from
 ``csrc/preprocess.cu``, B2 ``csrc/wgrad.cu``; a failed build raises with
 the compiler's error, so the command exits non-zero); the JPEG decoder's
 build and the libjpeg it links (the host's or Pillow's wheel's), or that
-the host has none; host decode workers against the usable cores; the mesh
-the flags would build (one card; other shapes are ROADMAP A10); the
-XLA-only flags, which raise in the port; and a device check: one small
+the host has none; host decode workers against the usable cores; the world
+size (``WORLD_SIZE`` under torchrun, else 1) and the data axis the flags
+would build over it, or why they cannot (the GSPMD flags are ROADMAP
+A10b); the XLA-only flags, which raise in the port; and a device check: one small
 matmul on the device and, on the card, one launch of B1 against its plain
 version. Prints one human block and ONE final JSON line. On the CPU the
 kernels are not built: the plain versions run there.
@@ -120,11 +121,16 @@ def main(argv=None) -> dict:
             f"core(s): host decode may bottleneck e2e — consider "
             f"--dataset_mode packed or --device_cache")
 
-    p = cfg.parallel
-    rep["mesh"] = ({"data": 1} if p.mesh_shape in ((-1,), (1,))
-                   and p.mesh_axes == ("data",) else
-                   f"raises: mesh {p.mesh_shape} over {p.mesh_axes} needs "
-                   f"several devices (ROADMAP.md A10)")
+    from pcgan_tpu_torch.parallel.mesh import (check_data_axis,
+                                               reject_unported_parallel)
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    rep["world_size"] = world
+    try:
+        reject_unported_parallel(cfg)
+        check_data_axis(cfg.parallel.mesh_shape, world)
+        rep["mesh"] = {"data": world}
+    except (NotImplementedError, ValueError) as e:
+        rep["mesh"] = f"FAILED: {e}"
     rep["xla_only_flags"] = {f: "raises (XLA-only)" for f in XLA_ONLY}
     rep["device_check"] = _device_check(torch, device)
 

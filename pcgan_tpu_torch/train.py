@@ -52,6 +52,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pcgan_tpu_torch.config import Config
@@ -68,6 +69,7 @@ from pcgan_tpu_torch.ops.diffaug import Augment, parse_policy
 from pcgan_tpu_torch.ops.gan_loss import (feature_matching_loss, gan_loss,
                                           gradient_penalty, overfit_heuristic,
                                           r1_penalty, split_pred)
+from pcgan_tpu_torch.parallel.mesh import all_reduce_flat
 from pcgan_tpu_torch.utils import image_pool
 
 # --------------------------------------------------------------------------- #
@@ -273,8 +275,10 @@ _XLA_ONLY = {
 def reject_unported_train(cfg: Config) -> None:
     """Every training flag the port does not implement raises when it is
     set away from its default; none is ignored. The XLA-only flags raise
-    for good."""
-    t, m, d, r, p = cfg.train, cfg.model, cfg.data, cfg.run, cfg.parallel
+    for good; the parallel flags beyond one data axis raise naming
+    ROADMAP.md A10b (``parallel/mesh.py``)."""
+    from pcgan_tpu_torch.parallel.mesh import reject_unported_parallel
+    m, r = cfg.model, cfg.run
     if m.model not in ("pcgan", "comparator"):
         raise NotImplementedError(f"--model {m.model} not implemented "
                                   f"(pcgan | comparator)")
@@ -285,22 +289,7 @@ def reject_unported_train(cfg: Config) -> None:
             raise NotImplementedError(
                 f"{flag} {_XLA_ONLY[flag]}: an XLA-only flag with no "
                 f"counterpart in pcgan_tpu_torch")
-    if d.device_cache_sharded:
-        raise NotImplementedError(
-            "--device_cache_sharded shards the cache over several devices, "
-            "which pcgan_tpu_torch does not port yet (ROADMAP.md A10); "
-            "--device_cache keeps the whole dataset on the one card")
-    off = {
-        # one card: a one-device data axis (1, or -1 for all of one)
-        "--mesh_shape/--mesh_axes": (p.mesh_shape not in ((-1,), (1,))
-                                     or p.mesh_axes != ("data",)),
-        "--spatial_shards": p.spatial_shards != 1, "--zero1": p.zero1,
-        "--dcn_data": p.dcn_data != 1,
-    }
-    for flag, on in off.items():
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to pcgan_tpu_torch's training yet")
+    reject_unported_parallel(cfg)
 
 
 def create_train_state(cfg: Config, G: nn.Module, D: nn.Module,
@@ -379,13 +368,19 @@ class StepParts:
     The D state (spectral norm's u/sigma, batch norm's running stats) that
     persists is the one the D-loss passes write; the penalties, the
     feature targets and the G pass read the state they start from and
-    write nothing."""
+    write nothing.
+
+    ``group`` (a process group, None on one process) is the data axis the
+    JAX step's ``axis_name`` names: the gradient lists, ADA's r_t, the
+    metrics and the norm state are averaged over it (``mean``)."""
 
     def __init__(self, cfg: Config, G: nn.Module, D: nn.Module,
-                 C: Optional[nn.Module] = None):
+                 C: Optional[nn.Module] = None, group=None):
         reject_unported_train(cfg)
         t = cfg.train
         self.cfg, self.t, self.G, self.D, self.C = cfg, t, G, D, C
+        self.group = group
+        self.world = 1 if group is None else dist.get_world_size(group)
         self.nb = cfg.data.n_age_bins
         self.cd = compute_dtype(cfg.model.dtype)
         self.use_cond_loss = t.lambda_cond > 0.0 and C is not None
@@ -412,6 +407,25 @@ class StepParts:
         self.aug = Augment(t.diff_augment, ada=self.use_ada)
         self.d_params = list(D.parameters())
         self.g_params = list(G.parameters())
+
+    def mean(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """``pmean`` over the data axis: the tensors themselves on one
+        process, else their all-reduced mean (one flat buffer a dtype)."""
+        if self.group is None:
+            return tensors
+        return all_reduce_flat(tensors, self.group, mean=True)
+
+    def sync_stats(self) -> None:
+        """The norm and spectral-norm state of G and D averaged over the
+        data axis at the end of the step (per-rank batch statistics stay
+        local, as in JAX)."""
+        if self.group is None:
+            return
+        for net in (self.G, self.D):
+            st = stats_state(net)
+            if st:
+                load_stats_state(net, dict(zip(st, self.mean(
+                    list(st.values())))))
 
     def augment(self, state: TrainState, x: torch.Tensor, p, draws=None):
         """(augmented x, the draws): a fresh draw from the state's
@@ -590,7 +604,9 @@ class StepParts:
 
     def metrics(self, state, losses: Dict[str, torch.Tensor], g_grads,
                 d_grads, rt) -> Dict[str, torch.Tensor]:
-        """The step's metrics under the JAX step's keys, 0-dim f32."""
+        """The step's metrics under the JAX step's keys, 0-dim f32: the
+        losses and skip counts averaged over the data axis; ADA's p and r_t
+        and the norms of the averaged gradients are alike on every rank."""
         t = self.t
         m = dict(losses)
         if t.lambda_r1 <= 0:
@@ -602,6 +618,9 @@ class StepParts:
         if state.skip_g is not None:
             m["notfinite_G"] = state.skip_g["total_notfinite"]
             m["notfinite_D"] = state.skip_d["total_notfinite"]
+        if self.group is not None:
+            m = dict(zip(m, self.mean([v.detach().float()
+                                       for v in m.values()])))
         if self.use_ada:
             m["ada_p"] = state.aug_p
             m["ada_rt"] = rt
@@ -612,14 +631,20 @@ class StepParts:
 
 
 def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
-                    C: Optional[nn.Module] = None) -> Callable:
+                    C: Optional[nn.Module] = None, group=None) -> Callable:
     """The fused G/D step: ``train_step(state, batch) -> metrics`` updates
     ``state`` in place (params, optimizer moments, norm and spectral-norm
     state, pool, EMA, ADA's p, the skip counters, step) and returns the
     0-dim f32 metrics on the device, under the JAX step's keys. With ``C``
     (``state.C``) and ``--lambda_cond > 0`` the G loss carries the
     condition-consistency term. ``--grad_accum > 1`` returns
-    ``accum.make_accum_train_step``'s step instead.
+    ``accum.make_accum_train_step``'s step instead. ``group`` makes it the
+    data-parallel step of one rank (``parallel/train_parallel.py``): the
+    batch is the rank's rows, and D's and G's gradients (each list one
+    collective), ADA's r_t, the metrics and the norm state are averaged
+    over the group where JAX calls ``pmean``, so every rank takes the same
+    update; ``--skip_nonfinite`` checks the averaged gradients, so every
+    rank skips together. ``group=None`` issues no collective.
 
     batch: {'image': (B,H,W,C) in [-1,1] on the device, 'bin': (B,) ints,
     optional 'target_bin': (B,) ints (else drawn uniformly); in score mode
@@ -627,9 +652,8 @@ def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
     drawn uniformly)}."""
     if cfg.train.grad_accum != 1:
         from pcgan_tpu_torch.accum import make_accum_train_step
-        return make_accum_train_step(cfg, G, D, C)
-    parts = StepParts(cfg, G, D, C)
-    t = cfg.train
+        return make_accum_train_step(cfg, G, D, C, group)
+    parts = StepParts(cfg, G, D, C, group)
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         real = batch["image"].to(parts.cd)
@@ -651,9 +675,11 @@ def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
             state, real, fake_det, fake_d, cond_real, cond_target,
             cond_fake_d, p)
         d_grads = list(torch.autograd.grad(d_loss, parts.d_params))
+        # r_t rides in D's collective
+        *d_grads, rt = parts.mean(d_grads + [rt])
         parts.update(state, "D", d_grads)
         if parts.use_ada:
-            parts.ada_update(state, rt, bsz)
+            parts.ada_update(state, rt, bsz * parts.world)
 
         # ---- G update against the updated D (sequential reference mode),
         # which reads the step's starting D state ----------------------------
@@ -662,11 +688,13 @@ def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
         g_loss, l_g_gan, l_g_l1, l_g_cond, l_g_feat, l_g_vgg = parts.g_loss(
             state, out, real, cond_real, cond_target, cond_lo, cond_hi, p)
         load_stats_state(D, d_new)
-        g_grads = list(torch.autograd.grad(g_loss, parts.g_params))
+        g_grads = parts.mean(list(torch.autograd.grad(g_loss,
+                                                      parts.g_params)))
         parts.update(state, "G", g_grads)
         if state.ema is not None:
             parts.ema_update(state)
         state.step += 1
+        parts.sync_stats()
         return parts.metrics(state, {
             "loss_G": g_loss, "loss_G_GAN": l_g_gan, "loss_G_L1": l_g_l1,
             "loss_G_cond": l_g_cond, "loss_D": d_loss,
@@ -707,13 +735,15 @@ def create_comparator_state(cfg: Config, C: nn.Module,
                                  if t.skip_nonfinite > 0 else None))
 
 
-def make_comparator_step(cfg: Config, C: nn.Module) -> Callable:
+def make_comparator_step(cfg: Config, C: nn.Module, group=None) -> Callable:
     """One pretraining step on a pair batch {'image_a', 'image_b': (B,H,W,C)
     in [-1,1], 'label': (B,) (0: a older, 1: b older, 2: tie)}: both members
     in ONE 2B forward of the shared trunk, the Thurstone cross-entropy, one
     Adam step (skipped under ``--skip_nonfinite``'s rule). Updates
     ``state`` in place and returns {'loss_cmp', 'acc_cmp'} as 0-dim f32
-    tensors on the device."""
+    tensors on the device. ``group`` averages the gradients (one
+    collective) and the metrics over the data axis, as JAX's ``pmean``;
+    C's own state is not averaged, as in JAX."""
     reject_unported_train(cfg)
     margin = cfg.model.tie_margin
     skip_n = cfg.train.skip_nonfinite
@@ -731,13 +761,18 @@ def make_comparator_step(cfg: Config, C: nn.Module) -> Callable:
         with torch.no_grad():
             acc = comparison_accuracy(*pair)
         grads = list(torch.autograd.grad(loss, params))
+        if group is not None:
+            grads = all_reduce_flat(grads, group, mean=True)
         found_inf, count = None, state.step
         if state.skip is not None:
             found_inf = check_finite(grads, state.skip, skip_n)
             count = adam_count(state.opt)
         adam_step(state.opt, grads, state.sched(count), found_inf)
         state.step += 1
-        return {"loss_cmp": loss.detach().float(), "acc_cmp": acc}
+        m = [loss.detach().float(), acc.float()]
+        if group is not None:
+            m = all_reduce_flat(m, group, mean=True)
+        return dict(zip(("loss_cmp", "acc_cmp"), m))
 
     return step
 

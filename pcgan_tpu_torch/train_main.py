@@ -50,12 +50,26 @@ step), ``--init_g_from name/tag`` (warm-start G), ``--lambda_vgg`` with
 ``--device_cache`` uploads the (train-split) dataset to the device once and
 gathers every batch there (``data/device_cache.py``), for GAN training,
 its in-training eval and comparator pretraining; the sample stream is the
-host Loader's.
+host Loader's. ``--device_cache_sharded`` splits its rows over the ranks.
 
-Runs on cuda unless ``--device cpu``. The flags the port does not implement
-(the sharded device cache, multi-device meshes) raise
-``NotImplementedError``, as do the XLA-only ``--profile_server``,
-``--compile_cache`` and ``--xla_opt`` for good.
+Data parallelism: ``torchrun --nproc_per_node N -m
+pcgan_tpu_torch.train_main ... --mesh_shape -1`` (root ``train.py``'s
+DP path) runs one process per card. Each rank loads its shard of every
+epoch (``make_process_loader``, ``--batch_size`` being the global batch),
+B1 preprocesses its rows on its card and the step averages the gradients
+over the ranks (``parallel/train_parallel.py``). Rank 0 alone writes
+``opt.json``, ``metrics.jsonl``, the plots, the preview grids, TensorBoard
+and the checkpoints (with every rank's pool rows and generators, so every
+rank resumes exactly); the logged losses are the ranks' mean, so the
+plateau scheduler agrees on every rank. Comparator pretraining shards its
+pairs the same way and writes one anchor bundle. Outside torchrun the run
+is the one-card path and issues no collective.
+
+Runs on cuda unless ``--device cpu``. The parallel flags beyond the data
+axis (``--zero1``, a model or spatial axis, ``--spatial_shards``,
+``--dcn_data``; ROADMAP.md A10b) raise ``NotImplementedError``, as do the
+XLA-only ``--profile_server``, ``--compile_cache`` and ``--xla_opt`` for
+good.
 """
 
 from __future__ import annotations
@@ -84,40 +98,60 @@ def main(argv=None) -> dict:
                          "int8 quantization has zero gradients")
     from pcgan_tpu_torch.train import reject_unported_train
     reject_unported_train(cfg)
+    from pcgan_tpu_torch.parallel.mesh import mesh_from_config
+    mesh = mesh_from_config(cfg)
+    try:
+        return _main(cfg, mesh)
+    finally:
+        mesh.close()
 
+
+def _main(cfg, mesh) -> dict:
+    from pcgan_tpu_torch.config import amend_run_opt
     from pcgan_tpu_torch.data import loader as data_loader
-    from pcgan_tpu_torch.device import resolve_device
     from pcgan_tpu_torch.utils.metrics import MetricsLogger
 
-    device = resolve_device(cfg.run.device)
+    device = mesh.device
+    print(f"devices: {mesh.world} ({device.type}), mesh {mesh.shape}",
+          flush=True)
+    if cfg.data.batch_size % mesh.world:
+        raise SystemExit(f"--batch_size {cfg.data.batch_size} must be "
+                         f"divisible by the mesh data axis ({mesh.world})")
     if cfg.run.debug_nans:
         # autograd names the op whose backward made a NaN; the loop checks
         # every step's metrics and raises on the first non-finite one
         import torch
         torch.autograd.set_detect_anomaly(True)
+    lead = mesh.rank == 0          # the one rank that writes files
     run_dir = os.path.join(cfg.run.checkpoints_dir, cfg.run.name)
     os.makedirs(run_dir, exist_ok=True)
-    cfg.save(os.path.join(run_dir, "opt.json"))
+    if lead:
+        cfg.save(os.path.join(run_dir, "opt.json"))
     tb_dir = (os.path.join(cfg.run.tb_logdir, cfg.run.name)
               if cfg.run.tb_logdir else "")
+
+    def make_logger():
+        return (MetricsLogger(run_dir, tb_logdir=tb_dir) if lead
+                else _Quiet())
     if cfg.model.model == "comparator":
         # pretraining builds its own pair loaders (with a held-out split)
         if cfg.train.metrics_lag:
             print("--metrics_lag applies to the GAN training loop; "
                   "comparator pretraining prints eagerly (ignored)",
                   flush=True)
-        logger = MetricsLogger(run_dir, tb_logdir=tb_dir)
+        logger = make_logger()
         try:
-            return _train_comparator(cfg, device, logger, run_dir)
+            return _train_comparator(cfg, mesh, logger, run_dir)
         finally:
             logger.close()
     ds = data_loader.create_dataset(cfg, train=True)
-    amend_run_opt(cfg.run.checkpoints_dir, cfg.run.name, "split", {
-        "dataset_len": len(ds), "phase": cfg.run.phase,
-        "phase_root": (
-            data_loader.phase_root(cfg.data.dataroot, cfg.run.phase)
-            if cfg.data.dataset_mode in ("aging", "single") else None),
-        "holdout_frac": cfg.data.holdout_frac, "seed": cfg.train.seed})
+    if lead:
+        amend_run_opt(cfg.run.checkpoints_dir, cfg.run.name, "split", {
+            "dataset_len": len(ds), "phase": cfg.run.phase,
+            "phase_root": (
+                data_loader.phase_root(cfg.data.dataroot, cfg.run.phase)
+                if cfg.data.dataset_mode in ("aging", "single") else None),
+            "holdout_frac": cfg.data.holdout_frac, "seed": cfg.train.seed})
     # the held-out rows are carved before any loader sees the dataset:
     # training and the train-side eval only touch the remainder
     ds, holdout_ds = data_loader.split_holdout(ds, cfg.data.holdout_frac,
@@ -126,41 +160,55 @@ def main(argv=None) -> dict:
         print(f"holdout: {len(holdout_ds)} rows held out "
               f"({cfg.data.holdout_frac:.0%}), {len(ds)} train rows",
               flush=True)
-    if cfg.data.device_cache:
-        # the whole (train-split) dataset rides to the device once; epochs
-        # gather their batches there, in the host Loader's order
+    if cfg.data.device_cache or cfg.data.device_cache_sharded:
+        # the (train-split) dataset rides to the device once, whole or in
+        # per-rank row blocks; epochs gather their batches there, in the
+        # host Loader's order
         from pcgan_tpu_torch.data.device_cache import DeviceCacheLoader
         ld = DeviceCacheLoader(cfg, ds, device,
                                shuffle=not cfg.data.serial_batches,
-                               seed=cfg.train.seed)
+                               seed=cfg.train.seed, mesh=mesh,
+                               sharded=cfg.data.device_cache_sharded)
     else:
-        ld = data_loader.Loader(ds, cfg.data.batch_size,
-                                shuffle=not cfg.data.serial_batches,
-                                num_threads=cfg.data.num_threads,
-                                seed=cfg.train.seed,
-                                resize_to=data_loader.host_resize_size(cfg))
+        ld = data_loader.make_process_loader(
+            cfg, ds, shuffle=not cfg.data.serial_batches,
+            seed=cfg.train.seed, mesh=mesh)
     steps_per_epoch = max(1, len(ld))
     print(f"device: {device}; dataset [{cfg.data.dataset_mode}] size "
           f"{len(ds)}, {steps_per_epoch} steps/epoch", flush=True)
-    logger = MetricsLogger(run_dir, tb_logdir=tb_dir)
+    logger = make_logger()
     try:
-        return _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
+        return _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
                           holdout_ds)
     finally:
         logger.close()
 
 
-def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
+class _Quiet:
+    """The metrics logger of a rank other than 0: writes nothing."""
+
+    def log(self, *args, **kwargs) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
                holdout_ds=None) -> dict:
     import torch
     from pcgan_tpu_torch.models import define_D, define_G
-    from pcgan_tpu_torch.ops.preprocess import make_preprocess
-    from pcgan_tpu_torch.train import (PlateauScheduler, create_train_state,
-                                       make_train_step)
+    from pcgan_tpu_torch.parallel.mesh import rank_seed
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_train_step, pool_for_mesh, shard_train_state)
+    from pcgan_tpu_torch.train import PlateauScheduler, create_train_state
     from pcgan_tpu_torch.utils import checkpoint as ckpt
     from pcgan_tpu_torch.utils.loss_plot import write_loss_plot
     from pcgan_tpu_torch.utils.metrics import StepTimer
 
+    device, lead = mesh.device, mesh.rank == 0
+    # the pool divides over the ranks: round it up, as root train.py does
+    cfg = pool_for_mesh(cfg, mesh)
     t = cfg.train
     seed = t.seed
     G = define_G(cfg, torch.Generator().manual_seed(seed)).to(device)
@@ -181,10 +229,10 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
         ckpt.restore_generator(G, cfg.run.checkpoints_dir,
                                name or cfg.run.name, tag or "latest")
         print(f"initialized G from [{t.init_g_from}]", flush=True)
-    state = create_train_state(cfg, G, D,
-                               torch.Generator().manual_seed(seed + 2),
-                               steps_per_epoch, C=C, bin_anchors=bin_anchors,
-                               vgg=vgg)
+    state = shard_train_state(create_train_state(
+        cfg, G, D, torch.Generator().manual_seed(rank_seed(seed + 2,
+                                                           mesh.rank)),
+        steps_per_epoch, C=C, bin_anchors=bin_anchors, vgg=vgg), mesh)
     from pcgan_tpu_torch.utils.summary import print_networks
     print_networks({"G": G, "D": D, "C (frozen)": C},
                    verbose=cfg.run.verbose)
@@ -194,7 +242,7 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
     if t.continue_train and ckpt.state_exists(cfg.run.checkpoints_dir,
                                               cfg.run.name, cfg.run.epoch):
         ckpt.restore_state(state, cfg.run.checkpoints_dir, cfg.run.name,
-                           cfg.run.epoch)
+                           cfg.run.epoch, mesh)
         # exact resume: the data cursor follows from the restored step
         epochs_done = state.step // steps_per_epoch
         resume_skip = state.step % steps_per_epoch
@@ -206,8 +254,7 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
         if resume_skip:
             resume_losses = _read_host_sidecar(run_dir, state.step)
 
-    step_fn = make_train_step(cfg, G, D, state.C)
-    pre = make_preprocess(cfg, train=True)
+    step_fn = make_parallel_train_step(cfg, G, D, state.C, mesh)
     timer = StepTimer()
     total_epochs = t.niter + t.niter_decay
     plateau = None
@@ -225,15 +272,19 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
                                 use_ema=True)
 
     def save(tag):
-        ckpt.save_state(state, cfg.run.checkpoints_dir, cfg.run.name, tag)
-        save_g(tag)
+        # every rank takes part (its pool rows and generators); rank 0
+        # writes
+        ckpt.save_state(state, cfg.run.checkpoints_dir, cfg.run.name, tag,
+                        mesh)
+        if lead:
+            save_g(tag)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    display = _make_display(cfg, G, run_dir, device)
-    fid_eval = (_make_fid_eval(cfg, device, G, state, bin_anchors, ld,
+    display = _make_display(cfg, G, run_dir, device) if lead else None
+    fid_eval = (_make_fid_eval(cfg, mesh, G, state, bin_anchors, ld,
                                holdout_ds, logger)
                 if t.eval_fid_epoch_freq > 0 else None)
     def fetch(metrics):
@@ -273,7 +324,8 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
         lag_anchor.update(t=now, g=g)
         log(g, host, ep, rate)
 
-    profiler = _Profiler(cfg.run.profile_steps, run_dir, device)
+    profiler = _Profiler(cfg.run.profile_steps if lead else 0, run_dir,
+                         device)
     last_latest_save = 0
     gstep = state.step
     epochs, evals, last_metrics = [], [], {}
@@ -290,16 +342,15 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
             if t_first is None:
                 t_first = time.perf_counter()
             profiler.tick()
-            images = _to_device(raw["image"], device)
-            batch = pre(state.generator, {"image": images})
-            batch["bin"] = _to_device(raw["bin"], device)
-            metrics = step_fn(state, batch)
+            metrics = step_fn(state, {
+                "image": _to_device(raw["image"], device),
+                "bin": _to_device(raw["bin"], device)})
             gstep += 1
             steps += 1
             timer.tick(cfg.data.batch_size)
             if cfg.run.debug_nans and gstep % t.print_freq:
                 fetch(metrics)
-            if gstep % t.display_freq == 0:
+            if display is not None and gstep % t.display_freq == 0:
                 display(state, raw, epoch)
             if gstep % t.print_freq == 0:
                 if t.metrics_lag:
@@ -316,7 +367,8 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
                     log_pending()
                 last_latest_save = gstep
                 save("latest")
-                _write_host_sidecar(run_dir, gstep, epoch_losses)
+                if lead:
+                    _write_host_sidecar(run_dir, gstep, epoch_losses)
         if pending is not None:
             log_pending()
         sync()
@@ -346,13 +398,15 @@ def _train_gan(cfg, device, ld, steps_per_epoch, logger, run_dir,
         if t.save_epoch_freq > 0 and epoch % t.save_epoch_freq == 0:
             save(f"epoch_{epoch}")
             save("latest")
-            removed = ckpt.prune_epochs(cfg.run.checkpoints_dir, cfg.run.name,
-                                        t.max_ckpt_keep)
+            removed = (ckpt.prune_epochs(cfg.run.checkpoints_dir,
+                                         cfg.run.name, t.max_ckpt_keep)
+                       if lead else [])
             if removed:
                 print(f"pruned old checkpoints: {removed}", flush=True)
         if fid_eval is not None and epoch % t.eval_fid_epoch_freq == 0:
             evals.append(fid_eval(epoch))
-        write_loss_plot(run_dir)
+        if lead:
+            write_loss_plot(run_dir)
         print(f"End of epoch {epoch}/{total_epochs} \t "
               f"({time.time() - epoch_t0:.1f}s)", flush=True)
     profiler.close()
@@ -379,15 +433,16 @@ def _epoch_batches(cfg, ld):
                               cfg.data.max_age), cfg.data.prefetch)
 
 
-def _make_fid_eval(cfg, device, G, state, bin_anchors, ld, holdout_ds,
+def _make_fid_eval(cfg, mesh, G, state, bin_anchors, ld, holdout_ds,
                    logger):
     """In-training FID (root ``train.py:298-372``): the startup guards, the
     evaluator over the train split's rows in loader order, and over the
     held-out rows when ``--holdout_frac`` is set. Returns f(epoch) -> {'epoch',
     'seconds', 'eval_fid', ...}, which also logs the ``eval_*`` and
-    ``eval_h_*`` row."""
+    ``eval_h_*`` row. Under data parallelism every rank evaluates its
+    shard of the rows (loaded as training loads) and the evaluator reduces
+    over the ranks."""
     import copy
-    import torch
     from pcgan_tpu_torch.data import loader as data_loader
     from pcgan_tpu_torch.eval_lib import check_eval_budget, make_fid_evaluator
     t, d = cfg.train, cfg.data
@@ -397,12 +452,11 @@ def _make_fid_eval(cfg, device, G, state, bin_anchors, ld, holdout_ds,
         raise SystemExit("--eval_use_ema needs --ema_decay > 0 (there is no "
                          "EMA twin to evaluate)")
     bundle = (state.C, *bin_anchors) if state.C is not None else None
-    run_fid = make_fid_evaluator(cfg, bundle, device)
+    run_fid = make_fid_evaluator(cfg, bundle, mesh.device, mesh)
 
     def loader(rows):
-        return data_loader.Loader(rows, d.batch_size, shuffle=False,
-                                  num_threads=d.num_threads,
-                                  resize_to=data_loader.host_resize_size(cfg))
+        return data_loader.make_process_loader(cfg, rows, shuffle=False,
+                                               mesh=mesh)
 
     def d_bins(it):
         return data_loader.with_bins(it, d.n_age_bins, d.max_age)
@@ -446,11 +500,13 @@ def _make_fid_eval(cfg, device, G, state, bin_anchors, ld, holdout_ds,
     return fid_eval
 
 
-def _train_comparator(cfg, device, logger, run_dir) -> dict:
+def _train_comparator(cfg, mesh, logger, run_dir) -> dict:
     """Comparator pretraining (root ``train.py:654-827``). Returns {'run_dir',
     'step', 'metrics' (the last logged losses), 'epochs' (as ``main``),
     'eval_acc' (the last held-out accuracy, or None), 'bundle' (the
-    ``comparator.pt`` path)}."""
+    ``comparator.pt`` path)}. Under data parallelism each rank trains on
+    its disjoint slice of the pairs; every rank scores the whole held-out
+    split and rank 0 alone fits and writes the anchor bundle."""
     import dataclasses
     import torch
     from pcgan_tpu_torch.data import loader as data_loader
@@ -458,10 +514,13 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
     from pcgan_tpu_torch.models import define_C
     from pcgan_tpu_torch.models.comparator import comparison_accuracy
     from pcgan_tpu_torch.ops.preprocess import make_pair_preprocess
-    from pcgan_tpu_torch.train import (create_comparator_state,
-                                       make_comparator_step)
+    from pcgan_tpu_torch.parallel.mesh import rank_seed
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_comparator_step)
+    from pcgan_tpu_torch.train import create_comparator_state
     from pcgan_tpu_torch.utils import checkpoint as ckpt
 
+    device, lead = mesh.device, mesh.rank == 0
     t, d = cfg.train, cfg.data
     if d.dataset_mode == "comparisons":
         ds = data_loader.create_dataset(cfg, train=True)
@@ -476,38 +535,40 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
     train_ds, eval_ds = held_out_split(ds, t.cmp_eval_frac, t.seed)
     n_eval = 0 if eval_ds is None else len(eval_ds)
     resize_to = data_loader.host_resize_size(cfg)
-    if d.device_cache:
+    cached = d.device_cache or d.device_cache_sharded
+    if cached:
         # pair batches (image_a / image_b canvases, labels) cache as the
         # GAN's do; the held-out and anchor loaders stay on the host
         from pcgan_tpu_torch.data.device_cache import DeviceCacheLoader
         ld = DeviceCacheLoader(cfg, train_ds, device, shuffle=True,
-                               seed=t.seed)
+                               seed=t.seed, mesh=mesh,
+                               sharded=d.device_cache_sharded)
     else:
-        ld = data_loader.Loader(train_ds, d.batch_size, shuffle=True,
-                                num_threads=d.num_threads, seed=t.seed,
-                                resize_to=resize_to)
+        # disjoint per-rank pair slices (root train.py:693-697)
+        ld = data_loader.make_process_loader(cfg, train_ds, shuffle=True,
+                                             seed=t.seed, mesh=mesh)
     steps_per_epoch = max(1, len(ld))
     print(f"device: {device}; comparator pairs: {len(train_ds)} train / "
           f"{n_eval} held out, {steps_per_epoch} steps/epoch", flush=True)
 
     C = define_C(cfg, torch.Generator().manual_seed(t.seed)).to(device)
-    state = create_comparator_state(cfg, C,
-                                    torch.Generator().manual_seed(t.seed + 1),
-                                    steps_per_epoch)
+    state = create_comparator_state(
+        cfg, C, torch.Generator().manual_seed(rank_seed(t.seed + 1,
+                                                        mesh.rank)),
+        steps_per_epoch)
     from pcgan_tpu_torch.utils.summary import print_networks
     print_networks({"C": C}, verbose=cfg.run.verbose)
     epochs_done = resume_skip = 0
     if t.continue_train and ckpt.state_exists(cfg.run.checkpoints_dir,
                                               cfg.run.name, "cmp_latest"):
         ckpt.restore_comparator_state(state, cfg.run.checkpoints_dir,
-                                      cfg.run.name, "cmp_latest")
+                                      cfg.run.name, "cmp_latest", mesh)
         epochs_done = state.step // steps_per_epoch
         resume_skip = state.step % steps_per_epoch
         ld.epoch = epochs_done
         print(f"resumed comparator from step {state.step} (epoch "
               f"{t.epoch_count + epochs_done})", flush=True)
-    step_fn = make_comparator_step(cfg, C)
-    pre = make_pair_preprocess(cfg, train=True)
+    step_fn = make_parallel_comparator_step(cfg, C, mesh)
     eval_pre = make_pair_preprocess(cfg, train=False)   # center crop, no flip
 
     def upload(raw):
@@ -546,11 +607,11 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
     for epoch in range(t.epoch_count + epochs_done, total_epochs + 1):
         ld.skip_next, resume_skip = resume_skip, 0
         steps, t_first = 0, None
-        for raw in (iter(ld) if d.device_cache
+        for raw in (iter(ld) if cached
                     else data_loader.prefetch(iter(ld), d.prefetch)):
             if t_first is None:
                 t_first = time.perf_counter()
-            metrics = step_fn(state, pre(state.generator, upload(raw)))
+            metrics = step_fn(state, upload(raw))
             gstep += 1
             steps += 1
             if gstep % t.print_freq == 0:
@@ -567,13 +628,21 @@ def _train_comparator(cfg, device, logger, run_dir) -> dict:
             logger.log(gstep, {"eval_acc_cmp": acc}, epoch=epoch)
             print(f"comparator held-out accuracy: {acc:.4f}", flush=True)
         ckpt.save_comparator_state(state, cfg.run.checkpoints_dir,
-                                   cfg.run.name, "cmp_latest")
+                                   cfg.run.name, "cmp_latest", mesh)
         if t.save_epoch_freq > 0 and epoch % t.save_epoch_freq == 0:
             ckpt.save_comparator_state(state, cfg.run.checkpoints_dir,
-                                       cfg.run.name, f"cmp_epoch_{epoch}")
+                                       cfg.run.name, f"cmp_epoch_{epoch}",
+                                       mesh)
         print(f"End of comparator epoch {epoch}/{total_epochs}", flush=True)
-    path = _save_anchor_bundle(cfg, ds, C, device)
-    print(f"saved comparator + bin anchors to {path}", flush=True)
+    if lead:
+        path = _save_anchor_bundle(cfg, ds, C, device)
+        print(f"saved comparator + bin anchors to {path}", flush=True)
+    else:
+        path = os.path.join(run_dir, ckpt.BUNDLE)
+    if mesh.group is not None:
+        # no rank returns before the bundle is on disk
+        import torch.distributed as dist
+        dist.barrier(group=mesh.group)
     return {"run_dir": run_dir, "step": state.step, "metrics": last_metrics,
             "epochs": epochs, "eval_acc": acc, "bundle": path}
 

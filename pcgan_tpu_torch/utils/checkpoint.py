@@ -8,6 +8,13 @@ it. Comparator pretraining writes its state as ``cmp_latest.pt`` /
 frozen C and its score anchors, which a GAN run reads through
 ``--comparator_path``. Every file loads with ``weights_only=True``: no
 pickled code runs.
+
+A data-parallel run (a ``parallel.mesh.DataMesh`` with a group) writes
+one file, from rank 0: the state every rank holds alike, the pool of all
+ranks in their order (the global ``P('data')`` layout, so a world of one
+writes the pool it holds) and, under ``ranks``, each rank's generator
+states. Every rank restores it, taking its own pool rows and generators;
+a checkpoint resumes only with the world size that wrote it.
 """
 
 from __future__ import annotations
@@ -130,47 +137,92 @@ def load_adam_state(opt: torch.optim.Optimizer, module: nn.Module,
     opt.load_state_dict(torch_sd)
 
 
+def _gather_ranks(mine: dict, mesh):
+    """``mine`` of every rank, in rank order, on rank 0 (None elsewhere);
+    ``[mine]`` on one process."""
+    if mesh is None or mesh.group is None:
+        return [mine]
+    import torch.distributed as dist
+    out = [None] * mesh.world if mesh.rank == 0 else None
+    dist.gather_object(mine, out, dst=0, group=mesh.group)
+    return out
+
+
+def _rank_part(sd: dict, mesh, what: str) -> dict:
+    """This rank's entry of a payload's ``ranks`` ({} for a one-process
+    payload on one process); the world sizes must agree."""
+    world = 1 if mesh is None or mesh.group is None else mesh.world
+    ranks = sd.get("ranks")
+    if (len(ranks) if ranks is not None else 1) != world:
+        raise ValueError(
+            f"{what} was written by {len(ranks) if ranks else 1} rank(s); "
+            f"this run has {world}: resume with the same number of ranks")
+    return {} if ranks is None else ranks[mesh.rank]
+
+
 def save_state(state, checkpoints_dir: str, name: str,
-               tag: str = "latest") -> str:
+               tag: str = "latest", mesh=None) -> str:
     """The full training state (``pcgan_tpu_torch.train.TrainState``) at
     ``{checkpoints_dir}/{name}/{tag}.pt``: G and D with their norm and
     spectral-norm state, both optimizers and their skip counters, EMA,
     pool, step, the step's and dropout's generator states, ADA's p,
     ``lr_scale`` and plateau memory. The frozen comparator and VGG trunk
-    are not in it. Written atomically (tmp + rename)."""
+    are not in it. Written atomically (tmp + rename). With ``mesh``,
+    every rank calls it (it gathers to rank 0, which alone writes; the
+    others return None)."""
+    pool = {"imgs": state.pool.imgs.cpu(), "conds": state.pool.conds.cpu(),
+            "count": state.pool.count.cpu()}
+    rngs = {"rng": state.generator.get_state(),
+            "dropout_rng": (None if state.dropout_generator is None
+                            else state.dropout_generator.get_state())}
+    ranks = _gather_ranks({"pool": pool, **rngs}, mesh)
+    if ranks is None:
+        return None
+    if len(ranks) > 1 and int(pool["count"]) >= 0:
+        pool = {"imgs": torch.cat([r["pool"]["imgs"] for r in ranks]),
+                "conds": torch.cat([r["pool"]["conds"] for r in ranks]),
+                "count": pool["count"]}
     payload = {
         "step": int(state.step),
         "G": _cpu(state.G.state_dict()), "D": _cpu(state.D.state_dict()),
         "opt_g": adam_state(state.opt_g, state.G, state.skip_g),
         "opt_d": adam_state(state.opt_d, state.D, state.skip_d),
         "ema": None if state.ema is None else _cpu(state.ema),
-        "pool": {"imgs": state.pool.imgs.cpu(), "conds": state.pool.conds.cpu(),
-                 "count": state.pool.count.cpu()},
-        "rng": state.generator.get_state(),
-        "dropout_rng": (None if state.dropout_generator is None
-                        else state.dropout_generator.get_state()),
+        "pool": pool, **rngs,
         "aug_p": None if state.aug_p is None else float(state.aug_p),
         "lr_scale": float(state.lr_scale),
         "plateau_best": float(state.plateau_best),
         "plateau_bad": float(state.plateau_bad),
     }
+    if len(ranks) > 1:
+        payload["ranks"] = [{k: r[k] for k in rngs} for r in ranks]
     return _save(payload, state_path(checkpoints_dir, name, tag))
 
 
 def restore_state(state, checkpoints_dir: str, name: str,
-                  tag: str = "latest"):
+                  tag: str = "latest", mesh=None):
     """Loads a ``save_state`` checkpoint into ``state`` in place (tensors
     keep their devices; ``weights_only`` loading) and returns it."""
     return load_state(state, torch.load(
         state_path(checkpoints_dir, name, tag), map_location="cpu",
-        weights_only=True))
+        weights_only=True), mesh)
 
 
-def load_state(state, sd: dict):
+def load_state(state, sd: dict, mesh=None):
     """Loads a payload of ``save_state``'s layout (or of
     ``convert.convert_train_state``, which has no ``rng``) into ``state``
-    in place and returns it."""
+    in place and returns it; with ``mesh``, this rank's pool rows and
+    generators."""
     from pcgan_tpu_torch.utils.image_pool import PoolState
+    mine = _rank_part(sd, mesh, "the checkpoint")
+    if mine:
+        p = sd["pool"]
+        if int(p["count"]) >= 0:
+            k = p["imgs"].shape[0] // mesh.world
+            rows = slice(mesh.rank * k, (mesh.rank + 1) * k)
+            p = {"imgs": p["imgs"][rows], "conds": p["conds"][rows],
+                 "count": p["count"]}
+        sd = {**sd, **mine, "pool": p}
     state.G.load_state_dict(sd["G"], strict=True)
     state.D.load_state_dict(sd["D"], strict=True)
     load_adam_state(state.opt_g, state.G, sd["opt_g"])
@@ -215,26 +267,34 @@ def load_state(state, sd: dict):
 
 
 def save_comparator_state(state, checkpoints_dir: str, name: str,
-                          tag: str = "cmp_latest") -> str:
+                          tag: str = "cmp_latest", mesh=None) -> str:
     """A ``pcgan_tpu_torch.train.ComparatorState`` (C, Adam, step, the step
-    generator) at ``{checkpoints_dir}/{name}/{tag}.pt``, atomically."""
-    return _save({"step": int(state.step), "C": _cpu(state.C.state_dict()),
-                  "opt": adam_state(state.opt, state.C, state.skip),
-                  "rng": state.generator.get_state()},
-                 state_path(checkpoints_dir, name, tag))
+    generator) at ``{checkpoints_dir}/{name}/{tag}.pt``, atomically; with
+    ``mesh``, from rank 0 with every rank's generator (None elsewhere)."""
+    ranks = _gather_ranks({"rng": state.generator.get_state()}, mesh)
+    if ranks is None:
+        return None
+    payload = {"step": int(state.step), "C": _cpu(state.C.state_dict()),
+               "opt": adam_state(state.opt, state.C, state.skip),
+               "rng": ranks[0]["rng"]}
+    if len(ranks) > 1:
+        payload["ranks"] = ranks
+    return _save(payload, state_path(checkpoints_dir, name, tag))
 
 
 def restore_comparator_state(state, checkpoints_dir: str, name: str,
-                             tag: str = "cmp_latest"):
+                             tag: str = "cmp_latest", mesh=None):
     return load_comparator_state(state, torch.load(
         state_path(checkpoints_dir, name, tag), map_location="cpu",
-        weights_only=True))
+        weights_only=True), mesh)
 
 
-def load_comparator_state(state, sd: dict):
+def load_comparator_state(state, sd: dict, mesh=None):
     """Loads a ``save_comparator_state`` payload (or
     ``convert.convert_comparator_state``'s, which has no ``rng``) into
-    ``state`` in place and returns it."""
+    ``state`` in place and returns it; with ``mesh``, this rank's
+    generator."""
+    sd = {**sd, **_rank_part(sd, mesh, "the comparator checkpoint")}
     state.C.load_state_dict(sd["C"], strict=True)
     load_adam_state(state.opt, state.C, sd["opt"])
     _load_skip(state.skip, sd["opt"], "comparator optimizer")

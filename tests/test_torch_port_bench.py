@@ -151,9 +151,10 @@ def test_measures_run_on_the_cpu():
     for kw in ({}, {"packed": True}, {"device_cache": True}):
         assert _finite_positive(bench.measure_e2e(cfg, steps=2, warmup=1,
                                                   n_images=16, **kw)), kw
-    with pytest.raises(NotImplementedError, match="A10"):
-        bench.measure_e2e(cfg, steps=1, n_images=8, device_cache=True,
-                          cache_sharded=True)
+    # the sharded cache: one process holds every row
+    assert _finite_positive(bench.measure_e2e(cfg, steps=2, warmup=1,
+                                              n_images=16,
+                                              cache_sharded=True))
     for serving in (False, True):
         assert _finite_positive(bench.measure_infer(cfg, steps=2, warmup=1,
                                                     serving=serving))

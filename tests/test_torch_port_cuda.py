@@ -416,3 +416,62 @@ def test_pad_backward_is_deterministic_on_card(cuda_device, mode, dtype):
         assert torch.equal(grad(cuda_device), a)
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def test_two_ranks_share_the_card(cuda_device, tmp_path):
+    """The port's data-parallel step over CUDA tensors: two gloo ranks on
+    the one card (``torch_port_parallel_worker.py``), f32, take from one
+    warm state the step the one-rank step takes on the whole global batch:
+    every loss within 1e-4 abs + 1e-4 rel, the parameters within the
+    one-step Adam envelope (``tests/test_torch_port_train_step.py``), the
+    ranks alike bit for bit."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.train import create_train_state, make_train_step
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    from torch_port_parallel_worker import run_cohort
+    cfg = parse_config([
+        "--crop_size", "32", "--load_size", "32", "--netG", "resnet_6blocks",
+        "--ngf", "8", "--ndf", "8", "--n_age_bins", "4", "--batch_size", "4",
+        "--dtype", "float32", "--pool_size", "0", "--lr_policy", "constant",
+        "--cond_inject", "bottleneck"], is_train=True)
+    rng = np.random.default_rng(12)
+    batches = [{"image": torch.from_numpy(rng.random((4, 32, 32, 3),
+                                                     np.float32) * 2 - 1),
+                "bin": torch.from_numpy(rng.integers(0, 4, 4)),
+                "target_bin": torch.from_numpy(rng.integers(0, 4, 4))}
+               for _ in range(3)]
+
+    def state_on_card():
+        G = define_G(cfg, torch.Generator().manual_seed(1)).to(cuda_device)
+        D = define_D(cfg, torch.Generator().manual_seed(2)).to(cuda_device)
+        return create_train_state(cfg, G, D,
+                                  torch.Generator().manual_seed(0))
+
+    def on_card(b):
+        return {k: v.to(cuda_device) for k, v in b.items()}
+    state = state_on_card()
+    make_train_step(cfg, state.G, state.D)(state, on_card(batches[0]))
+    ckpt.save_state(state, str(tmp_path), "warm", "warm")
+    payloads = [torch.load(tmp_path / "warm" / "warm.pt", weights_only=True)]
+    ranks = run_cohort({"gan": {"kind": "gan_steps", "cfg": cfg,
+                                "payloads": payloads,
+                                "batches": batches[1:2]}},
+                       tmp_path, device="cuda")
+    m = make_train_step(cfg, state.G, state.D)(state, on_card(batches[1]))
+    got, other = ranks[0]["gan"][0], ranks[1]["gan"][0]
+    assert got["metrics"] == other["metrics"]
+    for k, v in m.items():
+        want = float(v)
+        assert abs(got["metrics"][k] - want) <= 1e-4 + 1e-4 * abs(want), k
+    lr = cfg.train.lr
+    for net, mod in (("G", state.G), ("D", state.D)):
+        start = payloads[0][net]
+        for k, p in mod.named_parameters():
+            assert torch.equal(got[net][k], other[net][k]), (net, k)
+            dj = (p.detach().cpu() - start[k]).numpy()
+            dt = (got[net][k] - start[k]).numpy()
+            diff = np.abs(dj - dt)
+            assert np.median(diff) < 2e-6, (net, k, np.median(diff))
+            assert diff.max() <= 2.1 * lr, (net, k, diff.max())
+            assert float((diff > 0.25 * lr).mean()) < 2e-3, (net, k)

@@ -3,7 +3,8 @@ one device: the replicated cases of ``tests/test_device_cache.py``. The
 lever changes where the rows live, never what the model sees: the sample
 stream, and so every metric stream, is bit-identical to the streaming host
 ``Loader``'s. Here the device is the CPU (the card's path is the same code
-with a CUDA device); the sharded layout raises, naming ROADMAP A10.
+with a CUDA device). The sharded layout across ranks is
+``tests/test_torch_port_parallel_data.py``'s; here it runs in one process.
 """
 
 import json
@@ -219,11 +220,25 @@ def test_comparator_pretraining_cached_identical(tmp_path):
 
 
 def test_sharded_cache_raises_naming_a10(tmp_path):
+    """``--device_cache_sharded`` is ported (A10): in one process it holds
+    every row and trains the replicated cache's loss stream; a replicated
+    cache over several ranks, and the GSPMD flags beside it (A10b),
+    raise."""
     from pcgan_tpu_torch import train_main
+    from pcgan_tpu_torch.parallel.mesh import DataMesh
     from pcgan_tpu_torch.train import reject_unported_train
-    with pytest.raises(NotImplementedError, match="A10"):
-        reject_unported_train(parse_config(["--device_cache_sharded"]))
-    with pytest.raises(NotImplementedError, match="--device_cache_sharded"):
-        train_main.main(GAN + ["--device_cache_sharded", "--niter", "1",
-                               "--checkpoints_dir", str(tmp_path)])
+    reject_unported_train(parse_config(["--device_cache_sharded"]))
     reject_unported_train(parse_config(["--device_cache"]))
+    with pytest.raises(NotImplementedError, match="A10b"):
+        reject_unported_train(parse_config(["--device_cache_sharded",
+                                            "--zero1"]))
+    for name, flag in (("repl", "--device_cache"),
+                       ("shard", "--device_cache_sharded")):
+        train_main.main(GAN + [flag, "--niter", "1", "--name", name,
+                               "--checkpoints_dir", str(tmp_path)])
+    a, b = (_losses(os.path.join(tmp_path, n, "metrics.jsonl"))
+            for n in ("repl", "shard"))
+    assert a and a == b
+    cfg = _cfg()
+    with pytest.raises(SystemExit, match="--device_cache_sharded"):
+        DeviceCacheLoader(cfg, _ds(cfg), CPU, mesh=DataMesh(world=2))

@@ -386,14 +386,19 @@ def test_sampler_over_a_folder_matches_the_jax_cli(decoders, tmp_path, extra):
 @pytest.mark.parametrize("mesh,ok", [("1", True), ("-1", True), ("2", False),
                                      ("1,1", False)])
 def test_one_card_mesh_flags(mesh, ok):
-    """``--mesh_shape 1`` (train_utkface_128.sh) and ``-1`` mean one card;
-    any other mesh is multi-device and still raises."""
+    """``--mesh_shape 1`` (train_utkface_128.sh) and ``-1`` mean one card
+    in one process; a data axis of 2 needs two processes (torchrun), and a
+    model axis is the GSPMD step (A10b): both raise."""
+    from pcgan_tpu_torch.parallel.mesh import mesh_from_config
     from pcgan_tpu_torch.train import reject_unported_train
-    argv = ["--mesh_shape", mesh] + (["--mesh_axes", "data,model"]
-                                     if "," in mesh else [])
+    argv = ["--mesh_shape", mesh, "--device", "cpu"] + (
+        ["--mesh_axes", "data,model"] if "," in mesh else [])
     cfg = tcfg.parse_config(argv)
     if ok:
         reject_unported_train(cfg)
+        assert mesh_from_config(cfg).shape == {"data": 1}
     else:
-        with pytest.raises(NotImplementedError, match="--mesh_shape"):
+        with pytest.raises((NotImplementedError, ValueError),
+                           match="--mesh_shape"):
             reject_unported_train(cfg)
+            mesh_from_config(cfg)

@@ -367,5 +367,8 @@ def test_doctor_on_the_cpu(capsys):
     assert set(rep["xla_only_flags"]) == set(doctor.XLA_ONLY)
     line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert line["doctor"]["device_check"] == "ok"
+    assert rep["world_size"] == 1
     rep = doctor.main(["--device", "cpu", "--mesh_shape", "2"])
-    assert "A10" in rep["mesh"]
+    assert rep["mesh"].startswith("FAILED: --mesh_shape 2")
+    rep = doctor.main(["--device", "cpu", "--zero1"])
+    assert "A10b" in rep["mesh"]

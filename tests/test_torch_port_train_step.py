@@ -248,11 +248,14 @@ def test_unported_training_flags_raise(tmp_path):
                       (["--spectral_norm"], "NLayer")):
         assert type(define_D(tcfg.parse_config(argv))).__name__.startswith(
             cls)
-    # what still raises: the sharded device cache, the multi-device flags,
-    # and the XLA-only flags for good
-    for argv, flag in ((["--device_cache_sharded"],
-                        "--device_cache_sharded"),
-                       (["--zero1"], "--zero1"),
+    # the sharded device cache and the data axis are ported (A10)
+    reject_unported_train(tcfg.parse_config(["--device_cache_sharded"]))
+    reject_unported_train(tcfg.parse_config(["--mesh_shape", "2"]))
+    # what still raises: the GSPMD flags (A10b), and the XLA-only flags
+    # for good
+    for argv, flag in ((["--zero1"], "A10b"),
+                       (["--spatial_shards", "2"], "--spatial_shards"),
+                       (["--dcn_data", "2"], "--dcn_data"),
                        (["--xla_opt", "x"], "XLA-only"),
                        (["--compile_cache", "d"], "XLA-only"),
                        (["--profile_server", "9000"], "XLA-only")):

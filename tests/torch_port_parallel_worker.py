@@ -1,0 +1,236 @@
+"""A cohort of gloo ranks for the data-parallel tests
+(``test_torch_port_parallel_*.py``); a helper, not a test file.
+
+``run_cohort(cases, workdir)`` writes the cases to one file, starts one
+process per rank (``python torch_port_parallel_worker.py <file> <rank>
+<world> <port> <device>``), waits for all of them under one timeout, killing the
+whole cohort when it expires (``tests/test_multihost.py:_drain``), and
+returns each rank's results. A rank joins the group through
+``parallel.mesh.init_distributed`` (gloo; with ``device='cuda'`` every
+rank computes on cuda:0, the ranks sharing the one card) and runs every
+case in order; a case is a dict with ``kind`` (a function of this module)
+and its inputs. The workers import torch and the port only, never jax.
+"""
+
+import contextlib
+import os
+import socket
+import subprocess
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_cohort(cases: dict, workdir: str, world: int = 2,
+               timeout: float = 120.0, device: str = "cpu") -> list:
+    """{name: case} -> [{name: result} for each rank]."""
+    path = os.path.join(str(workdir), "cohort_cases.pt")
+    torch.save(cases, path)
+    port = str(_free_port())
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [REPO, os.environ.get("PYTHONPATH", "")]), "OMP_NUM_THREADS": "1"}
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), path, str(r), str(world),
+         port, device], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} failed:\n{out}"
+    return [torch.load(f"{path}.rank{r}", weights_only=False)
+            for r in range(world)]
+
+
+# --------------------------------------------------------------------------- #
+# the cases, run on every rank
+# --------------------------------------------------------------------------- #
+
+
+def _step_result(state, metrics):
+    from pcgan_tpu_torch.utils.checkpoint import adam_state
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "G": {k: v.cpu().clone() for k, v in
+                  state.G.state_dict().items()},
+            "D": {k: v.cpu().clone() for k, v in
+                  state.D.state_dict().items()},
+            "opt_g": adam_state(state.opt_g, state.G),
+            "opt_d": adam_state(state.opt_d, state.D)}
+
+
+def gan_steps(mesh, case):
+    """One data-parallel GAN step from each given state (a
+    ``convert_train_state`` payload) on its global batch's local rows."""
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_train_step, shard_train_state)
+    from pcgan_tpu_torch.train import create_train_state
+    from pcgan_tpu_torch.utils.checkpoint import load_state
+    tc, out = case["cfg"], []
+    for payload, batch in zip(case["payloads"], case["batches"]):
+        G, D = define_G(tc).to(mesh.device), define_D(tc).to(mesh.device)
+        state = shard_train_state(create_train_state(
+            tc, G, D, torch.Generator().manual_seed(0)), mesh)
+        load_state(state, payload)
+        step = make_parallel_train_step(tc, G, D, mesh=mesh,
+                                        with_preprocess=False)
+        margins = []
+        local = {k: v.to(mesh.device) for k, v in
+                 mesh.local_rows(batch).items()}
+        with _relu_margins(margins):
+            m = step(state, local)
+        out.append({**_step_result(state, m),
+                    "relu_margin": min(margins, default=float("inf"))})
+    return out
+
+
+@contextlib.contextmanager
+def _relu_margins(seen: list):
+    """Records the smallest |input| of every ``F.relu`` and
+    ``F.leaky_relu`` call (G's and D's kinks) while it is open."""
+    import torch.nn.functional as F
+    fns = {"relu": F.relu, "leaky_relu": F.leaky_relu}
+
+    def watch(fn):
+        def wrapped(x, *args, **kwargs):
+            seen.append(float(x.detach().abs().min()))
+            return fn(x, *args, **kwargs)
+        return wrapped
+    for name, fn in fns.items():
+        setattr(F, name, watch(fn))
+    try:
+        yield
+    finally:
+        for name, fn in fns.items():
+            setattr(F, name, fn)
+
+
+def comparator_steps(mesh, case):
+    """One data-parallel comparator step from each given state."""
+    from pcgan_tpu_torch.models import define_C
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_comparator_step)
+    from pcgan_tpu_torch.train import create_comparator_state
+    from pcgan_tpu_torch.utils.checkpoint import adam_state, \
+        load_comparator_state
+    tc, out = case["cfg"], []
+    for payload, batch in zip(case["payloads"], case["batches"]):
+        C = define_C(tc)
+        state = create_comparator_state(tc, C,
+                                        torch.Generator().manual_seed(0))
+        load_comparator_state(state, payload)
+        step = make_parallel_comparator_step(tc, C, mesh=mesh,
+                                             with_preprocess=False)
+        m = step(state, mesh.local_rows(batch))
+        out.append({"metrics": {k: float(v) for k, v in m.items()},
+                    "C": {k: v.clone() for k, v in C.state_dict().items()},
+                    "opt": adam_state(state.opt, C)})
+    return out
+
+
+def cache_batches(mesh, case):
+    """An epoch and the eval pass of the sharded device cache: this rank's
+    rows of every batch."""
+    from pcgan_tpu_torch.data import loader as data_loader
+    from pcgan_tpu_torch.data.device_cache import DeviceCacheLoader
+    cfg = case["cfg"]
+    ds = data_loader.create_dataset(cfg, train=True)
+    ld = DeviceCacheLoader(cfg, ds, mesh.device, shuffle=True, seed=3,
+                           mesh=mesh, sharded=True)
+    epoch = [{k: v.clone() for k, v in b.items()} for b in ld]
+    return {"n_loc": ld.n_loc, "epoch": epoch,
+            "eval": [{k: v.clone() for k, v in b.items()}
+                     for b in ld.eval_iter()]}
+
+
+def fid_eval(mesh, case):
+    """The streaming evaluator over this rank's rows of each global
+    batch."""
+    from pcgan_tpu_torch.eval_lib import make_fid_evaluator
+    from pcgan_tpu_torch.models import define_G
+    cfg = case["cfg"]
+    G = define_G(cfg)
+    G.load_state_dict(case["G"])
+    run = make_fid_evaluator(cfg, None, mesh.device, mesh)
+    return run(G, iter([mesh.local_rows(b) for b in case["batches"]]),
+               max_images=case["max_images"], seed=case["seed"])
+
+
+def mesh_shape_raises(mesh, case):
+    """``check_data_axis`` on this world: the error of each shape."""
+    from pcgan_tpu_torch.parallel.mesh import check_data_axis
+    out = {}
+    for shape in case["shapes"]:
+        try:
+            check_data_axis(shape, mesh.world)
+            out[shape] = None
+        except ValueError as e:
+            out[shape] = str(e)
+    return out
+
+
+class _Cut(Exception):
+    pass
+
+
+def train_runs(mesh, case):
+    """``train_main.main`` on every rank in this cohort's group, once per
+    (argv, cut) of ``case['runs']``: a run with ``cut`` stops right after
+    its checkpoint at that step (every rank at once). Returns each run's
+    final step, or 'cut'."""
+    from pcgan_tpu_torch import train_main
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    os.environ.update(WORLD_SIZE=str(mesh.world), RANK=str(mesh.rank),
+                      LOCAL_RANK="0")
+    save, out = ckpt.save_state, []
+    for argv, cut in case["runs"]:
+        def cutting(state, *args, **kwargs):
+            path = save(state, *args, **kwargs)
+            if state.step == cut:
+                raise _Cut
+            return path
+        ckpt.save_state = cutting
+        try:
+            out.append(train_main.main(argv)["step"])
+        except _Cut:
+            out.append("cut")
+        finally:
+            ckpt.save_state = save
+    return out
+
+
+def main(path: str, rank: int, world: int, port: str, device: str) -> None:
+    torch.set_num_threads(1)
+    from pcgan_tpu_torch.parallel.mesh import init_distributed
+    mesh = init_distributed(device, backend="gloo",
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world, local_rank=0)
+    try:
+        cases = torch.load(path, weights_only=False)
+        res = {name: globals()[case["kind"]](mesh, case)
+               for name, case in cases.items()}
+        torch.save(res, f"{path}.rank{rank}")
+    finally:
+        mesh.close()
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, REPO)
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+         sys.argv[5])

@@ -196,11 +196,33 @@ the one named in phase 2):
     kernels and their ms, peak memory; (c) ``--device_cache_sharded`` under
     NCCL: every batch bit-identical to the replicated cache's, the
     gather's ms; (d) ``evaluate`` under torchrun: its record equal to the
-    plain run's.
+    plain run's;
+23. sharded training state (``parallel/auto.py``): (a) two ranks spawned
+    on the one card over gloo (CUDA tensors, f32, TF32 off; the default
+    GAN at full width, global batch 8, B1 randomly cropping and flipping
+    the raw u8 canvases, target bins and the pool's slots drawn, pool on)
+    take 3 steps, each from the one rank's state before it, under
+    ``--zero1`` (data 2) and under data 1 x model 2: every loss within
+    TRAIN_STEP_TOL of one rank's plain step on the global batch, the
+    parameters within the Adam envelope, the ranks' gathered states
+    bit-identical, B1 launched on each rank; each rank's resident state
+    bytes beside the plain rank's, the collectives a step and their ms;
+    (b) the train CLI under ``torchrun --nproc_per_node 1`` (this script
+    re-entered with ``--auto-worker``) with ``--mesh_shape 1
+    --spatial_shards 2`` and with ``--mesh_shape 1,1 --mesh_axes
+    data,model``: both loss streams bit-identical to the plain run's
+    (cuDNN deterministic for all three).
 
-``python3 chip_smoke.py --cards N`` on a machine with N cards runs only
-phase 22 (a) with one NCCL rank a card, the collectives' kernels of one
-profiled step, and the sharded cache across the ranks.
+``python3 chip_smoke.py --cards N`` on a machine with N cards runs phase
+22 (a) with one NCCL rank a card, the collectives' kernels of one
+profiled step, and the sharded cache across the ranks; then phase 23 on
+the cards: the train CLI under ``torchrun --nproc_per_node N`` on NCCL at
+``train_utkface_128_dp8.sh``'s shape (synthetic data, f32, no comparator)
+with ``--mesh_shape 2,2 --mesh_axes data,model --zero1`` against one
+card's plain run of the same global batches (loss stream within 1e-4
+rel; peak memory, resident state bytes, collectives a step and their ms
+per rank), and ``ServedGenerator.data_parallel`` over the N cards against
+one card's call (f32 within 1e-5) with both rates.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -4696,6 +4718,518 @@ def phase_data_parallel(torch, tmp, folder, bundle_dir) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 23: sharded training state across cards
+# --------------------------------------------------------------------------- #
+
+AUTO_B, AUTO_STEPS = 8, 3        # (a): the global batch, compared steps
+AUTO_POOL = 16                   # (a): the pool on, global
+AUTO_MESHES = {                  # (a): the mesh flags of each cohort run
+    "zero1_data2": ["--mesh_shape", "2", "--zero1"],
+    "data1_model2": ["--mesh_shape", "1,2", "--mesh_axes", "data,model"]}
+AUTO_CLI = {                     # (b): one card under torchrun
+    "spatial_shards": ["--mesh_shape", "1", "--spatial_shards", "2"],
+    "data1_model1": ["--mesh_shape", "1,1", "--mesh_axes", "data,model"]}
+AUTO_CARDS_STEPS = 3             # --cards: the CLI's steps
+AUTO_SERVE_B, AUTO_SERVE_CALLS = 64, 10   # --cards: data_parallel
+
+
+def _auto_inputs() -> dict:
+    """Phase 23 (a)'s config and inputs, which its spawned ranks read from
+    a file: the default GAN at full width in f32 with everything drawn
+    (crops, flips, target bins, pool slots) and the pool on; seeded u8
+    global batches, a warm-up step's and AUTO_STEPS steps'."""
+    rng = np.random.default_rng(23)
+    return {"dev": DEV, "argv": [
+        "--netG", NETG, "--ngf", str(NGF), "--netD", "basic", "--ndf",
+        str(NGF), "--norm", "instance", "--crop_size", str(CROP),
+        "--load_size", str(LOAD), "--n_age_bins", str(NB), "--batch_size",
+        str(AUTO_B), "--dtype", "float32", "--pool_size", str(AUTO_POOL),
+        "--gan_mode", "lsgan", "--lambda_L1", "100", "--lr_policy",
+        "constant", "--cond_inject", "input"],
+        "batches": [{"image": rng.integers(0, 256, (AUTO_B, NATIVE, NATIVE,
+                                                    C), dtype=np.uint8),
+                     "bin": rng.integers(0, NB, AUTO_B)}
+                    for _ in range(1 + AUTO_STEPS)]}
+
+
+def _auto_steps(torch, mesh, inputs, work, flags=()) -> dict:
+    """The steps of ``inputs``: with ``mesh`` None the one-rank plain step
+    on the whole batch from the warm state ``{work}/s0.pt``, writing the
+    state before each later step; else the sharded-state step over the
+    mesh of ``flags``, each step from the plain run's state before it.
+    Returns the losses, the parameters after each step, B1's launches,
+    and on the mesh the resident state bytes (sharded and whole), the
+    collectives a step and (one more step, the device synchronized around
+    each collective) their ms."""
+    import warnings as _w
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.parallel import auto
+    from pcgan_tpu_torch.parallel.mesh import DataMesh, make_mesh
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_train_step)
+    from pcgan_tpu_torch.train import create_train_state
+    from pcgan_tpu_torch.utils.checkpoint import load_state, save_state
+    cfg = parse_config(inputs["argv"] + list(flags), is_train=True)
+    if mesh is not None:
+        p = cfg.parallel
+        mesh = make_mesh(DataMesh(mesh.world, mesh.rank, mesh.device,
+                                  mesh.group), p.mesh_shape, p.mesh_axes)
+    dev = torch.device(inputs["dev"]) if mesh is None else mesh.device
+
+    def fresh(i):
+        with _w.catch_warnings():
+            _w.simplefilter("ignore", RuntimeWarning)   # input injection
+            G, D = define_G(cfg).to(dev), define_D(cfg).to(dev)
+        state = create_train_state(cfg, G, D,
+                                   torch.Generator().manual_seed(0))
+        load_state(state, torch.load(os.path.join(work, f"s{i}.pt"),
+                                     weights_only=True))
+        return state
+
+    def rows(b, rws=None):
+        b = b if mesh is None else mesh.local_rows(b, rws)
+        return {k: torch.from_numpy(np.asarray(v)).to(dev)
+                for k, v in b.items()}
+
+    def params(state):
+        return {f"{n}.{k}": v.detach().cpu().clone()
+                for n, net in (("G", state.G), ("D", state.D))
+                for k, v in net.named_parameters()}
+    out = {"losses": [], "params": [], "step_s": [], "collectives": []}
+    cp.launches = 0
+    if mesh is None:
+        state = fresh(0)
+        step = make_parallel_train_step(cfg, state.G, state.D)
+        for i, b in enumerate(inputs["batches"][1:]):
+            if i:
+                save_state(state, os.path.dirname(work),
+                           os.path.basename(work), f"s{i}")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(state, rows(b))
+            out["losses"].append({k: float(v) for k, v in m.items()})
+            out["step_s"].append(time.perf_counter() - t0)
+            out["params"].append(params(state))
+        out["bytes"] = auto.state_bytes(state)
+        out["b1"] = cp.launches
+        return out
+    rws = auto.batch_rows(cfg, mesh)
+    for i, b in enumerate(inputs["batches"][1:]):
+        state = fresh(i)
+        whole = auto.state_bytes(state)
+        auto.shard_state(state, mesh, cfg.parallel.zero1)
+        step = auto.make_sharded_train_step(cfg, state.G, state.D,
+                                            mesh=mesh)
+        raw = rows(b, rws)
+        before = dict(auto.COLLECTIVES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, raw)
+        out["losses"].append({k: float(v) for k, v in m.items()})
+        out["step_s"].append(time.perf_counter() - t0)
+        out["collectives"].append({
+            k: v - before.get(k, 0) for k, v in auto.COLLECTIVES.items()
+            if v - before.get(k, 0)})
+        out["bytes"] = {"rank": state.shard_plan.resident_bytes(state),
+                        "whole": whole}
+        with auto.gathered(state):
+            out["params"].append(params(state))
+    out["b1"] = cp.launches
+    # one more step with the collectives timed (synchronized: slower)
+    auto.TIMING["on"] = True
+    auto.COLLECTIVE_MS.clear()
+    try:
+        float(step(state, raw)["loss_G"])
+    finally:
+        auto.TIMING["on"] = False
+    out["collective_ms"] = dict(auto.COLLECTIVE_MS)
+    out["coords"] = {ax: mesh.coord(ax) for ax in mesh.axes}
+    return out
+
+
+def _auto_rank(rank, port, work):
+    """A spawned rank of phase 23 (a): gloo over CUDA tensors, both ranks
+    on cuda:0; each mesh of AUTO_MESHES in turn."""
+    sys.path.insert(0, HERE)
+    import torch
+    from pcgan_tpu_torch.parallel.mesh import init_distributed
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    mesh = init_distributed(inputs["dev"], backend="gloo",
+                            init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2, local_rank=0)
+    try:
+        res = {name: _auto_steps(torch, mesh, inputs, work, flags)
+               for name, flags in AUTO_MESHES.items()}
+        torch.save(res, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        mesh.close()
+
+
+def _envelope(name, got, want, start, what) -> dict:
+    """One Adam step's parameter change within the lockstep's envelope:
+    bulk below 2e-6, max 2.1 lr, under 0.2% beyond lr/4 (the stem's
+    condition channels, which instance norm cancels, to the sign-flip
+    bound alone)."""
+    worst = {"median": 0.0, "max": 0.0, "share": 0.0}
+    for k, v in want.items():
+        diff = ((got[k] - start[k]) - (v - start[k])).abs().numpy()
+        if k == "G.stem.weight":
+            check(diff[:, C:].max() <= 2.1 * LR,
+                  f"{what}: the stem's condition channels moved by "
+                  f"{diff[:, C:].max()}")
+            diff = diff[:, :C]
+        med, mx = float(np.median(diff)), float(diff.max())
+        share = float((diff > 0.25 * LR).mean())
+        worst = {"median": max(worst["median"], med),
+                 "max": max(worst["max"], mx),
+                 "share": max(worst["share"], share)}
+        check(med < 2e-6 and mx <= 2.1 * LR and share < 2e-3,
+              f"{what}: {name} {k} off one rank's by median {med}, max "
+              f"{mx}, share {share}")
+    return worst
+
+
+def _auto_ranks(torch, tmp) -> dict:
+    """(a) two gloo ranks on the one card against one rank's plain step."""
+    import torch.multiprocessing as mp
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_train_step)
+    from pcgan_tpu_torch.train import create_train_state
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    work = os.path.join(tmp, "auto")
+    os.makedirs(work)
+    inputs = _auto_inputs()
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    cfg = parse_config(inputs["argv"], is_train=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        G = define_G(cfg, torch.Generator().manual_seed(1)).to(DEV)
+        D = define_D(cfg, torch.Generator().manual_seed(2)).to(DEV)
+    state = create_train_state(cfg, G, D, torch.Generator().manual_seed(0))
+    # one warm-up step, so Adam's moments scale every compared update
+    make_parallel_train_step(cfg, G, D)(
+        state, {k: torch.from_numpy(v).to(DEV) for k, v in
+                inputs["batches"][0].items()})
+    ckpt.save_state(state, tmp, "auto", "s0")
+    del state, G, D
+    one = _auto_steps(torch, None, inputs, work)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_auto_rank, args=(_free_port(), work),
+                             nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=2):
+            check(time.perf_counter() - t0 < DP_TIMEOUT,
+                  f"phase 23 (a): not done in {DP_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    starts = [one["params"][i - 1] if i else None
+              for i in range(AUTO_STEPS)]
+    s0 = torch.load(os.path.join(work, "s0.pt"), weights_only=True)
+    starts[0] = {f"{n}.{k}": v for n in ("G", "D")
+                 for k, v in s0[n].items()
+                 if f"{n}.{k}" in one["params"][0]}
+    out = {"one_rank": {"bytes": one["bytes"], "b1": one["b1"]},
+           "spawn_wall_s": wall}
+    for name in AUTO_MESHES:
+        a, b = ranks[0][name], ranks[1][name]
+        what = f"(a) {name}"
+        apart = sorted({k for i, ps in enumerate(a["params"])
+                        for k, v in ps.items()
+                        if not torch.equal(v, b["params"][i][k])})
+        check(a["losses"] == b["losses"] and not apart,
+              f"{what}: the ranks differ: losses {a['losses']} vs "
+              f"{b['losses']}; parameters {apart[:8]}")
+        gap = 0.0
+        for i, (x, y) in enumerate(zip(a["losses"], one["losses"])):
+            check(set(x) == set(y), f"{what}: step {i} metric keys differ")
+            for k in y:
+                d = abs(x[k] - y[k])
+                gap = max(gap, d / (1.0 + abs(y[k])))
+                check(d <= TRAIN_STEP_TOL + TRAIN_STEP_TOL * abs(y[k]),
+                      f"{what}: step {i} {k} {x[k]} vs one rank {y[k]}")
+        worst = {}
+        for i in range(AUTO_STEPS):
+            w = _envelope(f"step {i}", a["params"][i], one["params"][i],
+                          starts[i], what)
+            worst = {k: max(worst.get(k, 0.0), v) for k, v in w.items()}
+        b1 = [ranks[r][name]["b1"] for r in range(2)]
+        check(b1 == [AUTO_STEPS] * 2,
+              f"{what}: B1 launches {b1} (want {AUTO_STEPS} a rank)")
+        out[name] = {
+            "loss_max_rel_gap": gap, "param_diff": worst, "b1_launches": b1,
+            "bytes_rank": [ranks[r][name]["bytes"]["rank"]
+                           for r in range(2)],
+            "bytes_one_rank": a["bytes"]["whole"],
+            "collectives_per_step": a["collectives"][-1],
+            "collective_ms": [ranks[r][name]["collective_ms"]
+                              for r in range(2)],
+            "step_s": a["step_s"], "one_rank_step_s": one["step_s"],
+            "coords": [ranks[r][name]["coords"] for r in range(2)]}
+        rb, wb = out[name]["bytes_rank"][0], a["bytes"]["whole"]
+        say(f"(a) {name}, two gloo ranks on one card (f32, full width, "
+            f"global batch {AUTO_B}, everything drawn, pool on): losses "
+            f"within {gap:.3g} (rel) of one rank's over {AUTO_STEPS} steps, "
+            f"parameters median/max/share {worst['median']:.3g}/"
+            f"{worst['max']:.3g}/{worst['share']:.3g}, ranks "
+            f"bit-identical; B1 {b1}; resident bytes a rank: params "
+            f"{rb['params']} adam {rb['adam']} ema {rb['ema']} total "
+            f"{rb['total']} (one rank: {wb['params']}, {wb['adam']}, "
+            f"{wb['ema']}, {wb['total']}); collectives a step "
+            f"{out[name]['collectives_per_step']}, their ms (synchronized) "
+            f"{out[name]['collective_ms']}")
+    return out
+
+
+def _auto_worker(spec_path: str) -> None:
+    """``chip_smoke.py --auto-worker <spec>`` under torchrun: every run of
+    the spec's ``runs`` ({name: argv}) through ``train_main.main`` (cuDNN
+    deterministic), with B1's launches and peak memory; on the sharded
+    step, the resident state bytes and the collectives of the last step
+    (with the spec's ``time_collectives``, the device synchronized around
+    each, and their ms); rank r writes ``{out}.rank{r}``."""
+    sys.path.insert(0, HERE)
+    import torch
+    from pcgan_tpu_torch import train_main
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.parallel import auto
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.deterministic = True
+    auto.TIMING["on"] = bool(spec.get("time_collectives"))
+    seen = {}
+    make = auto.make_sharded_train_step
+
+    def delta(after, before):
+        return {k: v - before.get(k, 0) for k, v in after.items()
+                if v - before.get(k, 0)}
+
+    def watched(cfg, G, D, C=None, mesh=None, **kw):
+        inner = make(cfg, G, D, C, mesh, **kw)
+
+        def step(state, raw):
+            n, ms = dict(auto.COLLECTIVES), dict(auto.COLLECTIVE_MS)
+            m = inner(state, raw)
+            seen["collectives"] = delta(auto.COLLECTIVES, n)
+            seen["collective_ms"] = delta(auto.COLLECTIVE_MS, ms)
+            seen["bytes"] = state.shard_plan.resident_bytes(state)
+            return m
+        return step
+    auto.make_sharded_train_step = watched
+    out = {}
+    try:
+        for name, argv in spec["runs"].items():
+            seen.clear()
+            cp.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            res = train_main.main(argv)
+            out[name] = {"step": res["step"], "b1": cp.launches,
+                         "peak_gb": torch.cuda.max_memory_allocated()
+                         / 2 ** 30, "bytes": seen.get("bytes"),
+                         "collectives_per_step": seen.get("collectives"),
+                         "collective_ms": seen.get("collective_ms")}
+    finally:
+        auto.make_sharded_train_step = make
+    rank = int(os.environ.get("RANK", 0))
+    with open(f"{spec['out']}.rank{rank}", "w") as f:
+        json.dump(out, f, default=_jsonable)
+
+
+def _torchrun_auto(spec_path: str, nproc: int = 1):
+    """(exit code, output) of ``torchrun --standalone --nproc_per_node
+    nproc chip_smoke.py --auto-worker <spec>``, killed past DP_TIMEOUT."""
+    import signal
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                        "MASTER_PORT")}
+    p = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", str(nproc), os.path.join(HERE, "chip_smoke.py"),
+         "--auto-worker", spec_path], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        log = p.communicate(timeout=DP_TIMEOUT)[0]
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.wait()
+    return p.returncode, log
+
+
+def _loss_rows(run_dir):
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        return [{k: v for k, v in json.loads(line).items()
+                 if k.startswith("loss")} for line in f]
+
+
+def _auto_cli(torch, tmp) -> dict:
+    """(b) the train CLI under torchrun on one card, each mesh of AUTO_CLI,
+    against the plain run: loss streams bit-identical."""
+    from pcgan_tpu_torch import train_main
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+
+    def argv(name, extra=()):
+        return _train_argv(tmp, name, 1, size=32,
+                           extra=("--print_freq", "1", *extra))
+    spec = {"out": os.path.join(tmp, "auto_cli.json"),
+            "runs": {n: argv(f"auto_{n}", f) for n, f in AUTO_CLI.items()}}
+    path = os.path.join(tmp, "auto_cli_spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    rc, log = _torchrun_auto(path)
+    call_s = time.perf_counter() - t0
+    check(rc == 0, f"(b) torchrun worker exited {rc}:\n{log[-4000:]}")
+    with open(spec["out"] + ".rank0") as f:
+        worker = json.load(f)
+    torch.backends.cudnn.deterministic = True
+    try:
+        cp.launches = 0
+        train_main.main(argv("auto_plain"))
+        plain_b1 = cp.launches
+    finally:
+        torch.backends.cudnn.deterministic = False
+    want = _loss_rows(os.path.join(tmp, "train", "auto_plain"))
+    for name in AUTO_CLI:
+        got = _loss_rows(os.path.join(tmp, "train", f"auto_{name}"))
+        check(len(got) == 4 and got == want,
+              f"(b) {name}: the loss stream differs from the plain run's: "
+              f"{got} vs {want}")
+        check(worker[name]["b1"] == plain_b1 > 0,
+              f"(b) {name}: B1 launches {worker[name]['b1']} vs plain "
+              f"{plain_b1}")
+    say(f"(b) the train CLI under torchrun on one card with "
+        f"{' and '.join(' '.join(f) for f in AUTO_CLI.values())}: loss "
+        f"streams bit-identical to the plain run's over {len(want)} steps; "
+        f"B1 {[worker[n]['b1'] for n in AUTO_CLI]} (plain {plain_b1})")
+    return {"identical": True, "steps": len(want), "call_s": call_s,
+            "b1": {**{n: worker[n]["b1"] for n in AUTO_CLI},
+                   "plain": plain_b1}}
+
+
+def phase_sharded_state(torch, tmp) -> dict:
+    """Phase 23: (a) two gloo ranks on the one card, ``--zero1`` and a
+    model axis, against one rank; (b) the mesh flags of size 1 under
+    torchrun on one card, bit-identical to the plain run."""
+    t0 = time.perf_counter()
+    out = {"ranks": _auto_ranks(torch, tmp)}
+    out["cli"] = _auto_cli(torch, tmp)
+    a = out["ranks"]
+    out["launches_per_run"] = {
+        **{f"{n}_ranks": sum(a[n]["b1_launches"]) for n in AUTO_MESHES},
+        "one_rank": a["one_rank"]["b1"],
+        **{f"cli_{n}": v for n, v in out["cli"]["b1"].items()}}
+    out["phase_s"] = time.perf_counter() - t0
+    say(f"phase 23: {out['phase_s']:.1f} s; B1 launches "
+        f"{out['launches_per_run']}")
+    return out
+
+
+def _auto_cards(torch, tmp, n) -> dict:
+    """--cards: the train CLI at train_utkface_128_dp8.sh's shape (synthetic
+    data, f32, no comparator) under ``torchrun --nproc_per_node n`` with a
+    2 x 2 data x model mesh and ``--zero1`` on NCCL, against one card's
+    plain run of the same global batches; then data_parallel over the n
+    cards against one card's call."""
+    from pcgan_tpu_torch import train_main
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_G
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.serving import export_generator, load_exported
+    flags = ["--dataset_mode", "synthetic", "--max_dataset_size",
+             str(DP8_B * AUTO_CARDS_STEPS), "--netG", NETG, "--netD",
+             "basic", "--norm", "instance", "--load_size", str(LOAD),
+             "--crop_size", str(CROP), "--batch_size", str(DP8_B),
+             "--n_age_bins", str(NB), "--gan_mode", "lsgan", "--lambda_L1",
+             "100", "--niter", "1", "--niter_decay", "0", "--lr", "0.0002",
+             "--beta1", "0.5", "--pool_size", "64", "--print_freq", "1",
+             "--save_epoch_freq", "0", "--num_threads", "8", "--dtype",
+             "float32", "--checkpoints_dir", os.path.join(tmp, "cards"),
+             *DP8_EXTRA]
+    mesh = ["--mesh_shape", "2,2", "--mesh_axes", "data,model", "--zero1"]
+    spec = {"out": os.path.join(tmp, "auto_cards.json"),
+            "time_collectives": True,
+            "runs": {"sharded": flags + mesh + ["--name", "sharded"]}}
+    path = os.path.join(tmp, "auto_cards_spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    rc, log = _torchrun_auto(path, n)
+    call_s = time.perf_counter() - t0
+    check(rc == 0, f"--cards {n}: torchrun exited {rc}:\n{log[-4000:]}")
+    ranks = []
+    for r in range(n):
+        with open(f"{spec['out']}.rank{r}") as f:
+            ranks.append(json.load(f)["sharded"])
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cp.launches = 0
+        train_main.main(flags + ["--mesh_shape", "1", "--name", "plain"])
+        plain = {"b1": cp.launches,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    got = _loss_rows(os.path.join(tmp, "cards", "sharded"))
+    want = _loss_rows(os.path.join(tmp, "cards", "plain"))
+    check(len(got) == len(want) == AUTO_CARDS_STEPS,
+          f"--cards: {len(got)} vs {len(want)} logged steps")
+    gap = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+              for a, b in zip(got, want) for k in b)
+    check(gap <= 1e-4, f"--cards: the sharded loss stream is {gap:.3g} "
+          f"(rel) off the plain run's: {got} vs {want}")
+    check(all(r["b1"] == AUTO_CARDS_STEPS for r in ranks),
+          f"--cards: B1 launches {[r['b1'] for r in ranks]}")
+    out = {"train": {"loss_max_rel_gap": gap, "ranks": ranks,
+                     "plain": plain, "call_s": call_s}}
+    say(f"--cards {n}: train CLI over data=2 x model=2 + zero1 on NCCL "
+        f"(f32, batch {DP8_B}): loss stream within {gap:.3g} (rel) of one "
+        f"card's over {len(got)} steps; peak GiB a rank "
+        f"{[round(r['peak_gb'], 3) for r in ranks]} (one card "
+        f"{plain['peak_gb']:.3f}); resident bytes a rank "
+        f"{[r['bytes'] for r in ranks]}; collectives a step "
+        f"{ranks[0]['collectives_per_step']}, their ms (synchronized) a "
+        f"rank {[r['collective_ms'] for r in ranks]}")
+    # data_parallel over the cards against one card's call
+    cfg = parse_config(flags, is_train=False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        G = define_G(cfg, torch.Generator().manual_seed(5))
+    export_generator(cfg, G, os.path.join(tmp, "dp_serve"))
+    served = load_exported(os.path.join(tmp, "dp_serve"), device=DEV)
+    call = served.data_parallel([torch.device(DEV, i) for i in range(n)])
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-1, 1, (AUTO_SERVE_B, CROP, CROP, C)).astype(np.float32)
+    c = np.eye(NB, dtype=np.float32)[rng.integers(0, NB, AUTO_SERVE_B)]
+    err = float(np.abs(call(x, c) - served(x, c)).max())
+    check(err <= 1e-5, f"--cards: data_parallel off one card's by {err}")
+
+    def rate(fn):
+        for _ in range(3):
+            fn(x, c)
+        t = time.perf_counter()
+        for _ in range(AUTO_SERVE_CALLS):
+            fn(x, c)
+        return AUTO_SERVE_B * AUTO_SERVE_CALLS / (time.perf_counter() - t)
+    out["serve"] = {"max_abs_err": err, "rows_per_s_cards": rate(call),
+                    "rows_per_s_one_card": rate(served)}
+    say(f"--cards {n}: data_parallel (f32, batch {AUTO_SERVE_B}) within "
+        f"{err:.3g} of one card's call; {out['serve']['rows_per_s_cards']:.1f}"
+        f" rows/s over {n} cards, {out['serve']['rows_per_s_one_card']:.1f}"
+        f" on one (host round trip included)")
+    return out
+
+
 DP_CARDS_CACHE = ["--dataset_mode", "synthetic", "--max_dataset_size",
                   "1000", "--batch_size", "256", "--crop_size", "128",
                   "--load_size", "143"]   # --cards: the sharded cache's rows
@@ -4706,7 +5240,8 @@ def main_cards(n: int) -> None:
     with one NCCL rank a card (rank r on cuda:r) against one rank, the
     collectives' kernels of one profiled step on each rank, and the
     sharded cache across the ranks (every rank's rows against the
-    replicated cache's). Prints the card line, then a JSON summary."""
+    replicated cache's); then phase 23 on the cards (``_auto_cards``).
+    Prints the card line, then a JSON summary."""
     if not os.path.isdir(os.path.join(HERE, "pcgan_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository "
              "(pcgan_tpu_torch/ is missing)")
@@ -4722,9 +5257,12 @@ def main_cards(n: int) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         out = _dp_ranks(torch, tmp, n, "nccl", shared=False,
                         cache_argv=DP_CARDS_CACHE)
+        torch.cuda.empty_cache()
+        sharded = _auto_cards(torch, tmp, n)
     say(f"total {time.perf_counter() - t0:.1f} s")
     print(card, flush=True)
-    print(json.dumps({"cards": n, "data_parallel": out}, default=_jsonable),
+    print(json.dumps({"cards": n, "data_parallel": out,
+                      "sharded_state": sharded}, default=_jsonable),
           flush=True)
 
 
@@ -4787,6 +5325,7 @@ def main() -> None:
         tools = phase_tools(torch, tmp)
         leftovers = phase_leftovers(torch, tmp, levers, variants, tools)
         dp = phase_data_parallel(torch, tmp, folder, path3["bundle_dir"])
+        sharded = phase_sharded_state(torch, tmp)
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
         "training": path1["launches_per_run"], "bench_lowch": 0,
@@ -4800,7 +5339,8 @@ def main() -> None:
         "g_variants": variants["launches_per_run"],
         "tools": tools["launches_per_run"],
         "leftovers": leftovers["launches_per_run"],
-        "data_parallel": dp["launches_per_run"]}
+        "data_parallel": dp["launches_per_run"],
+        "sharded_state": sharded["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
@@ -4811,7 +5351,7 @@ def main() -> None:
                                "label_free": 0, "evaluation": 0,
                                "serving": 0, "levers": 0, "g_variants": 0,
                                "tools": 0, "leftovers": 0,
-                               "data_parallel": 0,
+                               "data_parallel": 0, "sharded_state": 0,
                                "tail_forms": variants["b2_tail_launches"]}
     b2["launches"] = (path2["launches"] + path1["b2_launches"]
                       + variants["b2_tail_launches"])
@@ -4819,7 +5359,7 @@ def main() -> None:
           and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools, 'leftovers': leftovers, 'data_parallel': dp}, default=_jsonable)}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools, 'leftovers': leftovers, 'data_parallel': dp, 'sharded_state': sharded}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)
@@ -4831,6 +5371,8 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         _dp_worker(sys.argv[2])         # phase 22's rank under torchrun
+    elif sys.argv[1:2] == ["--auto-worker"]:
+        _auto_worker(sys.argv[2])       # phase 23's ranks under torchrun
     elif sys.argv[1:2] == ["--cards"]:
         main_cards(int(sys.argv[2]))    # phase 22 (a) over N cards
     else:

@@ -30,22 +30,22 @@ from torch import nn
 from pcgan_tpu_torch.config import Config
 from pcgan_tpu_torch.models.layers import load_stats_state, stats_state
 from pcgan_tpu_torch.train import StepParts, TrainState
-from pcgan_tpu_torch.utils import image_pool
 
 
 def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
-                          C: Optional[nn.Module] = None, group=None
-                          ) -> Callable:
+                          C: Optional[nn.Module] = None, group=None,
+                          parts: Optional[StepParts] = None) -> Callable:
     """Drop-in for ``train.make_train_step`` when ``--grad_accum`` > 1
     (same state, same batch, same metrics). ``group`` averages over the
     data axis where the JAX step calls ``pmean``: the accumulated D and G
     gradients, the microbatch-mean r_t, the metrics and the norm state
-    (``pcgan_tpu/accum.py:276, 284-285, 373, 411, 424-426``)."""
+    (``pcgan_tpu/accum.py:276, 284-285, 373, 411, 424-426``). ``parts``
+    replaces the step's ``StepParts`` (the sharded-state step's)."""
     accum = int(cfg.train.grad_accum)
     if accum < 2:
         raise ValueError("make_accum_train_step needs grad_accum >= 2; use "
                          "train.make_train_step otherwise")
-    parts = StepParts(cfg, G, D, C, group)
+    parts = parts or StepParts(cfg, G, D, C, group)
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         big = batch["image"].shape[0]
@@ -53,6 +53,7 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
             raise ValueError(f"(per-device) batch {big} must be divisible "
                              f"by --grad_accum {accum}")
         bsz = big // accum
+        parts.begin(bsz)
         mbs = [{k: v[i * bsz:(i + 1) * bsz] for k, v in batch.items()}
                for i in range(accum)]
         p = state.aug_p
@@ -69,12 +70,11 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
             conds.append(c)
             cond_real, cond_target = c[0], c[1]
             with torch.no_grad():
-                out = G(torch.cat([real, real]),
-                        torch.cat([cond_target, cond_real]),
-                        generator=drop_gen)
+                out = parts.g_forward(state, torch.cat([real, real]),
+                                      torch.cat([cond_target, cond_real]))
             fake_det = out[:bsz]
-            state.pool, fake_d, cond_fake_d = image_pool.query(
-                state.pool, fake_det, cond_target, state.generator)
+            fake_d, cond_fake_d = parts.pool_query(state, fake_det,
+                                                   cond_target)
             losses = parts.d_loss(state, real, fake_det, fake_d, cond_real,
                                   cond_target, cond_fake_d, p)
             grads = torch.autograd.grad(losses[0], parts.d_params)
@@ -86,7 +86,7 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
         d_grads = torch._foreach_div(d_sum, float(accum))
         d_mean = sums / accum
         # the microbatch-mean r_t (d_mean[4]) rides in D's collective
-        *d_grads, rt = parts.mean([*d_grads, d_mean[4]])
+        d_grads, rt = parts.reduce_grads("D", list(d_grads), d_mean[4])
         parts.update(state, "D", d_grads)
         if parts.use_ada:
             # the microbatch-mean r_t is the full batch's
@@ -102,8 +102,8 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
         for mb, (cond_real, cond_target, cond_lo, cond_hi) in zip(mbs,
                                                                    conds):
             real = mb["image"].to(parts.cd)
-            out = G(torch.cat([real, real]),
-                    torch.cat([cond_target, cond_real]), generator=drop_gen)
+            out = parts.g_forward(state, torch.cat([real, real]),
+                                  torch.cat([cond_target, cond_real]))
             losses = parts.g_loss(state, out, real, cond_real, cond_target,
                                   cond_lo, cond_hi, p)
             grads = torch.autograd.grad(losses[0], parts.g_params)
@@ -114,7 +114,8 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
             gsums += torch.stack([v.detach().float() for v in losses])
         load_stats_state(G, g_new)
         load_stats_state(D, d_new)
-        g_grads = parts.mean(list(torch._foreach_div(g_sum, float(accum))))
+        g_grads, _ = parts.reduce_grads("G", list(torch._foreach_div(
+            g_sum, float(accum))))
         parts.update(state, "G", g_grads)
         if state.ema is not None:
             parts.ema_update(state)

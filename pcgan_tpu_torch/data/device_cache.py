@@ -20,16 +20,17 @@ Two layouts:
 - replicated (``--device_cache``): the whole dataset on the one device;
   a data-parallel run refuses it, as JAX's multi-process pods do;
 - sharded (``--device_cache_sharded``, ``pcgan_tpu/data/device_cache.py:
-  155-217``): the rows, padded to a multiple of the world size N, split
-  over the ranks in contiguous blocks, so each card holds 1/N of the
-  dataset and each rank decodes only its block. A step uploads the global
-  batch's indices; each rank takes the rows it owns (a masked local
-  ``index_select``, zeros elsewhere) and one ``reduce_scatter_tensor``
-  over the data axis sums them so that rank r receives rows [r*b,
-  (r+1)*b) of the global batch, the rows it trains on. Batch-sized
-  traffic moves; the dataset never does. The sample stream is the
-  replicated cache's, index for index. A process outside torchrun holds
-  every row and issues no collective.
+  155-217``): the rows, padded to a multiple of the data axis N, split
+  over its coordinates in contiguous blocks, so each card holds 1/N of the
+  dataset and each rank decodes only its block (the ranks of a model line
+  hold the same block). A step uploads the global batch's indices; each
+  rank takes the rows it owns (a masked local ``index_select``, zeros
+  elsewhere) and one ``reduce_scatter_tensor`` over the data axis sums
+  them so that the rank at data coordinate d receives rows [d*b, (d+1)*b)
+  of the global batch (``rows``' positions under the sharded-state step),
+  the rows it trains on. Batch-sized traffic moves; the dataset never
+  does. The sample stream is the replicated cache's, index for index. A
+  process outside torchrun holds every row and issues no collective.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from pcgan_tpu_torch.config import Config
+from pcgan_tpu_torch.parallel.rows import Rows
 
 
 class DeviceCacheLoader:
@@ -51,15 +53,17 @@ class DeviceCacheLoader:
     surface the training loops use, plus ``eval_iter``. Batches are dicts of
     device tensors (u8 images, integer labels with ``bin``), equal to the
     host path's for the same (seed, epoch, step). ``bs`` is the global
-    batch; a rank of ``mesh`` receives its rows of it (``sharded``)."""
+    batch; a rank of ``mesh`` receives its rows of it (``sharded``): those
+    of ``rows`` (a ``parallel.rows.Rows``) when given, else its data
+    coordinate's block."""
 
     is_device_cache = True
 
     def __init__(self, cfg: Config, ds, device, *, shuffle: bool = True,
                  seed: int = 0, max_bytes: int = 0, mesh=None,
-                 sharded: bool = False):
-        world = 1 if mesh is None else mesh.world
-        if world > 1 and not sharded:
+                 sharded: bool = False, rows=None):
+        world = 1 if mesh is None else mesh.data_size
+        if mesh is not None and mesh.world > 1 and not sharded:
             raise SystemExit(
                 "--device_cache keeps a replicated copy of the whole dataset "
                 "on one device, which a data-parallel run does not build; "
@@ -72,8 +76,17 @@ class DeviceCacheLoader:
         self.epoch = 0
         self.skip_next = 0
         self.device = torch.device(device)
-        self.group = None if mesh is None else mesh.group
-        self.world, self.rank = world, 0 if mesh is None else mesh.rank
+        self.group = None if mesh is None else mesh.data_group
+        self.world, self.rank = world, 0 if mesh is None else mesh.data_rank
+        # the rows of each data coordinate, in the group's rank order (the
+        # order reduce_scatter_tensor hands out its chunks)
+        self.rows = rows or Rows(world, self.rank, max(1, self.bs // world))
+        self.coords = [0]
+        if self.group is not None:
+            line = mesh.line("data")
+            by_group = {dist.get_group_rank(self.group, int(r)): c
+                        for c, r in enumerate(line)}
+            self.coords = [by_group[g] for g in range(world)]
         n = len(ds)
         if n < self.bs:
             raise SystemExit(
@@ -161,6 +174,10 @@ class DeviceCacheLoader:
         i = torch.from_numpy(idx).to(self.device)
         if self.group is None and self.n_loc == self.n:
             return {k: v.index_select(0, i) for k, v in self._cache.items()}
+        if self.group is not None:
+            b = self.bs // self.world
+            i = torch.cat([i[Rows(self.world, c, self.rows.seg).index(b)
+                             .to(i.device)] for c in self.coords])
         loc = i - self.lo
         own = (loc >= 0) & (loc < self.n_loc)
         loc = loc.clamp(0, self.n_loc - 1)

@@ -19,7 +19,7 @@ import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -156,19 +156,28 @@ def host_resize_size(cfg: Config) -> int:
 
 def make_process_loader(cfg: Config, ds, *, shuffle: bool,
                         drop_last: bool = True, seed: int = 0,
-                        mesh=None) -> "Loader":
-    """The loader of one rank (``pcgan_tpu/data/loader.py:195-212``): rank
-    r of N iterates shard r of every epoch's permutation at
-    ``batch_size // N`` rows a batch, the rows a one-process run would
-    place at device r; ``mesh=None`` (or a world of one) is a plain
-    Loader. Raises when the batch does not split over the ranks."""
-    n = 1 if mesh is None else mesh.world
+                        mesh=None, rows=None) -> "Loader":
+    """The loader of one rank (``pcgan_tpu/data/loader.py:195-212``): the
+    rank at data coordinate d of N iterates shard d of every epoch's
+    permutation at ``batch_size // N`` rows a batch, the rows a
+    one-process run would place at device d; ``mesh=None`` (or a data
+    axis of one) is a plain Loader. With ``rows`` (a ``parallel.rows.Rows``,
+    the sharded-state step) it iterates the one-process run's global
+    batches instead and keeps ``rows``' positions of each. The ranks of a
+    model line load the same rows. Raises when the batch does not split
+    over the data axis."""
+    n = 1 if mesh is None else mesh.data_size
     if cfg.data.batch_size % n:
         raise SystemExit(f"--batch_size {cfg.data.batch_size} must be "
                          f"divisible by the process count ({n})")
+    if rows is not None:
+        return Loader(ds, cfg.data.batch_size, shuffle=shuffle,
+                      drop_last=drop_last, num_threads=cfg.data.num_threads,
+                      seed=seed, resize_to=host_resize_size(cfg),
+                      rows=rows.index(cfg.data.batch_size // n).numpy())
     return Loader(ds, cfg.data.batch_size // n, shuffle=shuffle,
                   drop_last=drop_last, num_threads=cfg.data.num_threads,
-                  seed=seed, shard_id=0 if mesh is None else mesh.rank,
+                  seed=seed, shard_id=0 if mesh is None else mesh.data_rank,
                   num_shards=n, resize_to=host_resize_size(cfg))
 
 
@@ -187,14 +196,17 @@ class Loader:
     level (exact mid-epoch resume). ``shard_id``/``num_shards``: iterate
     every ``num_shards``-th row of each epoch's permutation from
     ``shard_id`` on (the same seed on every rank, so the shards are
-    disjoint), ``batch_size`` being the per-shard batch. ``resize_to`` > 0 resizes every u8
+    disjoint), ``batch_size`` being the per-shard batch. ``rows``: the
+    positions within each batch of ``batch_size`` rows that it yields (a
+    rank's rows of the global batch). ``resize_to`` > 0 resizes every u8
     image key on the host to (resize_to, resize_to) with Pillow's bicubic
     (``pil_resize_np``, ``--host_resize``).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_threads: int = 4, seed: int = 0, drop_last: bool = True,
-                 resize_to: int = 0, shard_id: int = 0, num_shards: int = 1):
+                 resize_to: int = 0, shard_id: int = 0, num_shards: int = 1,
+                 rows: Optional[np.ndarray] = None):
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -203,6 +215,7 @@ class Loader:
         self.num_threads = max(1, num_threads)
         self.resize_to = int(resize_to)
         self.shard_id, self.num_shards = shard_id, max(1, num_shards)
+        self.rows = rows
         self.epoch = 0
         self.skip_next = 0
 
@@ -223,6 +236,8 @@ class Loader:
         with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
             for b in range(start, nb):
                 idx = order[b * self.bs:(b + 1) * self.bs]
+                if self.rows is not None:
+                    idx = idx[self.rows]
                 if get_batch is not None:
                     batch = get_batch(idx, num_threads=self.num_threads)
                 else:

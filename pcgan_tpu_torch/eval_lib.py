@@ -167,14 +167,16 @@ def make_fid_evaluator(cfg: Config, comparator: Optional[Tuple], device,
     device synchronized at each boundary; without it nothing is timed or
     synchronized. ``device`` is required: nothing lands on the CPU by
     omission. ``mesh`` (a ``parallel.mesh.DataMesh``): ``raw_batch_iter``
-    yields this rank's rows of each global batch, every rank runs the same
-    number of batches, and every rank returns the global metrics."""
+    yields this rank's rows of each global batch (its data coordinate's:
+    the ranks of a model line score the same rows, G whole on each), every
+    rank runs the same number of batches, and every rank returns the
+    global metrics, reduced over the data axis."""
     from pcgan_tpu_torch.ops.preprocess import make_preprocess
     from pcgan_tpu_torch.ops.ssim import ssim_pair
     device = torch.device(device)
-    group = None if mesh is None else mesh.group
-    world = 1 if group is None else mesh.world
-    rank = 0 if group is None else mesh.rank
+    group = None if mesh is None else mesh.data_group
+    world = 1 if group is None else mesh.data_size
+    rank = 0 if group is None else mesh.data_rank
     r = cfg.run
     nb = cfg.data.n_age_bins
     score_mode = cfg.model.cond_mode == "score"

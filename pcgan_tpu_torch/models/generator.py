@@ -57,6 +57,7 @@ from pcgan_tpu_torch.models.layers import (Norm, ResizeConv, TorchConv,
                                            TorchConvTranspose,
                                            conv_bias_before_norm,
                                            frozen_stats, norm_uses_bias)
+from pcgan_tpu_torch.parallel import rows as draw
 
 
 def broadcast_cond(cond: torch.Tensor, h: int, w: int,
@@ -188,11 +189,14 @@ class ResnetGenerator(nn.Module):
                               lowch_matmul=lowch_matmul)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows=None) -> torch.Tensor:
         """x: (N,H,W,input_nc) in [-1,1]; cond: (N,cond_nc).
         Returns (N,H,W,output_nc) f32. A training forward of a G with
         dropout draws one keep-mask (p = 0.5) per block, in block order,
-        from ``generator`` (on x's device)."""
+        from ``generator`` (on x's device); ``rows``
+        (``parallel.rows.Rows``): for the global batch, x being this
+        rank's rows of it."""
         dropout = self.use_dropout and self.training
         if dropout and generator is None:
             raise ValueError("a training forward with dropout needs the "
@@ -214,8 +218,8 @@ class ResnetGenerator(nn.Module):
             h = self.cond_proj(h)
         remat = self.training and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            keep = (torch.rand(h.shape, generator=generator,
-                               device=h.device) < 0.5) if dropout else None
+            keep = (draw.rand(h.shape, generator, rows, device=h.device)
+                    < 0.5) if dropout else None
             if remat and i < self.n_remat:
                 # the recompute in the backward pass must not move the norm
                 # state a second time; the mask is an input, so it replays
@@ -326,23 +330,26 @@ class UnetGenerator(nn.Module):
                 quant=quant_trunk, dtype=dtype))
         self.levels = nn.ModuleList(levels)
 
-    def draw_keeps(self, x: torch.Tensor,
-                   generator: torch.Generator) -> dict:
+    def draw_keeps(self, x: torch.Tensor, generator: torch.Generator,
+                   rows=None) -> dict:
         """{level: keep-mask of its up output} of a training forward with
         dropout, drawn (p = 0.5) innermost level first from ``generator``
-        on x's device; level i works at 1/2^(depth-1-i) of x's size."""
+        on x's device (for the global batch under ``rows``); level i works
+        at 1/2^(depth-1-i) of x's size."""
         n, h, w = x.shape[0], x.shape[1], x.shape[2]
         up = len(self.levels) - 1
-        return {i: torch.rand((n, lvl.up.weight.shape[1], h >> (up - i),
-                               w >> (up - i)), generator=generator,
-                              device=x.device) < 0.5
+        return {i: draw.rand((n, lvl.up.weight.shape[1], h >> (up - i),
+                              w >> (up - i)), generator, rows,
+                             device=x.device) < 0.5
                 for i, lvl in enumerate(self.levels) if lvl.use_dropout}
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rows=None) -> torch.Tensor:
         """x: (N,H,W,input_nc) in [-1,1]; cond: (N,cond_nc). Returns
         (N,H,W,output_nc) f32. A training forward with dropout draws its
-        masks with ``draw_keeps`` from ``generator``."""
+        masks with ``draw_keeps`` from ``generator`` (``rows``: for the
+        global batch)."""
         dropout = self.training and any(lvl.use_dropout
                                         for lvl in self.levels)
         keeps = {}
@@ -350,7 +357,8 @@ class UnetGenerator(nn.Module):
             if generator is None:
                 raise ValueError("a training forward with dropout needs the "
                                  "train state's generator")
-            keeps = self.draw_keeps(x, generator)
+            keeps = (self.draw_keeps(x, generator) if rows is None
+                     else self.draw_keeps(x, generator, rows))
         h = x.permute(0, 3, 1, 2)
         if not self.bottleneck:
             h = torch.cat([h, broadcast_cond(cond, h.shape[2], h.shape[3],

@@ -475,11 +475,48 @@ def _affine(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     return (y + bias.view(1, -1, 1, 1)).to(x.dtype)
 
 
+_BN_GROUP = None       # the data axis batch norm's moments span
+
+
+@contextlib.contextmanager
+def batch_norm_group(group):
+    """Train-mode batch norm inside computes its moments over the rows of
+    every rank of ``group`` (a process group of equal local batches; None:
+    this process's rows): flax's batch norm over the global batch of the
+    sharded-state step (``parallel/auto.py``)."""
+    global _BN_GROUP
+    prev, _BN_GROUP = _BN_GROUP, group
+    try:
+        yield
+    finally:
+        _BN_GROUP = prev
+
+
+class _GroupMean(torch.autograd.Function):
+    """The mean of ``x`` over ``group``'s ranks; its backward is the same
+    mean of the gradient (differentiable again, for GP's double
+    backward)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y / torch.tensor(dist.get_world_size(group), dtype=y.dtype,
+                                device=y.device)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GroupMean.apply(g, ctx.group), None
+
+
 class BatchNorm(StatefulModule):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on NCHW: train mode
     normalizes by the batch's f32 stats (``E[x^2] - E[x]^2``, clipped at 0)
     and moves the running stats toward them with the BIASED variance; eval
-    mode reads the running stats."""
+    mode reads the running stats. Inside ``batch_norm_group`` the batch is
+    the global one: the moments are averaged over the group."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -496,8 +533,11 @@ class BatchNorm(StatefulModule):
                            self.weight, self.bias, self.eps)
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(),
-                          min=0.0)
+        mean2 = xf.square().mean(dim=(0, 2, 3))
+        if _BN_GROUP is not None:
+            mean, mean2 = _GroupMean.apply(torch.stack([mean, mean2]),
+                                           _BN_GROUP).unbind(0)
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
         m = self.momentum
         self._write("running_mean",
                     m * self.running_mean + (1 - m) * mean.detach())

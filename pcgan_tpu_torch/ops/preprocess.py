@@ -20,6 +20,7 @@ import torch
 from pcgan_tpu_torch.models.registry import compute_dtype
 from pcgan_tpu_torch.ops.cuda_preprocess import preprocess_batch_cuda
 from pcgan_tpu_torch.ops.resize import resize_matrix
+from pcgan_tpu_torch.parallel import rows as draw
 
 
 # --------------------------------------------------------------------------- #
@@ -70,12 +71,14 @@ def preprocess_batch(imgs: torch.Tensor, crop_y: torch.Tensor,
 
 
 def make_preprocess(cfg, train: bool = True):
-    """Returns f(generator, raw_batch) -> batch dict.
+    """Returns f(generator, raw_batch, rows=None) -> batch dict.
 
     raw_batch: {'image': (B,H,W,C) u8 native-size tensor, ...}. Handles the
     reference's --preprocess modes and --no_flip; at eval (train=False) uses
     center crop and no flip (the reference's test transform). In training,
-    crop offsets and flips come from ``generator`` (a CPU torch.Generator).
+    crop offsets and flips come from ``generator`` (a CPU torch.Generator);
+    ``rows`` (``parallel.rows.Rows``) draws them for the global batch and
+    keeps this rank's rows (the sharded-state step).
     On a CUDA tensor the hand-written kernel runs; on a CPU tensor the plain
     version; any other device raises. With ``--no-pallas_pipeline`` the
     plain version runs on whatever device the batch is on (the JAX
@@ -100,20 +103,20 @@ def make_preprocess(cfg, train: bool = True):
     crop = d.crop_size if "crop" in mode else load
     out_dtype = compute_dtype(cfg.model.dtype)
 
-    def fn(generator, raw):
+    def fn(generator, raw, rows=None):
         imgs = raw["image"]
         b = imgs.shape[0]
         eff_load = load or imgs.shape[1]
         eff_crop = crop or eff_load
         span = eff_load - eff_crop
         if train and span > 0:
-            cy = torch.randint(0, span + 1, (b,), generator=generator)
-            cx = torch.randint(0, span + 1, (b,), generator=generator)
+            cy = draw.randint(0, span + 1, b, generator, rows)
+            cx = draw.randint(0, span + 1, b, generator, rows)
         else:
             cy = torch.full((b,), span // 2)
             cx = torch.full((b,), span // 2)
         if train and not d.no_flip:
-            fl = torch.rand(b, generator=generator) < 0.5
+            fl = draw.rand((b,), generator, rows) < 0.5
         else:
             fl = torch.zeros(b, dtype=torch.bool)
         out = {k: v for k, v in raw.items() if k != "image"}

@@ -1,4 +1,6 @@
-"""Data parallelism across processes (counterpart of ``pcgan_tpu/parallel``):
-one process per card under ``torchrun``, explicit collectives in the step
-(``mesh.py``: the process group and its collectives; ``train_parallel.py``:
-the data-parallel steps and the per-rank train state)."""
+"""Several cards, one process each under ``torchrun`` (counterpart of
+``pcgan_tpu/parallel``), with explicit collectives: ``mesh.py`` (the named
+axes, their process groups, the hybrid mesh), ``train_parallel.py`` (the
+data-parallel steps and the per-rank train state), ``auto.py`` (the
+sharded-state step of ``--zero1`` and the model axis) and ``rows.py`` (a
+rank's rows of the global batch)."""

@@ -3,7 +3,7 @@
 
 Each rank runs the fused step (``train.make_train_step``, or
 ``accum.make_accum_train_step`` under ``--grad_accum``) on its own rows of
-the global batch with the mesh's process group as the JAX step's
+the global batch with the mesh's data-axis group as the JAX step's
 ``axis_name``: the gradients are averaged in the step, so the parameters,
 optimizer moments, EMA twin, ADA's p and the norm state stay alike on every
 rank and never diverge. An N-rank step on a global batch B equals the
@@ -30,14 +30,14 @@ from pcgan_tpu_torch.parallel.mesh import DataMesh, rank_seed
 
 
 def _group(mesh: Optional[DataMesh]):
-    return None if mesh is None else mesh.group
+    return None if mesh is None else mesh.data_group
 
 
 def pool_for_mesh(cfg: Config, mesh: Optional[DataMesh]) -> Config:
     """``cfg`` with ``--pool_size`` rounded up to a multiple of the data
     axis, as the root ``train.py:199-206`` does, so every rank holds an
     equal share."""
-    n = 1 if mesh is None else mesh.world
+    n = 1 if mesh is None else mesh.data_size
     pool = cfg.train.pool_size
     if pool > 0 and pool % n:
         pool = -(-pool // n) * n
@@ -54,9 +54,9 @@ def shard_train_state(state, mesh: Optional[DataMesh]):
     replicated: every rank created it from the same seeds. A world of one
     returns ``state`` unchanged."""
     from pcgan_tpu_torch.utils.image_pool import PoolState
-    if mesh is None or mesh.world == 1:
+    if mesh is None or mesh.data_size == 1:
         return state
-    n, r = mesh.world, mesh.rank
+    n, r = mesh.data_size, mesh.data_rank
     pool = state.pool
     if int(pool.count) >= 0:      # -1: the disabled pool's sentinel
         p = pool.imgs.shape[0]

@@ -194,11 +194,23 @@ def export_comparator(cfg, C, out_dir: str,
 
 
 class _Program:
-    """A loaded program on one device: numpy in, numpy out."""
+    """A loaded program on one device: numpy in, numpy out. ``exported``
+    is its ``torch.export`` program, which ``on`` places on other
+    devices."""
 
-    def __init__(self, module, device):
+    def __init__(self, module, device, exported=None):
         self.module = module
         self.device = device
+        self.exported = exported
+
+    def on(self, device):
+        """The program's module on ``device`` (this one's module there)."""
+        import torch
+        device = torch.device(device)
+        if device == self.device:
+            return self.module
+        from torch.export.passes import move_to_device_pass
+        return move_to_device_pass(self.exported, str(device)).module()
 
     def call(self, *arrays):
         import torch
@@ -360,10 +372,54 @@ class ServedGenerator:
         fakes = call(x, c)
         return fakes.reshape(b, nb, *fakes.shape[1:])
 
-    def data_parallel(self, mesh=None):
-        raise NotImplementedError(
-            "multi-GPU serving is not ported to pcgan_tpu_torch yet "
-            "(ROADMAP.md A10b); serve one card per host process")
+    def data_parallel(self, devices=None):
+        """Serving over several cards from one artifact (the counterpart of
+        ``pcgan_tpu/serving.py:331-365``): returns a callable ``(images,
+        cond) -> fakes`` that puts the program on each of ``devices``
+        (default: every visible card), splits the batch evenly over them,
+        runs each shard on its device (launched one after the other, so
+        the cards compute at once) and gathers the results in order. A
+        ragged batch pads with its last row to a multiple of the device
+        count (the result sliced back); an empty one returns an empty
+        result. Requires a symbolic-batch artifact (a shard's size
+        varies)."""
+        import torch
+        if self.meta.get("fixed_batch") is not None:
+            raise ValueError(
+                "data_parallel needs a symbolic-batch artifact (export "
+                "without --fixed_batch)")
+        if devices is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError("data_parallel: no CUDA device is "
+                                   "available (pass devices=[...])")
+            devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+        devices = [torch.device(d) for d in devices]
+        mods = {}
+        for d in devices:
+            if str(d) not in mods:
+                mods[str(d)] = self._program.on(d)
+        n = len(devices)
+
+        def call(images, cond):
+            images, cond = self._validate(images, cond)
+            b = images.shape[0]
+            if b == 0:
+                return self._empty(images)
+            pad = (-b) % n
+            if pad:
+                images = np.concatenate(
+                    [images, np.repeat(images[-1:], pad, axis=0)], axis=0)
+                cond = np.concatenate(
+                    [cond, np.repeat(cond[-1:], pad, axis=0)], axis=0)
+            k = images.shape[0] // n
+            with torch.inference_mode():
+                outs = [mods[str(d)](
+                    torch.from_numpy(images[i * k:(i + 1) * k]).to(d),
+                    torch.from_numpy(cond[i * k:(i + 1) * k]).to(d))
+                    for i, d in enumerate(devices)]
+                return np.concatenate([o.cpu().numpy() for o in outs])[:b]
+
+        return call
 
 
 def load_exported(out_dir: str, device: str = "cuda"):
@@ -411,6 +467,6 @@ def load_exported(out_dir: str, device: str = "cuda"):
     if device == "cuda":
         from torch.export.passes import move_to_device_pass
         ep = move_to_device_pass(ep, "cuda")
-    program = _Program(ep.module(), torch.device(device))
+    program = _Program(ep.module(), torch.device(device), ep)
     cls = ServedComparator if kind == "comparator" else ServedGenerator
     return cls(program, meta)

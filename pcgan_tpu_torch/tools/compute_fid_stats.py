@@ -62,9 +62,10 @@ def _compute(cfg, mesh, out_path: str) -> dict:
     feature_fn, d = make_feature_extractor(cfg, bundle, device)
     pre = make_preprocess(cfg, train=False)
     ds = data_loader.create_dataset(cfg, train=False)
-    if mesh.world > 1:
-        ds = data_loader.SubsetDataset(ds, np.arange(mesh.rank, len(ds),
-                                                     mesh.world))
+    if mesh.data_size > 1:
+        # every data coordinate its share; a model line shares one
+        ds = data_loader.SubsetDataset(ds, np.arange(
+            mesh.data_rank, len(ds), mesh.data_size))
     ld = data_loader.Loader(ds, cfg.data.batch_size, shuffle=False,
                             drop_last=False, num_threads=cfg.data.num_threads,
                             resize_to=data_loader.host_resize_size(cfg))
@@ -74,8 +75,8 @@ def _compute(cfg, mesh, out_path: str) -> dict:
             img = pre(None, {"image": torch.from_numpy(raw["image"]).to(
                 device)})["image"].float()
             stats = fid_ops.update_stats(stats, feature_fn(img))
-    if mesh.group is not None:
-        stats = fid_ops.reduce_stats(stats, mesh.group)
+    if mesh.data_group is not None:
+        stats = fid_ops.reduce_stats(stats, mesh.data_group)
     stats = stats.to("cpu")
     n = int(stats.count)
     if n < 2:

@@ -69,6 +69,7 @@ from pcgan_tpu_torch.ops.diffaug import Augment, parse_policy
 from pcgan_tpu_torch.ops.gan_loss import (feature_matching_loss, gan_loss,
                                           gradient_penalty, overfit_heuristic,
                                           r1_penalty, split_pred)
+from pcgan_tpu_torch.parallel import rows as draw
 from pcgan_tpu_torch.parallel.mesh import all_reduce_flat
 from pcgan_tpu_torch.utils import image_pool
 
@@ -200,16 +201,20 @@ def init_skip_state(device) -> Dict[str, torch.Tensor]:
 
 
 def check_finite(grads: List[torch.Tensor], skip: Dict[str, torch.Tensor],
-                 max_consecutive: int) -> torch.Tensor:
+                 max_consecutive: int,
+                 reduce: Optional[Callable] = None) -> torch.Tensor:
     """``optax.apply_if_finite(inner, max_consecutive)`` on the device:
     updates ``skip`` in place and returns the reject flag (0-dim f32) for
     ``adam_step``: any inf/nan in ``grads`` rejects the update unless the
     consecutive count then exceeds ``max_consecutive`` (it passes through,
     so a persistent divergence surfaces). One multi-tensor kernel scans
-    the gradients; nothing is read back."""
+    the gradients; nothing is read back. ``reduce`` sums the flag over the
+    ranks whose gradient shards make up the whole gradient."""
     found = torch.zeros((), device=grads[0].device)
     torch._amp_foreach_non_finite_check_and_unscale_(
         grads, found, torch.ones((), device=grads[0].device))
+    if reduce is not None:
+        found = reduce(found)
     finite = found == 0
     one = torch.ones((), dtype=torch.int32, device=found.device)
     count = torch.where(finite, torch.zeros_like(one),
@@ -261,6 +266,9 @@ class TrainState:
     skip_g: Optional[Dict[str, torch.Tensor]] = None
     skip_d: Optional[Dict[str, torch.Tensor]] = None
     vgg: Optional[nn.Module] = None     # frozen VGG19 trunk (--lambda_vgg)
+    # the sharded-state step's plan (parallel/auto.py): then opt_g/opt_d
+    # step this rank's shards and ema holds its model shard
+    shard_plan: Optional[object] = None
 
 
 # the XLA compiler's own flags: nothing in PyTorch takes them
@@ -275,8 +283,8 @@ _XLA_ONLY = {
 def reject_unported_train(cfg: Config) -> None:
     """Every training flag the port does not implement raises when it is
     set away from its default; none is ignored. The XLA-only flags raise
-    for good; the parallel flags beyond one data axis raise naming
-    ROADMAP.md A10b (``parallel/mesh.py``)."""
+    for good; a spatial mesh axis raises naming ROADMAP.md A10c
+    (``parallel/mesh.py``)."""
     from pcgan_tpu_torch.parallel.mesh import reject_unported_parallel
     m, r = cfg.model, cfg.run
     if m.model not in ("pcgan", "comparator"):
@@ -372,7 +380,13 @@ class StepParts:
 
     ``group`` (a process group, None on one process) is the data axis the
     JAX step's ``axis_name`` names: the gradient lists, ADA's r_t, the
-    metrics and the norm state are averaged over it (``mean``)."""
+    metrics and the norm state are averaged over it (``mean``).
+
+    ``rows`` (None here) is a ``parallel.rows.Rows`` when the batch is a
+    rank's rows of a global batch whose per-row draws every rank makes
+    alike (``begin``); ``parallel/auto.py``'s sharded-state step overrides
+    ``begin``, ``pool_query``, ``reduce_grads``, ``update``,
+    ``ema_update``, ``sync_stats`` and ``grad_norm``."""
 
     def __init__(self, cfg: Config, G: nn.Module, D: nn.Module,
                  C: Optional[nn.Module] = None, group=None):
@@ -407,6 +421,53 @@ class StepParts:
         self.aug = Augment(t.diff_augment, ada=self.use_ada)
         self.d_params = list(D.parameters())
         self.g_params = list(G.parameters())
+        self.rows = None
+
+    def begin(self, bsz: int) -> None:
+        """Called with the (micro)batch size before a step's draws."""
+
+    def g_forward(self, state: TrainState, x: torch.Tensor,
+                  c: torch.Tensor) -> torch.Tensor:
+        """G's training forward, its dropout masks from the state's device
+        generator."""
+        return self.G(x, c, generator=state.dropout_generator,
+                      rows=self.rows)
+
+    def draw_aug(self, state: TrainState, x: torch.Tensor):
+        """The augmentation draws of batch x (of its global batch, this
+        rank's rows kept, under ``rows``)."""
+        if self.rows is None:
+            return self.aug.draw(state.generator, x)
+        full = torch.empty((self.rows.total(x.shape[0]),) + x.shape[1:],
+                           device="meta")
+        return [{k: self.rows.take(v) for k, v in d.items()}
+                for d in self.aug.draw(state.generator, full)]
+
+    def gp_weights(self, state: TrainState, bsz: int) -> torch.Tensor:
+        if self.rows is None:
+            return gp_eps(state.generator, bsz)
+        return self.rows.take(gp_eps(state.generator,
+                                     self.rows.total(bsz)))
+
+    def pool_query(self, state: TrainState, fake: torch.Tensor,
+                   cond: torch.Tensor):
+        """(images, conds) for D from the fake pool, which moves."""
+        state.pool, fake_d, cond_d = image_pool.query(
+            state.pool, fake, cond, state.generator)
+        return fake_d, cond_d
+
+    def reduce_grads(self, which: str, grads: List[torch.Tensor],
+                     rt: Optional[torch.Tensor] = None):
+        """(gradients, r_t) averaged over the data axis, r_t riding in the
+        gradients' collective."""
+        if rt is None:
+            return self.mean(grads), None
+        *grads, rt = self.mean(grads + [rt])
+        return grads, rt
+
+    def grad_norm(self, which: str, grads: List[torch.Tensor]
+                  ) -> torch.Tensor:
+        return global_norm(grads)
 
     def mean(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """``pmean`` over the data axis: the tensors themselves on one
@@ -431,7 +492,7 @@ class StepParts:
         """(augmented x, the draws): a fresh draw from the state's
         generator unless ``draws`` are given."""
         if draws is None:
-            draws = self.aug.draw(state.generator, x)
+            draws = self.draw_aug(state, x)
         return self.aug.apply(x, draws, p), draws
 
     def conditions(self, state: TrainState, batch: Dict,
@@ -444,8 +505,8 @@ class StepParts:
             if "target_bin" in batch:
                 target_bin = torch.as_tensor(batch["target_bin"]).to(dev)
             else:
-                target_bin = torch.randint(
-                    0, nb, (bsz,), generator=state.generator).to(dev)
+                target_bin = draw.randint(0, nb, bsz, state.generator,
+                                          self.rows).to(dev)
             return (bin_to_onehot(batch["bin"], nb, cd, dev),
                     bin_to_onehot(target_bin, nb, cd, dev),
                     state.bin_lo[target_bin], state.bin_hi[target_bin])
@@ -454,7 +515,8 @@ class StepParts:
         elif "target_bin" in batch:
             s_target = bin_to_score(batch["target_bin"], nb)
         else:
-            s_target = torch.rand(bsz, generator=state.generator) * 2.0 - 1.0
+            s_target = draw.rand((bsz,), state.generator,
+                                 self.rows) * 2.0 - 1.0
         s_target = s_target.to(dev)
         if C is not None:
             # the real image's own comparator score: label-free conditioning
@@ -505,7 +567,7 @@ class StepParts:
                 if self.aug:
                     gp_real, _ = self.augment(state, gp_real, p)
                     gp_fake, _ = self.augment(state, gp_fake, p)
-                eps = gp_eps(state.generator, bsz).to(real.device)
+                eps = self.gp_weights(state, bsz).to(real.device)
                 gp = gradient_penalty(D, gp_real, gp_fake, cond_target, eps)
                 loss = l_real + l_fake + t.lambda_gp * gp
             r1 = torch.zeros((), device=real.device)
@@ -530,7 +592,7 @@ class StepParts:
         fake, idt = out[:bsz], out[bsz:]
         zero = torch.zeros((), device=real.device)
         with frozen_stats(D):
-            draws = self.aug.draw(state.generator, fake) if self.aug else None
+            draws = self.draw_aug(state, fake) if self.aug else None
             if t.lambda_feat > 0:
                 # D's features on the real batch are the constant targets;
                 # the real view takes the same augmentation draw as the fake
@@ -587,20 +649,22 @@ class StepParts:
     def ema_update(self, state: TrainState) -> None:
         """The EMA twin with the ramped decay min(d, (1+t)/(10+t)); a
         skipped G update holds it (decay 1)."""
+        self._ema_step(state, list(state.ema.values()), self.g_params)
+
+    def _ema_step(self, state: TrainState, ema: List[torch.Tensor],
+                  params: List[torch.Tensor]) -> None:
         t = self.t
         d = min(t.ema_decay, (1.0 + state.step) / (10.0 + state.step))
-        ema = list(state.ema.values())
         with torch.no_grad():
             if state.skip_g is None:
                 torch._foreach_mul_(ema, d)
-                torch._foreach_add_(ema, self.g_params, alpha=1.0 - d)
+                torch._foreach_add_(ema, params, alpha=1.0 - d)
             else:
                 dt = torch.where(state.skip_g["last_finite"],
                                  torch.tensor(d, device=ema[0].device),
                                  torch.ones((), device=ema[0].device))
                 torch._foreach_mul_(ema, dt)
-                torch._foreach_add_(ema, torch._foreach_mul(self.g_params,
-                                                            1.0 - dt))
+                torch._foreach_add_(ema, torch._foreach_mul(params, 1.0 - dt))
 
     def metrics(self, state, losses: Dict[str, torch.Tensor], g_grads,
                 d_grads, rt) -> Dict[str, torch.Tensor]:
@@ -625,13 +689,14 @@ class StepParts:
             m["ada_p"] = state.aug_p
             m["ada_rt"] = rt
         if t.log_grad_norm:
-            m["grad_norm_G"] = global_norm(g_grads)
-            m["grad_norm_D"] = global_norm(d_grads)
+            m["grad_norm_G"] = self.grad_norm("G", g_grads)
+            m["grad_norm_D"] = self.grad_norm("D", d_grads)
         return {k: v.detach().float() for k, v in m.items()}
 
 
 def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
-                    C: Optional[nn.Module] = None, group=None) -> Callable:
+                    C: Optional[nn.Module] = None, group=None,
+                    parts: Optional[StepParts] = None) -> Callable:
     """The fused G/D step: ``train_step(state, batch) -> metrics`` updates
     ``state`` in place (params, optimizer moments, norm and spectral-norm
     state, pool, EMA, ADA's p, the skip counters, step) and returns the
@@ -644,7 +709,8 @@ def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
     collective), ADA's r_t, the metrics and the norm state are averaged
     over the group where JAX calls ``pmean``, so every rank takes the same
     update; ``--skip_nonfinite`` checks the averaged gradients, so every
-    rank skips together. ``group=None`` issues no collective.
+    rank skips together. ``group=None`` issues no collective. ``parts``
+    replaces the step's ``StepParts`` (the sharded-state step's).
 
     batch: {'image': (B,H,W,C) in [-1,1] on the device, 'bin': (B,) ints,
     optional 'target_bin': (B,) ints (else drawn uniformly); in score mode
@@ -652,31 +718,31 @@ def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
     drawn uniformly)}."""
     if cfg.train.grad_accum != 1:
         from pcgan_tpu_torch.accum import make_accum_train_step
-        return make_accum_train_step(cfg, G, D, C, group)
-    parts = StepParts(cfg, G, D, C, group)
+        return make_accum_train_step(cfg, G, D, C, group, parts)
+    parts = parts or StepParts(cfg, G, D, C, group)
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
         real = batch["image"].to(parts.cd)
         bsz = real.shape[0]
+        parts.begin(bsz)
         cond_real, cond_target, cond_lo, cond_hi = parts.conditions(
             state, batch, real)
         p = state.aug_p          # this step augments at the step-start p
 
         # ---- one 2B generator forward, its graph kept for the G update ----
-        out = G(torch.cat([real, real]), torch.cat([cond_target, cond_real]),
-                generator=state.dropout_generator)
+        out = parts.g_forward(state, torch.cat([real, real]),
+                              torch.cat([cond_target, cond_real]))
         fake_det = out[:bsz].detach()
 
         # ---- D update: detached fake, pool-mixed --------------------------
-        state.pool, fake_d, cond_fake_d = image_pool.query(
-            state.pool, fake_det, cond_target, state.generator)
+        fake_d, cond_fake_d = parts.pool_query(state, fake_det, cond_target)
         d_start = stats_state(D)
         d_loss, l_d_real, l_d_fake, l_d_r1, rt = parts.d_loss(
             state, real, fake_det, fake_d, cond_real, cond_target,
             cond_fake_d, p)
         d_grads = list(torch.autograd.grad(d_loss, parts.d_params))
         # r_t rides in D's collective
-        *d_grads, rt = parts.mean(d_grads + [rt])
+        d_grads, rt = parts.reduce_grads("D", d_grads, rt)
         parts.update(state, "D", d_grads)
         if parts.use_ada:
             parts.ada_update(state, rt, bsz * parts.world)
@@ -688,8 +754,8 @@ def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
         g_loss, l_g_gan, l_g_l1, l_g_cond, l_g_feat, l_g_vgg = parts.g_loss(
             state, out, real, cond_real, cond_target, cond_lo, cond_hi, p)
         load_stats_state(D, d_new)
-        g_grads = parts.mean(list(torch.autograd.grad(g_loss,
-                                                      parts.g_params)))
+        g_grads, _ = parts.reduce_grads("G", list(torch.autograd.grad(
+            g_loss, parts.g_params)))
         parts.update(state, "G", g_grads)
         if state.ema is not None:
             parts.ema_update(state)

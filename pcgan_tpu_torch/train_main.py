@@ -65,11 +65,22 @@ plateau scheduler agrees on every rank. Comparator pretraining shards its
 pairs the same way and writes one anchor bundle. Outside torchrun the run
 is the one-card path and issues no collective.
 
-Runs on cuda unless ``--device cpu``. The parallel flags beyond the data
-axis (``--zero1``, a model or spatial axis, ``--spatial_shards``,
-``--dcn_data``; ROADMAP.md A10b) raise ``NotImplementedError``, as do the
-XLA-only ``--profile_server``, ``--compile_cache`` and ``--xla_opt`` for
-good.
+Sharded training state (root ``train.py:253-281``): ``--zero1`` or a
+``model`` axis > 1 (``--mesh_shape 2,2 --mesh_axes data,model``) takes the
+sharded-state step (``parallel/auto.py``), the one-device step over the
+global batch: every rank seeds alike and loads its data coordinate's rows
+of the one-process run's batches, the pool is global, and each rank keeps
+its shards of the parameters, Adam moments and EMA. Checkpoints hold the
+one-device state (rank 0 gathers and writes it), so a sharded run resumes
+exactly and its checkpoint loads into a one-card run. ``--dcn_data k``
+lays the mesh out over k torchrun nodes (``parallel/mesh.py``).
+Comparator pretraining stays data-parallel over the data axis, as in
+JAX.
+
+Runs on cuda unless ``--device cpu``. A spatial axis > 1 (ROADMAP.md A10c)
+raises ``NotImplementedError``, as do the XLA-only ``--profile_server``,
+``--compile_cache`` and ``--xla_opt`` for good; ``--spatial_shards`` is
+read by nothing, as in JAX.
 """
 
 from __future__ import annotations
@@ -114,9 +125,10 @@ def _main(cfg, mesh) -> dict:
     device = mesh.device
     print(f"devices: {mesh.world} ({device.type}), mesh {mesh.shape}",
           flush=True)
-    if cfg.data.batch_size % mesh.world:
+    if cfg.data.batch_size % mesh.data_size:
         raise SystemExit(f"--batch_size {cfg.data.batch_size} must be "
-                         f"divisible by the mesh data axis ({mesh.world})")
+                         f"divisible by the mesh data axis "
+                         f"({mesh.data_size})")
     if cfg.run.debug_nans:
         # autograd names the op whose backward made a NaN; the loop checks
         # every step's metrics and raises on the first non-finite one
@@ -144,6 +156,14 @@ def _main(cfg, mesh) -> dict:
             return _train_comparator(cfg, mesh, logger, run_dir)
         finally:
             logger.close()
+    from pcgan_tpu_torch.parallel.auto import batch_rows, uses_sharded_step
+    sharded = uses_sharded_step(cfg, mesh)
+    if cfg.parallel.zero1 and mesh.data_size <= 1:
+        raise SystemExit("--zero1 needs a mesh data axis > 1 (nothing to "
+                         "shard the optimizer over)")
+    # the sharded-state step trains the one-device step's global batches:
+    # each rank loads its rows of them
+    rows = batch_rows(cfg, mesh) if sharded else None
     ds = data_loader.create_dataset(cfg, train=True)
     if lead:
         amend_run_opt(cfg.run.checkpoints_dir, cfg.run.name, "split", {
@@ -168,18 +188,19 @@ def _main(cfg, mesh) -> dict:
         ld = DeviceCacheLoader(cfg, ds, device,
                                shuffle=not cfg.data.serial_batches,
                                seed=cfg.train.seed, mesh=mesh,
-                               sharded=cfg.data.device_cache_sharded)
+                               sharded=cfg.data.device_cache_sharded,
+                               rows=rows)
     else:
         ld = data_loader.make_process_loader(
             cfg, ds, shuffle=not cfg.data.serial_batches,
-            seed=cfg.train.seed, mesh=mesh)
+            seed=cfg.train.seed, mesh=mesh, rows=rows)
     steps_per_epoch = max(1, len(ld))
     print(f"device: {device}; dataset [{cfg.data.dataset_mode}] size "
           f"{len(ds)}, {steps_per_epoch} steps/epoch", flush=True)
     logger = make_logger()
     try:
         return _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
-                          holdout_ds)
+                          holdout_ds, sharded)
     finally:
         logger.close()
 
@@ -195,10 +216,12 @@ class _Quiet:
 
 
 def _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
-               holdout_ds=None) -> dict:
+               holdout_ds=None, sharded=False) -> dict:
+    import contextlib
     import torch
     from pcgan_tpu_torch.models import define_D, define_G
-    from pcgan_tpu_torch.parallel.mesh import rank_seed
+    from pcgan_tpu_torch.parallel import auto
+    from pcgan_tpu_torch.parallel.mesh import mesh_label, rank_seed
     from pcgan_tpu_torch.parallel.train_parallel import (
         make_parallel_train_step, pool_for_mesh, shard_train_state)
     from pcgan_tpu_torch.train import PlateauScheduler, create_train_state
@@ -229,10 +252,14 @@ def _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
         ckpt.restore_generator(G, cfg.run.checkpoints_dir,
                                name or cfg.run.name, tag or "latest")
         print(f"initialized G from [{t.init_g_from}]", flush=True)
-    state = shard_train_state(create_train_state(
-        cfg, G, D, torch.Generator().manual_seed(rank_seed(seed + 2,
-                                                           mesh.rank)),
-        steps_per_epoch, C=C, bin_anchors=bin_anchors, vgg=vgg), mesh)
+    # the sharded-state step draws for the global batch: every rank seeds
+    # alike; the data-parallel step seeds each data coordinate its own
+    step_seed = seed + 2 if sharded else rank_seed(seed + 2, mesh.data_rank)
+    state = create_train_state(
+        cfg, G, D, torch.Generator().manual_seed(step_seed),
+        steps_per_epoch, C=C, bin_anchors=bin_anchors, vgg=vgg)
+    if not sharded:
+        state = shard_train_state(state, mesh)
     from pcgan_tpu_torch.utils.summary import print_networks
     print_networks({"G": G, "D": D, "C (frozen)": C},
                    verbose=cfg.run.verbose)
@@ -241,8 +268,10 @@ def _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
     resume_losses = []
     if t.continue_train and ckpt.state_exists(cfg.run.checkpoints_dir,
                                               cfg.run.name, cfg.run.epoch):
+        # a sharded run's checkpoint is the one-device state, restored
+        # whole on every rank and then sharded
         ckpt.restore_state(state, cfg.run.checkpoints_dir, cfg.run.name,
-                           cfg.run.epoch, mesh)
+                           cfg.run.epoch, None if sharded else mesh)
         # exact resume: the data cursor follows from the restored step
         epochs_done = state.step // steps_per_epoch
         resume_skip = state.step % steps_per_epoch
@@ -254,7 +283,23 @@ def _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
         if resume_skip:
             resume_losses = _read_host_sidecar(run_dir, state.step)
 
-    step_fn = make_parallel_train_step(cfg, G, D, state.C, mesh)
+    if sharded:
+        plain_bytes = auto.state_bytes(state)
+        auto.shard_state(state, mesh, cfg.parallel.zero1)
+        print("sharded-state step over mesh " + mesh_label(mesh)
+              + (" + zero1 optimizer sharding" if cfg.parallel.zero1
+                 else ""), flush=True)
+        # (Adam's moments exist from the first step or a restored state)
+        print(f"resident state bytes a rank: "
+              f"{state.shard_plan.resident_bytes(state)} (one device: "
+              f"{plain_bytes})", flush=True)
+        step_fn = auto.make_sharded_train_step(cfg, G, D, state.C, mesh)
+    else:
+        step_fn = make_parallel_train_step(cfg, G, D, state.C, mesh)
+    # what runs outside the step reads the state whole: the sharded run
+    # gathers it on every rank for checkpoints, previews and evals
+    whole = (auto.gathered if sharded
+             else lambda s, optimizer=False: contextlib.nullcontext(s))
     timer = StepTimer()
     total_epochs = t.niter + t.niter_decay
     plateau = None
@@ -272,21 +317,29 @@ def _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
                                 use_ema=True)
 
     def save(tag):
-        # every rank takes part (its pool rows and generators); rank 0
-        # writes
-        ckpt.save_state(state, cfg.run.checkpoints_dir, cfg.run.name, tag,
-                        mesh)
-        if lead:
-            save_g(tag)
+        # every rank takes part (its pool rows and generators, or its
+        # shards); rank 0 writes
+        with whole(state, optimizer=True):
+            if sharded:    # the state is whole and alike on every rank
+                ckpt.save_state(state, cfg.run.checkpoints_dir,
+                                cfg.run.name, tag, write=lead)
+            else:
+                ckpt.save_state(state, cfg.run.checkpoints_dir,
+                                cfg.run.name, tag, mesh)
+            if lead:
+                save_g(tag)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     display = _make_display(cfg, G, run_dir, device) if lead else None
-    fid_eval = (_make_fid_eval(cfg, mesh, G, state, bin_anchors, ld,
-                               holdout_ds, logger)
-                if t.eval_fid_epoch_freq > 0 else None)
+    fid_eval = None
+    if t.eval_fid_epoch_freq > 0:
+        with whole(state):     # the EMA twin copies G whole
+            fid_eval = _make_fid_eval(cfg, mesh, G, state, bin_anchors, ld,
+                                      holdout_ds, logger)
+
     def fetch(metrics):
         # one device->host copy for all metrics; it also syncs
         host = dict(zip(metrics, torch.stack(
@@ -350,8 +403,11 @@ def _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
             timer.tick(cfg.data.batch_size)
             if cfg.run.debug_nans and gstep % t.print_freq:
                 fetch(metrics)
-            if display is not None and gstep % t.display_freq == 0:
-                display(state, raw, epoch)
+            if (display is not None or sharded) \
+                    and gstep % t.display_freq == 0:
+                with whole(state):
+                    if display is not None:
+                        display(state, raw, epoch)
             if gstep % t.print_freq == 0:
                 if t.metrics_lag:
                     if pending is not None:
@@ -404,7 +460,8 @@ def _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
             if removed:
                 print(f"pruned old checkpoints: {removed}", flush=True)
         if fid_eval is not None and epoch % t.eval_fid_epoch_freq == 0:
-            evals.append(fid_eval(epoch))
+            with whole(state):
+                evals.append(fid_eval(epoch))
         if lead:
             write_loss_plot(run_dir)
         print(f"End of epoch {epoch}/{total_epochs} \t "
@@ -554,7 +611,7 @@ def _train_comparator(cfg, mesh, logger, run_dir) -> dict:
     C = define_C(cfg, torch.Generator().manual_seed(t.seed)).to(device)
     state = create_comparator_state(
         cfg, C, torch.Generator().manual_seed(rank_seed(t.seed + 1,
-                                                        mesh.rank)),
+                                                        mesh.data_rank)),
         steps_per_epoch)
     from pcgan_tpu_torch.utils.summary import print_networks
     print_networks({"C": C}, verbose=cfg.run.verbose)

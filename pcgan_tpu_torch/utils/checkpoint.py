@@ -161,7 +161,7 @@ def _rank_part(sd: dict, mesh, what: str) -> dict:
 
 
 def save_state(state, checkpoints_dir: str, name: str,
-               tag: str = "latest", mesh=None) -> str:
+               tag: str = "latest", mesh=None, write: bool = True) -> str:
     """The full training state (``pcgan_tpu_torch.train.TrainState``) at
     ``{checkpoints_dir}/{name}/{tag}.pt``: G and D with their norm and
     spectral-norm state, both optimizers and their skip counters, EMA,
@@ -169,7 +169,10 @@ def save_state(state, checkpoints_dir: str, name: str,
     ``lr_scale`` and plateau memory. The frozen comparator and VGG trunk
     are not in it. Written atomically (tmp + rename). With ``mesh``,
     every rank calls it (it gathers to rank 0, which alone writes; the
-    others return None)."""
+    others return None). ``write=False`` writes nothing and returns None
+    (a rank of a sharded run, whose state rank 0 writes whole)."""
+    if not write:
+        return None
     pool = {"imgs": state.pool.imgs.cpu(), "conds": state.pool.conds.cpu(),
             "count": state.pool.count.cpu()}
     rngs = {"rng": state.generator.get_state(),

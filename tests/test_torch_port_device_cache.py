@@ -222,16 +222,19 @@ def test_comparator_pretraining_cached_identical(tmp_path):
 def test_sharded_cache_raises_naming_a10(tmp_path):
     """``--device_cache_sharded`` is ported (A10): in one process it holds
     every row and trains the replicated cache's loss stream; a replicated
-    cache over several ranks, and the GSPMD flags beside it (A10b),
-    raise."""
+    cache over several ranks raises, and ``--zero1`` beside it exits in
+    one process, as JAX's train.py (no data axis to shard over)."""
     from pcgan_tpu_torch import train_main
     from pcgan_tpu_torch.parallel.mesh import DataMesh
     from pcgan_tpu_torch.train import reject_unported_train
     reject_unported_train(parse_config(["--device_cache_sharded"]))
     reject_unported_train(parse_config(["--device_cache"]))
-    with pytest.raises(NotImplementedError, match="A10b"):
-        reject_unported_train(parse_config(["--device_cache_sharded",
-                                            "--zero1"]))
+    reject_unported_train(parse_config(["--device_cache_sharded",
+                                        "--zero1"]))
+    with pytest.raises(SystemExit, match="data axis > 1"):
+        train_main.main(GAN + ["--device_cache_sharded", "--zero1",
+                               "--niter", "1", "--name", "z1",
+                               "--checkpoints_dir", str(tmp_path)])
     for name, flag in (("repl", "--device_cache"),
                        ("shard", "--device_cache_sharded")):
         train_main.main(GAN + [flag, "--niter", "1", "--name", name,

@@ -271,15 +271,16 @@ def test_evaluator_refuses_instead_of_falling_back(tmp_path):
     with pytest.raises(ValueError, match="feature dim 8"):
         teval.make_fid_evaluator(cfg(fid_stats=str(tmp_path / "d.npz")),
                                  None, "cpu")
-    # a mesh of more devices than processes, and the GSPMD axes, raise
+    # a mesh of more devices than processes raises; axes of size 1 are
+    # one device, as root evaluate.py runs them
     from pcgan_tpu_torch.parallel.mesh import mesh_from_config
     with pytest.raises(ValueError, match="--mesh_shape 2"):
         mesh_from_config(tcfg.parse_config(["--mesh_shape", "2",
                                             "--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="A10b"):
-        mesh_from_config(tcfg.parse_config(["--mesh_shape", "1,1",
-                                            "--mesh_axes", "data,model",
-                                            "--device", "cpu"]))
+    mesh = mesh_from_config(tcfg.parse_config(["--mesh_shape", "1,1",
+                                               "--mesh_axes", "data,model",
+                                               "--device", "cpu"]))
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.group is None
 
 
 # --------------------------------------------------------------------------- #

@@ -384,11 +384,12 @@ def test_sampler_over_a_folder_matches_the_jax_cli(decoders, tmp_path, extra):
 
 
 @pytest.mark.parametrize("mesh,ok", [("1", True), ("-1", True), ("2", False),
-                                     ("1,1", False)])
+                                     ("1,1", True)])
 def test_one_card_mesh_flags(mesh, ok):
-    """``--mesh_shape 1`` (train_utkface_128.sh) and ``-1`` mean one card
-    in one process; a data axis of 2 needs two processes (torchrun), and a
-    model axis is the GSPMD step (A10b): both raise."""
+    """``--mesh_shape 1`` (train_utkface_128.sh), ``-1`` and a data x model
+    mesh of ones mean one card in one process (JAX runs axes of size 1 as
+    the plain path); a data axis of 2 needs two processes (torchrun) and
+    raises."""
     from pcgan_tpu_torch.parallel.mesh import mesh_from_config
     from pcgan_tpu_torch.train import reject_unported_train
     argv = ["--mesh_shape", mesh, "--device", "cpu"] + (
@@ -396,7 +397,8 @@ def test_one_card_mesh_flags(mesh, ok):
     cfg = tcfg.parse_config(argv)
     if ok:
         reject_unported_train(cfg)
-        assert mesh_from_config(cfg).shape == {"data": 1}
+        assert mesh_from_config(cfg).shape == dict.fromkeys(
+            cfg.parallel.mesh_axes, 1)
     else:
         with pytest.raises((NotImplementedError, ValueError),
                            match="--mesh_shape"):

@@ -11,7 +11,11 @@
   mid-epoch 'latest' save at step 6 (of 4 steps an epoch), resumed with
   ``--continue_train``, logs the uninterrupted run's losses bit for bit
   (the pool is on: each rank's pool rows and generators come back);
-- every A10b flag raises ``NotImplementedError`` naming A10b.
+- each flag of the GSPMD step and the hybrid mesh (A10b) does what JAX
+  does with it in one process: ``--zero1`` exits (no data axis to shard
+  over), ``--dcn_data 2`` finds one granule, ``--spatial_shards`` trains
+  (nothing reads it), a data x model mesh of two devices needs two
+  processes, and a spatial axis raises naming A10c.
 
 Each launch runs under its own timeout, and a cohort that outlives it is
 killed with its process group.
@@ -111,12 +115,27 @@ def test_resume_is_exact_across_ranks(tmp_path):
     assert _losses(a) == _losses(b)
 
 
+_A10B = {"zero1": (SystemExit, "data axis > 1"),
+         "spatial_shards": None,
+         "dcn_data": (ValueError, "granule"),
+         "mesh_shape_data,model": (ValueError, "--mesh_shape 1,2"),
+         "mesh_shape_data,spatial": (NotImplementedError, "A10c")}
+
+
 @pytest.mark.parametrize("flags", [
     ["--zero1"], ["--spatial_shards", "2"], ["--dcn_data", "2"],
     ["--mesh_shape", "1,2", "--mesh_axes", "data,model"],
     ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial"]],
     ids=lambda f: f[0].lstrip("-") + ("_" + f[-1] if len(f) > 2 else ""))
 def test_a10b_flags_raise(tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="A10b"):
-        train_main.main(BASE[:-2] + flags + ["--checkpoints_dir",
-                                             str(tmp_path)])
+    """One process, as JAX's train.py on one device: the ``_A10B`` error
+    of each flag, or (``--spatial_shards``) a plain run."""
+    key = flags[0].lstrip("-") + ("_" + flags[-1] if len(flags) > 2 else "")
+    argv = BASE[:-2] + flags + ["--checkpoints_dir", str(tmp_path),
+                                "--niter", "1", "--max_dataset_size", "4"]
+    if _A10B[key] is None:
+        assert train_main.main(argv)["step"] == 1
+        return
+    cls, match = _A10B[key]
+    with pytest.raises(cls, match=match):
+        train_main.main(argv)

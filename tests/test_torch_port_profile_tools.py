@@ -370,5 +370,13 @@ def test_doctor_on_the_cpu(capsys):
     assert rep["world_size"] == 1
     rep = doctor.main(["--device", "cpu", "--mesh_shape", "2"])
     assert rep["mesh"].startswith("FAILED: --mesh_shape 2")
+    # --zero1 leaves the mesh as it is (root tools/doctor.py builds the
+    # mesh alone); a spatial axis raises naming A10c
     rep = doctor.main(["--device", "cpu", "--zero1"])
-    assert "A10b" in rep["mesh"]
+    assert rep["mesh"] == {"data": 1}
+    rep = doctor.main(["--device", "cpu", "--mesh_shape", "1,1",
+                       "--mesh_axes", "data,model"])
+    assert rep["mesh"] == {"data": 1, "model": 1}
+    rep = doctor.main(["--device", "cpu", "--mesh_shape", "1,2",
+                       "--mesh_axes", "data,spatial"])
+    assert "A10c" in rep["mesh"]

@@ -130,8 +130,8 @@ def test_fixed_batch_score_mode_and_conditions(tmp_path):
         served.sweep_conditions(1)
     with pytest.raises(ValueError, match="batch mismatch"):
         served(x[:2], c[:3])
-    with pytest.raises(NotImplementedError, match="A10"):
-        served.data_parallel()
+    with pytest.raises(ValueError, match="symbolic-batch"):
+        served.data_parallel(["cpu", "cpu"])
 
     scfg = _port_cfg(extra=("--cond_mode", "score"))
     sG = _port_g(scfg)

@@ -251,11 +251,14 @@ def test_unported_training_flags_raise(tmp_path):
     # the sharded device cache and the data axis are ported (A10)
     reject_unported_train(tcfg.parse_config(["--device_cache_sharded"]))
     reject_unported_train(tcfg.parse_config(["--mesh_shape", "2"]))
-    # what still raises: the GSPMD flags (A10b), and the XLA-only flags
+    # the GSPMD flags (A10b) pass the config check, as in JAX (the mesh
+    # judges them); a spatial axis (A10c) raises, and the XLA-only flags
     # for good
-    for argv, flag in ((["--zero1"], "A10b"),
-                       (["--spatial_shards", "2"], "--spatial_shards"),
-                       (["--dcn_data", "2"], "--dcn_data"),
+    for argv in (["--zero1"], ["--spatial_shards", "2"],
+                 ["--dcn_data", "2"]):
+        reject_unported_train(tcfg.parse_config(argv))
+    for argv, flag in ((["--mesh_shape", "1,2", "--mesh_axes",
+                         "data,spatial"], "A10c"),
                        (["--xla_opt", "x"], "XLA-only"),
                        (["--compile_cache", "d"], "XLA-only"),
                        (["--profile_server", "9000"], "XLA-only")):

@@ -173,12 +173,12 @@ def fid_eval(mesh, case):
 
 
 def mesh_shape_raises(mesh, case):
-    """``check_data_axis`` on this world: the error of each shape."""
-    from pcgan_tpu_torch.parallel.mesh import check_data_axis
+    """``check_mesh_shape`` on this world: the error of each shape."""
+    from pcgan_tpu_torch.parallel.mesh import check_mesh_shape
     out = {}
     for shape in case["shapes"]:
         try:
-            check_data_axis(shape, mesh.world)
+            check_mesh_shape(shape, mesh.world)
             out[shape] = None
         except ValueError as e:
             out[shape] = str(e)
@@ -212,6 +212,64 @@ def train_runs(mesh, case):
             out.append("cut")
         finally:
             ckpt.save_state = save
+    return out
+
+
+def _case_mesh(mesh, case):
+    """The case's mesh (``shape``, ``axes``, optional ``dcn_data`` and
+    ``granules``: each rank's granule id) over this cohort's world."""
+    from pcgan_tpu_torch.parallel.mesh import DataMesh, make_mesh
+    granules = case.get("granules")
+    return make_mesh(DataMesh(mesh.world, mesh.rank, mesh.device,
+                              mesh.group),
+                     case["shape"], case["axes"], case.get("dcn_data", 1),
+                     None if granules is None else granules.__getitem__)
+
+
+def sharded_steps(mesh, case):
+    """One sharded-state step (``parallel/auto.py``) from each given state
+    (a ``save_state``/``convert_train_state`` payload) on this rank's rows
+    of its global batch: the step's metrics, the state gathered whole, and
+    the rank's own shards after the step."""
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.parallel import auto
+    from pcgan_tpu_torch.train import create_train_state
+    from pcgan_tpu_torch.utils.checkpoint import load_state
+    tc, out = case["cfg"], []
+    mesh = _case_mesh(mesh, case)
+    rows = auto.batch_rows(tc, mesh)
+    for payload, batch in zip(case["payloads"], case["batches"]):
+        G, D = define_G(tc).to(mesh.device), define_D(tc).to(mesh.device)
+        state = create_train_state(tc, G, D,
+                                   torch.Generator().manual_seed(0))
+        load_state(state, payload)
+        auto.shard_state(state, mesh, tc.parallel.zero1)
+        step = auto.make_sharded_train_step(
+            tc, G, D, mesh=mesh,
+            with_preprocess=case.get("preprocess", False))
+        local = {k: torch.as_tensor(v).to(mesh.device)
+                 for k, v in mesh.local_rows(batch, rows).items()}
+        margins = []
+        with _relu_margins(margins):
+            m = step(state, local)
+        plan = state.shard_plan
+        shards = {}
+        for net, opt in (("G", state.opt_g), ("D", state.opt_d)):
+            for lf in plan.leaves[net]:
+                st = opt.state[lf.opt]
+                shards[f"{net}.{lf.name}"] = {
+                    "param": lf.master.detach().cpu().clone(),
+                    "mu": st["exp_avg"].cpu().clone(),
+                    "ema": (state.ema[lf.name].cpu().clone()
+                            if net == "G" and state.ema is not None
+                            else None)}
+        with auto.gathered(state, optimizer=True):
+            res = _step_result(state, m)
+            res["ema"] = (None if state.ema is None else
+                          {k: v.cpu().clone() for k, v in state.ema.items()})
+        out.append({**res, "shards": shards,
+                    "coords": {ax: mesh.coord(ax) for ax in mesh.axes},
+                    "relu_margin": min(margins, default=float("inf"))})
     return out
 
 

@@ -211,7 +211,32 @@ the one named in phase 2):
     re-entered with ``--auto-worker``) with ``--mesh_shape 1
     --spatial_shards 2`` and with ``--mesh_shape 1,1 --mesh_axes
     data,model``: both loss streams bit-identical to the plain run's
-    (cuDNN deterministic for all three).
+    (cuDNN deterministic for all three); in (a)'s spawn, ``--netG
+    resnet_9blocks@resize_conv`` at data 1 x model 2 for 3 steps: the two
+    ranks bit-identical (the nearest upsample's backward);
+24. the spatial mesh axis (``parallel/spatial.py``): B1 writing the bands
+    of a spatial axis of 2 and 4 at 256 px (each bit-identical to the
+    whole crop's rows, within the gates of its plain twin's band; the band
+    form timed beside the whole crop); (a) two ranks on the one card over
+    gloo (phase 23 (a)'s spawned ranks, which run these steps after
+    their own: one spawn fewer) at data 1 x spatial 2 (f32, the default
+    GAN at full width, 256 px crops of 286 px u8 canvases, global batch 4,
+    everything
+    drawn, pool on) take 3 steps, each from one rank's state before it:
+    the losses of the forward passes within 1e-5 of max(1, |loss|) of one
+    rank's plain step (``loss_G_GAN`` and ``loss_G``, which read D after
+    its Adam update, within TRAIN_STEP_TOL, as phase 23 holds them), the
+    parameters within the Adam envelope, the ranks bit-identical, B1
+    launched on each rank writing its band; each rank's peak allocated
+    bytes beside one rank's, the collectives a step by kind (the halo
+    exchanges and their gradients, the band sums) and their ms; (b)
+    ``train_256_fid.sh``'s flags (bf16, batch 32, the lowch routes) for 4
+    steps under ``torchrun --nproc_per_node 2`` over gloo on the one card
+    (this script re-entered with ``--spatial-worker``) at ``--mesh_shape
+    1,2 --mesh_axes data,spatial``: the loss stream within the bf16
+    bounds stated before the first run (of max(0.1, |loss|): 2e-2 at the
+    first step, 1e-1 at every step) of the plain run's, each rank's peak
+    memory.
 
 ``python3 chip_smoke.py --cards N`` on a machine with N cards runs phase
 22 (a) with one NCCL rank a card, the collectives' kernels of one
@@ -222,7 +247,11 @@ with ``--mesh_shape 2,2 --mesh_axes data,model --zero1`` against one
 card's plain run of the same global batches (loss stream within 1e-4
 rel; peak memory, resident state bytes, collectives a step and their ms
 per rank), and ``ServedGenerator.data_parallel`` over the N cards against
-one card's call (f32 within 1e-5) with both rates.
+one card's call (f32 within 1e-5) with both rates; then phase 24 on the
+cards: ``train_256_fid.sh``'s shape in f32 (batch 32, 3 steps) at data 2
+x spatial 2 and at data 1 x spatial 2 x model 2 on NCCL, each loss
+stream within 1e-4 rel of one card's, peak memory and collectives a
+rank.
 
 The last three lines of standard output are the card line, one JSON line of
 kernels and ``{"ok": true, "device": {...}}``. Needs one CUDA card; exits
@@ -2573,8 +2602,10 @@ def phase_serving(torch, tmp, folder, bundle_dir, grid_rate) -> dict:
         finally:
             _stop_host(httpd)
     # the served rate: the host as its own process, as the script runs it
-    out["served_rate"] = {f"window_{w:g}": _served_rate_cli(
-        ex["bf16"]["dir"], w) for w in (5.0, 0.0)}
+    # (its window; window 0 is the in-process host's above, which leaves
+    # room for phase 24)
+    out["served_rate"] = {"window_5": _served_rate_cli(ex["bf16"]["dir"],
+                                                       5.0)}
     for where, recs in (("host process", out["served_rate"]),
                         ("in-process host", out["http"])):
         say(f"served rate, {where} (bf16, concurrency 8 x batch 8): "
@@ -4800,6 +4831,7 @@ def _auto_steps(torch, mesh, inputs, work, flags=()) -> dict:
                 for k, v in net.named_parameters()}
     out = {"losses": [], "params": [], "step_s": [], "collectives": []}
     cp.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     if mesh is None:
         state = fresh(0)
         step = make_parallel_train_step(cfg, state.G, state.D)
@@ -4815,6 +4847,7 @@ def _auto_steps(torch, mesh, inputs, work, flags=()) -> dict:
             out["params"].append(params(state))
         out["bytes"] = auto.state_bytes(state)
         out["b1"] = cp.launches
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
         return out
     rws = auto.batch_rows(cfg, mesh)
     for i, b in enumerate(inputs["batches"][1:]):
@@ -4838,6 +4871,7 @@ def _auto_steps(torch, mesh, inputs, work, flags=()) -> dict:
         with auto.gathered(state):
             out["params"].append(params(state))
     out["b1"] = cp.launches
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
     # one more step with the collectives timed (synchronized: slower)
     auto.TIMING["on"] = True
     auto.COLLECTIVE_MS.clear()
@@ -4863,9 +4897,59 @@ def _auto_rank(rank, port, work):
     try:
         res = {name: _auto_steps(torch, mesh, inputs, work, flags)
                for name, flags in AUTO_MESHES.items()}
+        res["resize_conv"] = _resize_steps(torch, mesh, inputs)
         torch.save(res, os.path.join(work, f"rank{rank}.pt"))
+        # phase 24 (a)'s ranks, in this spawn (one spawn fewer)
+        sp_work = os.path.join(os.path.dirname(work), "spatial")
+        if os.path.exists(os.path.join(sp_work, "inputs.pt")):
+            sp_inputs = torch.load(os.path.join(sp_work, "inputs.pt"),
+                                   weights_only=False)
+            torch.save(_auto_steps(torch, mesh, sp_inputs, sp_work,
+                                   SP_MESH),
+                       os.path.join(sp_work, f"rank{rank}.pt"))
     finally:
         mesh.close()
+
+
+RESIZE_FLAGS = ["--netG", "resnet_9blocks@resize_conv", "--mesh_shape",
+                "1,2", "--mesh_axes", "data,model"]
+
+
+def _resize_steps(torch, mesh, inputs) -> dict:
+    """Phase 23 (a)'s ``@resize_conv`` check: the nearest 2x upsample of
+    ``--netG resnet_9blocks@resize_conv`` at data 1 x model 2, AUTO_STEPS
+    steps from the same seeded state on both ranks; each step's losses
+    and a digest of every gathered parameter."""
+    import hashlib
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.parallel import auto
+    from pcgan_tpu_torch.parallel.mesh import DataMesh, make_mesh
+    from pcgan_tpu_torch.train import create_train_state
+    cfg = parse_config(inputs["argv"] + RESIZE_FLAGS, is_train=True)
+    p = cfg.parallel
+    mesh = make_mesh(DataMesh(mesh.world, mesh.rank, mesh.device,
+                              mesh.group), p.mesh_shape, p.mesh_axes)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        G = define_G(cfg, torch.Generator().manual_seed(1)).to(mesh.device)
+        D = define_D(cfg, torch.Generator().manual_seed(2)).to(mesh.device)
+    state = create_train_state(cfg, G, D, torch.Generator().manual_seed(0))
+    auto.shard_state(state, mesh, False)
+    step = auto.make_sharded_train_step(cfg, G, D, mesh=mesh)
+    rws = auto.batch_rows(cfg, mesh)
+    out = {"losses": [], "digests": []}
+    for b in inputs["batches"][1:]:
+        m = step(state, {k: torch.from_numpy(np.asarray(v)).to(mesh.device)
+                         for k, v in mesh.local_rows(b, rws).items()})
+        out["losses"].append({k: float(v) for k, v in m.items()})
+        with auto.gathered(state):
+            out["digests"].append({
+                f"{n}.{k}": hashlib.sha256(
+                    v.detach().cpu().numpy().tobytes()).hexdigest()
+                for n, net in (("G", G), ("D", D))
+                for k, v in net.named_parameters()})
+    return out
 
 
 def _envelope(name, got, want, start, what) -> dict:
@@ -4893,7 +4977,9 @@ def _envelope(name, got, want, start, what) -> dict:
 
 
 def _auto_ranks(torch, tmp) -> dict:
-    """(a) two gloo ranks on the one card against one rank's plain step."""
+    """(a) two gloo ranks on the one card against one rank's plain step;
+    the spawn also takes phase 24 (a)'s band steps (``_spatial_prepare``
+    first makes their inputs and one rank's run)."""
     import torch.multiprocessing as mp
     from pcgan_tpu_torch.config import parse_config
     from pcgan_tpu_torch.models import define_D, define_G
@@ -4919,6 +5005,7 @@ def _auto_ranks(torch, tmp) -> dict:
     del state, G, D
     one = _auto_steps(torch, None, inputs, work)
     torch.cuda.empty_cache()
+    _spatial_prepare(torch, tmp)
     t0 = time.perf_counter()
     ctx = mp.start_processes(_auto_rank, args=(_free_port(), work),
                              nprocs=2, join=False, start_method="spawn")
@@ -4941,6 +5028,20 @@ def _auto_ranks(torch, tmp) -> dict:
                  if f"{n}.{k}" in one["params"][0]}
     out = {"one_rank": {"bytes": one["bytes"], "b1": one["b1"]},
            "spawn_wall_s": wall}
+    # the nearest 2x upsample's backward under a model axis: the ranks of
+    # the line must stay alike bit for bit
+    rz = [ranks[r]["resize_conv"] for r in range(2)]
+    apart = sorted({k for i, d in enumerate(rz[0]["digests"])
+                    for k, v in d.items() if rz[1]["digests"][i][k] != v})
+    check(rz[0]["losses"] == rz[1]["losses"] and not apart,
+          f"(a) @resize_conv at data 1 x model 2: the ranks drift apart: "
+          f"losses {rz[0]['losses']} vs {rz[1]['losses']}; parameters "
+          f"{apart[:8]}")
+    out["resize_conv_model2"] = {"steps": AUTO_STEPS, "bit_identical": True,
+                                 "losses": rz[0]["losses"]}
+    say(f"(a) resnet_9blocks@resize_conv at data 1 x model 2 (f32, global "
+        f"batch {AUTO_B}): the two ranks bit-identical over {AUTO_STEPS} "
+        f"steps (losses and every parameter)")
     for name in AUTO_MESHES:
         a, b = ranks[0][name], ranks[1][name]
         what = f"(a) {name}"
@@ -4997,14 +5098,25 @@ def _auto_worker(spec_path: str) -> None:
     deterministic), with B1's launches and peak memory; on the sharded
     step, the resident state bytes and the collectives of the last step
     (with the spec's ``time_collectives``, the device synchronized around
-    each, and their ms); rank r writes ``{out}.rank{r}``."""
+    each, and their ms); rank r writes ``{out}.rank{r}``. The process
+    group is made once for all the runs (each run joins it): a group that
+    ``train_main`` destroyed and made again would find the first one's
+    NCCL ids in torchrun's store under the same group names."""
     sys.path.insert(0, HERE)
     import torch
+    import torch.distributed as dist
     from pcgan_tpu_torch import train_main
     from pcgan_tpu_torch.ops import cuda_preprocess as cp
     from pcgan_tpu_torch.parallel import auto
     with open(spec_path) as f:
         spec = json.load(f)
+    own = not dist.is_initialized()
+    if own:
+        backend = "gloo"
+        if torch.cuda.is_available():
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+            backend = "nccl"
+        dist.init_process_group(backend)
     torch.backends.cudnn.deterministic = True
     auto.TIMING["on"] = bool(spec.get("time_collectives"))
     seen = {}
@@ -5040,30 +5152,57 @@ def _auto_worker(spec_path: str) -> None:
                          "collective_ms": seen.get("collective_ms")}
     finally:
         auto.make_sharded_train_step = make
+        if own:
+            dist.destroy_process_group()
     rank = int(os.environ.get("RANK", 0))
     with open(f"{spec['out']}.rank{rank}", "w") as f:
         json.dump(out, f, default=_jsonable)
 
 
-def _torchrun_auto(spec_path: str, nproc: int = 1):
-    """(exit code, output) of ``torchrun --standalone --nproc_per_node
-    nproc chip_smoke.py --auto-worker <spec>``, killed past DP_TIMEOUT."""
-    import signal
+def _torchrun_start(spec_path: str, nproc: int = 1,
+                    flag: str = "--auto-worker"):
+    """Starts ``torchrun --standalone --nproc_per_node nproc chip_smoke.py
+    <flag> <spec>``, its output going to ``{spec}.log``; its handle for
+    ``_torchrun_wait``."""
     env = {k: v for k, v in os.environ.items()
            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                         "MASTER_PORT")}
-    p = subprocess.Popen(
-        [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", str(nproc), os.path.join(HERE, "chip_smoke.py"),
-         "--auto-worker", spec_path], env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    log = open(f"{spec_path}.log", "w")
     try:
-        log = p.communicate(timeout=DP_TIMEOUT)[0]
+        return subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(nproc),
+             os.path.join(HERE, "chip_smoke.py"), flag, spec_path], env=env,
+            stdout=log, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True), log
+    except BaseException:
+        log.close()
+        raise
+
+
+def _torchrun_wait(handle):
+    """(exit code, output) of a started torchrun, killed past
+    DP_TIMEOUT."""
+    import signal
+    p, log = handle
+    try:
+        p.wait(timeout=DP_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        pass
     finally:
         if p.poll() is None:
             os.killpg(p.pid, signal.SIGKILL)
             p.wait()
-    return p.returncode, log
+        log.close()
+    with open(log.name) as f:
+        return p.returncode, f.read()
+
+
+def _torchrun_auto(spec_path: str, nproc: int = 1,
+                   flag: str = "--auto-worker"):
+    """(exit code, output) of ``torchrun --standalone --nproc_per_node
+    nproc chip_smoke.py <flag> <spec>``, killed past DP_TIMEOUT."""
+    return _torchrun_wait(_torchrun_start(spec_path, nproc, flag))
 
 
 def _loss_rows(run_dir):
@@ -5230,6 +5369,449 @@ def _auto_cards(torch, tmp, n) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 24: the spatial mesh axis
+# --------------------------------------------------------------------------- #
+
+SP_B, SP_STEPS, SP_POOL = 4, 3, 8    # (a): global batch, steps, pool
+SP_NATIVE, SP_LOAD, SP_CROP = 286, 286, 256   # (a): 256 px crops of 286
+SP_MESH = ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial"]
+# (a): every loss within 1e-5 of max(1, |loss|) of one rank's step, where
+# the G pass reads D after its Adam update (loss_G_GAN, loss_G): of one
+# rank's step with D, once updated, replaced by the band run's updated D
+# (``_spatial_d_swapped``). Against one rank's own step those two are held
+# to TRAIN_STEP_TOL, as phase 23 (a) holds every loss: Adam moves D's
+# near-zero-gradient entries by up to 2 lr on f32 summation noise (the
+# parameters' envelope), and D's output moves with them
+SP_LOSS_REL = 1e-5
+SP_AFTER_D_UPDATE = ("loss_G", "loss_G_GAN")
+SP_CLI_STEPS, SP_CLI_B = 4, 32   # (b): train_256_fid.sh's flags, 4 steps
+# (b): the bf16 bounds stated before the first run (PERF.md, PR 14): the
+# first logged step (the same weights) within 2e-2 of max(0.1, |loss|) of
+# the plain run's, every step within 1e-1 (two runs whose bf16 convs round
+# in another order drift apart through Adam by a few bf16 ulps a step; a
+# wrong halo row moves a loss by more than that from the first step on)
+SP_BF16_FIRST, SP_BF16_REL = 2e-2, 1e-1
+SP_CARDS_STEPS = 3               # --cards: 3 steps, f32, within 1e-4 rel
+SP_CARDS_MESHES = {               # --cards: the meshes over NCCL
+    "data2_spatial2": ["--mesh_shape", "2,2", "--mesh_axes",
+                       "data,spatial"],
+    "spatial2_model2": ["--mesh_shape", "1,2,2", "--mesh_axes",
+                        "data,spatial,model"]}
+SP_FID = ["--netG", "resnet_9blocks", "--netD", "basic", "--norm",
+          "instance", "--load_size", "286", "--crop_size", "256",
+          "--batch_size", "32", "--n_age_bins", "10", "--gan_mode", "lsgan",
+          "--lambda_L1", "100", "--pool_size", "64", "--lr", "0.0002",
+          "--beta1", "0.5", "--niter", "1", "--niter_decay", "0",
+          "--print_freq", "1", "--save_epoch_freq", "0", "--num_threads",
+          "8", "--dataset_mode", "synthetic"]   # train_256_fid.sh's flags
+
+
+def _spatial_inputs(cards: bool = False) -> dict:
+    """Phase 24 (a)'s config and inputs: the default GAN at full width in
+    f32, 256 px crops of 286 px u8 canvases with everything drawn (crops,
+    flips, target bins, pool slots), the pool on; seeded global batches, a
+    warm-up step's and SP_STEPS steps'. ``cards``: --cards' inputs,
+    train_256_fid.sh's model, batch and pool in f32, SP_CARDS_STEPS
+    steps."""
+    rng = np.random.default_rng(25 if cards else 24)
+    b, steps = (SP_CLI_B, SP_CARDS_STEPS) if cards else (SP_B, SP_STEPS)
+    argv = ["--netG", NETG, "--ngf", str(NGF), "--netD", "basic", "--ndf",
+            str(NGF), "--norm", "instance", "--crop_size", str(SP_CROP),
+            "--load_size", str(SP_LOAD), "--n_age_bins", str(NB),
+            "--batch_size", str(b), "--dtype", "float32", "--gan_mode",
+            "lsgan", "--lambda_L1", "100", "--lr_policy", "constant"]
+    argv += (["--pool_size", "64", "--lr", "0.0002", "--beta1", "0.5"]
+             if cards else ["--pool_size", str(SP_POOL), "--cond_inject",
+                            "input"])
+    return {"dev": DEV, "argv": argv,
+            "batches": [{"image": rng.integers(0, 256, (b, SP_NATIVE,
+                                                        SP_NATIVE, C),
+                                               dtype=np.uint8),
+                         "bin": rng.integers(0, NB, b)}
+                        for _ in range(1 + steps)]}
+
+
+def _b1_bands(torch) -> dict:
+    """B1 writing bands on the card: each band of a spatial axis of 2 and
+    4 (rows [r0, r0 + h) of every crop) bit-identical to the kernel's whole
+    crop sliced and within F32_TOL of the plain twin's band, at phase 24's
+    shape; then the band form timed beside the whole crop (graph replay)."""
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    from pcgan_tpu_torch.ops.preprocess import preprocess_batch
+    from pcgan_tpu_torch.parallel.spatial import bands_of
+    rng = np.random.default_rng(240)
+    imgs, cy, cx, fl = _preprocess_case(torch, rng, SP_B, SP_NATIVE, SP_LOAD,
+                                        SP_CROP, False)
+    out = {"shape": f"B{SP_B} {SP_NATIVE}->{SP_LOAD}->{SP_CROP} C{C}"}
+    for dt in (torch.float32, torch.bfloat16):
+        whole = cp.preprocess_batch_cuda(imgs, cy, cx, fl, SP_LOAD, SP_CROP,
+                                         out_dtype=dt)
+        for n in (2, 4):
+            for b in bands_of(SP_CROP, n):
+                band = cp.preprocess_batch_cuda(imgs, cy, cx, fl, SP_LOAD,
+                                                SP_CROP, out_dtype=dt,
+                                                row0=b.r0, n_rows=b.h)
+                check(torch.equal(band, whole[:, b.r0:b.r1]),
+                      f"B1 band [{b.r0}, {b.r1}) of {n} ({dt}): not the "
+                      f"whole crop's rows")
+                plain = preprocess_batch(imgs, cy, cx, fl.bool(), SP_LOAD,
+                                         SP_CROP, out_dtype=dt, row0=b.r0,
+                                         n_rows=b.h)
+                err = float((band.float() - plain.float()).abs().max())
+                lim = F32_TOL if dt == torch.float32 else 2.0 ** -7
+                check(err <= lim, f"B1 band [{b.r0}, {b.r1}) {dt}: {err} "
+                      f"off its plain twin")
+    half = bands_of(SP_CROP, 2)[1]
+
+    def band_call():
+        return cp.preprocess_batch_cuda(imgs, cy, cx, fl, SP_LOAD, SP_CROP,
+                                        out_dtype=torch.float32,
+                                        row0=half.r0, n_rows=half.h)
+
+    def whole_call():
+        return cp.preprocess_batch_cuda(imgs, cy, cx, fl, SP_LOAD, SP_CROP,
+                                        out_dtype=torch.float32)
+    out["band_ms"] = graph_ms(torch, band_call)
+    out["whole_ms"] = graph_ms(torch, whole_call)
+    out["band_rows"] = half.h
+    say(f"B1 bands of 2 and 4 ranks bit-identical to the whole crop's "
+        f"rows (f32, bf16) and within the gates of the plain twin; the "
+        f"band of {half.h} rows {out['band_ms']:.5f} ms, the whole crop "
+        f"{out['whole_ms']:.5f} ms (f32, graph replay, {out['shape']})")
+    return out
+
+
+def _spatial_prepare(torch, tmp, name: str = "spatial",
+                     cards: bool = False) -> dict:
+    """Phase 24 (a)'s inputs, one rank's warm-up state and its plain steps
+    (each from the state before it, ``_auto_steps``), written under
+    ``{tmp}/{name}`` for the ranks (phase 23 (a)'s spawn, or --cards'
+    torchrun); returns the plain steps."""
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_train_step)
+    from pcgan_tpu_torch.train import create_train_state
+    from pcgan_tpu_torch.utils import checkpoint as ckpt
+    work = os.path.join(tmp, name)
+    os.makedirs(work)
+    inputs = _spatial_inputs(cards)
+    torch.save(inputs, os.path.join(work, "inputs.pt"))
+    cfg = parse_config(inputs["argv"], is_train=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        G = define_G(cfg, torch.Generator().manual_seed(1)).to(DEV)
+        D = define_D(cfg, torch.Generator().manual_seed(2)).to(DEV)
+    state = create_train_state(cfg, G, D, torch.Generator().manual_seed(0))
+    make_parallel_train_step(cfg, G, D)(
+        state, {k: torch.from_numpy(v).to(DEV) for k, v in
+                inputs["batches"][0].items()})
+    ckpt.save_state(state, tmp, name, "s0")
+    del state, G, D
+    torch.cuda.empty_cache()
+    one = _auto_steps(torch, None, inputs, work)
+    torch.save(one, os.path.join(work, "one.pt"))
+    torch.cuda.empty_cache()
+    return one
+
+
+def _spatial_d_swapped(torch, work, band) -> list:
+    """One rank's plain step i again from its state before it, with D,
+    once Adam has updated it, replaced by the band run's updated D
+    (``band``: the band run's parameters after each step): the G pass's
+    losses (SP_AFTER_D_UPDATE) of each step. Against the band run's, they
+    show whether D's update alone parts the two runs' G losses."""
+    from pcgan_tpu_torch import train as ttrain
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.parallel.train_parallel import (
+        make_parallel_train_step)
+    from pcgan_tpu_torch.train import create_train_state
+    from pcgan_tpu_torch.utils.checkpoint import load_state
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    cfg = parse_config(inputs["argv"], is_train=True)
+    update, d_after, out = ttrain.StepParts.update, {}, []
+
+    def swapped(self, state, which, grads):
+        update(self, state, which, grads)
+        if which == "D":
+            with torch.no_grad():
+                for k, p in state.D.named_parameters():
+                    p.copy_(d_after[k])
+    ttrain.StepParts.update = swapped
+    try:
+        for i, b in enumerate(inputs["batches"][1:]):
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", RuntimeWarning)
+                G, D = define_G(cfg).to(DEV), define_D(cfg).to(DEV)
+            state = create_train_state(cfg, G, D,
+                                       torch.Generator().manual_seed(0))
+            load_state(state, torch.load(os.path.join(work, f"s{i}.pt"),
+                                         weights_only=True))
+            d_after.clear()
+            d_after.update({k[2:]: v.to(DEV) for k, v in band[i].items()
+                            if k.startswith("D.")})
+            m = make_parallel_train_step(cfg, G, D)(
+                state, {k: torch.from_numpy(v).to(DEV) for k, v in
+                        b.items()})
+            out.append({k: float(m[k]) for k in SP_AFTER_D_UPDATE})
+    finally:
+        ttrain.StepParts.update = update
+    return out
+
+
+def _against_one(torch, what, ranks, one, work, steps, loss_ok) -> dict:
+    """Every rank's gathered parameters bit-identical to rank 0's, each
+    step's losses ``loss_ok(i, key, got, want)`` against one rank's, and
+    the parameters within the one-step envelope of one rank's step from
+    the same state (``{work}/s0.pt``, then one rank's after each step)."""
+    a = ranks[0]
+    for r, b in enumerate(ranks[1:], 1):
+        apart = sorted({k for i, ps in enumerate(a["params"])
+                        for k, v in ps.items()
+                        if not torch.equal(v, b["params"][i][k])})
+        check(a["losses"] == b["losses"] and not apart,
+              f"{what}: ranks 0 and {r} differ: losses {a['losses']} vs "
+              f"{b['losses']}; parameters {apart[:8]}")
+    for i, (x, y) in enumerate(zip(a["losses"], one["losses"])):
+        check(set(x) == set(y), f"{what}: step {i} metric keys differ")
+        for k in y:
+            check(loss_ok(i, k, x[k], y[k]),
+                  f"{what}: step {i} {k} {x[k]} vs one rank {y[k]}")
+    starts = [one["params"][i - 1] if i else None for i in range(steps)]
+    s0 = torch.load(os.path.join(work, "s0.pt"), weights_only=True)
+    starts[0] = {f"{n}.{k}": v for n in ("G", "D") for k, v in s0[n].items()
+                 if f"{n}.{k}" in one["params"][0]}
+    worst = {}
+    for i in range(steps):
+        w = _envelope(f"step {i}", a["params"][i], one["params"][i],
+                      starts[i], what)
+        worst = {k: max(worst.get(k, 0.0), v) for k, v in w.items()}
+    b1 = [r["b1"] for r in ranks]
+    check(b1 == [steps] * len(ranks), f"{what}: B1 launches {b1} (want "
+          f"{steps} a rank)")
+    return worst
+
+
+def _spatial_ranks(torch, tmp) -> dict:
+    """(a) two gloo ranks on the one card at data 1 x spatial 2 (run in
+    phase 23 (a)'s spawn) against one rank's plain step."""
+    work = os.path.join(tmp, "spatial")
+    one = torch.load(os.path.join(work, "one.pt"), weights_only=False)
+    a, b = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                       weights_only=False) for r in range(2)]
+    what = "(a) data 1 x spatial 2"
+    swap = _spatial_d_swapped(torch, work, a["params"])
+    gaps = {"forward": 0.0, "after_d_update": 0.0, "d_swapped": 0.0}
+
+    def rel(x, y):
+        return abs(x - y) / max(1.0, abs(y))
+
+    def loss_ok(i, k, x, y):
+        if k not in SP_AFTER_D_UPDATE:
+            gaps["forward"] = max(gaps["forward"], rel(x, y))
+            return rel(x, y) <= SP_LOSS_REL
+        gaps["after_d_update"] = max(gaps["after_d_update"], rel(x, y))
+        gaps["d_swapped"] = max(gaps["d_swapped"], rel(x, swap[i][k]))
+        return (rel(x, swap[i][k]) <= SP_LOSS_REL and abs(x - y)
+                <= TRAIN_STEP_TOL + TRAIN_STEP_TOL * abs(y))
+    worst = _against_one(torch, what, [a, b], one, work, SP_STEPS, loss_ok)
+    halo = {k: v for k, v in a["collectives"][-1].items()
+            if k.endswith("/spatial")}
+    check(halo.get("halo/spatial", 0) > 0 and halo.get(
+        "halo_grad/spatial", 0) > 0, f"{what}: no halo exchange ran: "
+          f"{a['collectives'][-1]}")
+    b1 = [a["b1"], b["b1"]]
+    out = {"loss_max_rel_gap": gaps["forward"],
+           "loss_after_d_update_gap": gaps["after_d_update"],
+           "loss_d_swapped_gap": gaps["d_swapped"],
+           "param_diff": worst, "b1_launches": b1,
+           "peak_bytes_rank": [a["peak_bytes"], b["peak_bytes"]],
+           "peak_bytes_one_rank": one["peak_bytes"],
+           "collectives_per_step": a["collectives"][-1],
+           "collective_ms": [a["collective_ms"], b["collective_ms"]],
+           "step_s": a["step_s"], "one_rank_step_s": one["step_s"]}
+    say(f"{what}, two gloo ranks on one card (f32, full width, {SP_CROP} px "
+        f"crops of {SP_NATIVE} px canvases, global batch {SP_B}, everything "
+        f"drawn, pool on): the forward passes' losses within "
+        f"{gaps['forward']:.3g} (of max(1, |loss|)) of one rank's over "
+        f"{SP_STEPS} steps; loss_G_GAN, loss_G within "
+        f"{gaps['d_swapped']:.3g} of one rank's step with D swapped for the "
+        f"band run's updated D, and {gaps['after_d_update']:.3g} of one "
+        f"rank's own; parameters median/max/share "
+        f"{worst['median']:.3g}/{worst['max']:.3g}/{worst['share']:.3g}, "
+        f"ranks bit-identical; B1 {b1}; peak allocated bytes a rank "
+        f"{out['peak_bytes_rank']} (one rank {one['peak_bytes']}); "
+        f"collectives a step {out['collectives_per_step']}, their ms "
+        f"(synchronized) {out['collective_ms']}; step s {a['step_s']} "
+        f"(one rank {one['step_s']})")
+    return out
+
+
+def _spatial_worker(spec_path: str) -> None:
+    """``chip_smoke.py --spatial-worker <spec>`` under ``torchrun
+    --nproc_per_node 2`` on one card: both ranks on cuda:0 over gloo (NCCL
+    takes one rank a card), then ``_auto_worker``."""
+    import torch.distributed as dist
+    os.environ["LOCAL_RANK"] = "0"
+    dist.init_process_group("gloo")
+    try:
+        _auto_worker(spec_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spatial_cli(torch, tmp) -> dict:
+    """(b) train_256_fid.sh's flags (bf16, the lowch routes) under
+    ``torchrun --nproc_per_node 2`` over gloo on the one card at
+    ``--mesh_shape 1,2 --mesh_axes data,spatial``, against the same flags
+    with no mesh: the loss streams within SP_BF16_REL."""
+    from pcgan_tpu_torch import train_main
+    from pcgan_tpu_torch.ops import cuda_preprocess as cp
+    flags = SP_FID + ["--max_dataset_size", str(SP_CLI_B * SP_CLI_STEPS),
+                      "--dtype", "bfloat16", "--checkpoints_dir",
+                      os.path.join(tmp, "spatial_cli")]
+    spec = {"out": os.path.join(tmp, "spatial_cli.json"),
+            "time_collectives": False,
+            "runs": {"spatial": flags + SP_MESH + ["--name", "spatial"]}}
+    path = os.path.join(tmp, "spatial_cli_spec.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    # the plain run meanwhile, on the same card (nothing here is timed)
+    handle = _torchrun_start(path, 2, "--spatial-worker")
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        cp.launches = 0
+        train_main.main(flags + ["--mesh_shape", "1", "--name", "plain"])
+        plain = {"b1": cp.launches,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    finally:
+        torch.backends.cudnn.deterministic = False
+        rc, log = _torchrun_wait(handle)
+    call_s = time.perf_counter() - t0
+    check(rc == 0, f"(b) torchrun exited {rc}:\n{log[-4000:]}")
+    ranks = []
+    for r in range(2):
+        with open(f"{spec['out']}.rank{r}") as f:
+            ranks.append(json.load(f)["spatial"])
+    got = _loss_rows(os.path.join(tmp, "spatial_cli", "spatial"))
+    want = _loss_rows(os.path.join(tmp, "spatial_cli", "plain"))
+    check(len(got) == len(want) == SP_CLI_STEPS,
+          f"(b) {len(got)} vs {len(want)} logged steps")
+    gaps = [max(abs(x[k] - y[k]) / max(0.1, abs(y[k])) for k in y)
+            for x, y in zip(got, want)]
+    gap = max(gaps)
+    check(gaps[0] <= SP_BF16_FIRST and gap <= SP_BF16_REL,
+          f"(b) the band run's losses are {gaps} off the plain run's "
+          f"(bounds {SP_BF16_FIRST} at the first step, {SP_BF16_REL}): "
+          f"{got} vs {want}")
+    check(all(r["b1"] == SP_CLI_STEPS for r in ranks),
+          f"(b) B1 launches {[r['b1'] for r in ranks]}")
+    out = {"loss_max_rel_gap": gap, "gap_by_step": gaps,
+           "bounds": [SP_BF16_FIRST, SP_BF16_REL],
+           "peak_gb_rank": [r["peak_gb"] for r in ranks],
+           "b1": [r["b1"] for r in ranks], "plain": plain,
+           "collectives_per_step": ranks[0]["collectives_per_step"],
+           "call_s": call_s}
+    say(f"(b) train_256_fid.sh's flags (bf16, batch 32, 256 px, the lowch "
+        f"routes) under torchrun --nproc_per_node 2 over gloo on one card "
+        f"at data 1 x spatial 2: loss stream within {gaps} of the plain "
+        f"run's by step (of max(0.1, |loss|); bounds {SP_BF16_FIRST} at the "
+        f"first step, {SP_BF16_REL}); peak GiB a "
+        f"rank {[round(g, 3) for g in out['peak_gb_rank']]} (plain "
+        f"{plain['peak_gb']:.3f}); B1 {out['b1']} (plain {plain['b1']}); "
+        f"collectives a step {out['collectives_per_step']}; the torchrun "
+        f"call, with the plain run beside it, {call_s:.1f} s")
+    return out
+
+
+def phase_spatial(torch, tmp) -> dict:
+    """Phase 24: the spatial axis. B1's bands on the card; (a) two gloo
+    ranks on the one card at data 1 x spatial 2 against one rank (both
+    run in phase 23 (a): ``_spatial_prepare``, ``_auto_rank``); (b)
+    train_256_fid.sh's flags under torchrun at ``--mesh_shape 1,2``
+    against the plain run."""
+    t0 = time.perf_counter()
+    out = {"b1_bands": _b1_bands(torch)}
+    out["ranks"] = _spatial_ranks(torch, tmp)
+    torch.cuda.empty_cache()
+    out["cli"] = _spatial_cli(torch, tmp)
+    out["launches_per_run"] = {
+        "ranks": sum(out["ranks"]["b1_launches"]),
+        "cli_ranks": sum(out["cli"]["b1"]),
+        "cli_plain": out["cli"]["plain"]["b1"]}
+    out["phase_s"] = time.perf_counter() - t0
+    say(f"phase 24: {out['phase_s']:.1f} s; B1 launches "
+        f"{out['launches_per_run']}")
+    return out
+
+
+def _spatial_cards_worker(work: str) -> None:
+    """``chip_smoke.py --spatial-cards-worker <dir>`` under torchrun, one
+    NCCL rank a card: each mesh of SP_CARDS_MESHES in turn, every step from
+    one card's state before it (``_auto_steps``); rank r writes
+    ``{dir}/rank{r}.pt``."""
+    sys.path.insert(0, HERE)
+    import torch
+    from pcgan_tpu_torch.parallel.mesh import init_distributed
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    mesh = init_distributed(DEV)
+    try:
+        res = {name: _auto_steps(torch, mesh, inputs, work, flags)
+               for name, flags in SP_CARDS_MESHES.items()}
+        torch.save(res, os.path.join(work, f"rank{mesh.rank}.pt"))
+    finally:
+        mesh.close()
+
+
+def _spatial_cards(torch, tmp, n) -> dict:
+    """--cards: train_256_fid.sh's model, batch and pool in f32 under
+    ``torchrun --nproc_per_node n`` on NCCL at data 2 x spatial 2 and at
+    data 1 x spatial 2 x model 2, each step from one card's state before
+    it, against one card's plain step: losses within 1e-4 rel, the
+    parameters within the one-step envelope, every rank bit-identical."""
+    work = os.path.join(tmp, "spatial_cards")
+    one = _spatial_prepare(torch, tmp, "spatial_cards", cards=True)
+    t0 = time.perf_counter()
+    rc, log = _torchrun_auto(work, n, "--spatial-cards-worker")
+    call_s = time.perf_counter() - t0
+    check(rc == 0, f"--cards spatial: torchrun exited {rc}:\n{log[-4000:]}")
+    ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                        weights_only=False) for r in range(n)]
+    out = {"one_card": {"peak_bytes": one["peak_bytes"],
+                        "step_s": one["step_s"]}, "call_s": call_s}
+    for name in SP_CARDS_MESHES:
+        rk = [r[name] for r in ranks]
+        gap = {"max": 0.0}
+
+        def loss_ok(i, k, x, y):
+            d = abs(x - y) / max(abs(y), 1e-12) if x != y else 0.0
+            gap["max"] = max(gap["max"], d)
+            return d <= 1e-4
+        what = f"--cards {name}"
+        worst = _against_one(torch, what, rk, one, work, SP_CARDS_STEPS,
+                             loss_ok)
+        out[name] = {"loss_max_rel_gap": gap["max"], "param_diff": worst,
+                     "peak_bytes_rank": [r["peak_bytes"] for r in rk],
+                     "collectives_per_step": rk[0]["collectives"][-1],
+                     "collective_ms": [r["collective_ms"] for r in rk],
+                     "coords": [r["coords"] for r in rk],
+                     "step_s": rk[0]["step_s"]}
+        say(f"--cards {n}: {name} on NCCL (train_256_fid.sh's model, f32, "
+            f"batch {SP_CLI_B}, each step from one card's state): losses "
+            f"within {gap['max']:.3g} (rel) of one card's over "
+            f"{SP_CARDS_STEPS} steps, parameters median/max/share "
+            f"{worst['median']:.3g}/{worst['max']:.3g}/{worst['share']:.3g}"
+            f", ranks bit-identical; peak allocated bytes a rank "
+            f"{out[name]['peak_bytes_rank']} (one card {one['peak_bytes']})"
+            f"; collectives a step {out[name]['collectives_per_step']}, "
+            f"their ms (synchronized) a rank {out[name]['collective_ms']}")
+    return out
+
+
 DP_CARDS_CACHE = ["--dataset_mode", "synthetic", "--max_dataset_size",
                   "1000", "--batch_size", "256", "--crop_size", "128",
                   "--load_size", "143"]   # --cards: the sharded cache's rows
@@ -5240,8 +5822,9 @@ def main_cards(n: int) -> None:
     with one NCCL rank a card (rank r on cuda:r) against one rank, the
     collectives' kernels of one profiled step on each rank, and the
     sharded cache across the ranks (every rank's rows against the
-    replicated cache's); then phase 23 on the cards (``_auto_cards``).
-    Prints the card line, then a JSON summary."""
+    replicated cache's); then phase 24 on the cards (``_spatial_cards``)
+    and phase 23 (``_auto_cards``). Prints the card line, then a JSON
+    summary."""
     if not os.path.isdir(os.path.join(HERE, "pcgan_tpu_torch")):
         fail("run chip_smoke.py from a checkout of the repository "
              "(pcgan_tpu_torch/ is missing)")
@@ -5258,12 +5841,14 @@ def main_cards(n: int) -> None:
         out = _dp_ranks(torch, tmp, n, "nccl", shared=False,
                         cache_argv=DP_CARDS_CACHE)
         torch.cuda.empty_cache()
+        spatial = _spatial_cards(torch, tmp, n)
+        torch.cuda.empty_cache()
         sharded = _auto_cards(torch, tmp, n)
     say(f"total {time.perf_counter() - t0:.1f} s")
     print(card, flush=True)
     print(json.dumps({"cards": n, "data_parallel": out,
-                      "sharded_state": sharded}, default=_jsonable),
-          flush=True)
+                      "sharded_state": sharded, "spatial": spatial},
+                     default=_jsonable), flush=True)
 
 
 def _face_row(folder, i) -> np.ndarray:
@@ -5326,6 +5911,8 @@ def main() -> None:
         leftovers = phase_leftovers(torch, tmp, levers, variants, tools)
         dp = phase_data_parallel(torch, tmp, folder, path3["bundle_dir"])
         sharded = phase_sharded_state(torch, tmp)
+        spatial = phase_spatial(torch, tmp)
+    b1["band_form"] = spatial["b1_bands"]
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
         "training": path1["launches_per_run"], "bench_lowch": 0,
@@ -5340,7 +5927,8 @@ def main() -> None:
         "tools": tools["launches_per_run"],
         "leftovers": leftovers["launches_per_run"],
         "data_parallel": dp["launches_per_run"],
-        "sharded_state": sharded["launches_per_run"]}
+        "sharded_state": sharded["launches_per_run"],
+        "spatial": spatial["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
@@ -5352,6 +5940,7 @@ def main() -> None:
                                "serving": 0, "levers": 0, "g_variants": 0,
                                "tools": 0, "leftovers": 0,
                                "data_parallel": 0, "sharded_state": 0,
+                               "spatial": 0,
                                "tail_forms": variants["b2_tail_launches"]}
     b2["launches"] = (path2["launches"] + path1["b2_launches"]
                       + variants["b2_tail_launches"])
@@ -5359,7 +5948,7 @@ def main() -> None:
           and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools, 'leftovers': leftovers, 'data_parallel': dp, 'sharded_state': sharded}, default=_jsonable)}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools, 'leftovers': leftovers, 'data_parallel': dp, 'sharded_state': sharded, 'spatial': spatial}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)
@@ -5373,6 +5962,10 @@ if __name__ == "__main__":
         _dp_worker(sys.argv[2])         # phase 22's rank under torchrun
     elif sys.argv[1:2] == ["--auto-worker"]:
         _auto_worker(sys.argv[2])       # phase 23's ranks under torchrun
+    elif sys.argv[1:2] == ["--spatial-worker"]:
+        _spatial_worker(sys.argv[2])    # phase 24 (b)'s ranks, one card
+    elif sys.argv[1:2] == ["--spatial-cards-worker"]:
+        _spatial_cards_worker(sys.argv[2])   # --cards' spatial ranks
     elif sys.argv[1:2] == ["--cards"]:
         main_cards(int(sys.argv[2]))    # phase 22 (a) over N cards
     else:

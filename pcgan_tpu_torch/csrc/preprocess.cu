@@ -27,6 +27,12 @@
 // one short chain of dependent loads, with enough blocks to keep every SM
 // busy.
 //
+// Bands. Under a spatial mesh axis each rank computes on a band of rows of
+// every image: the kernel then writes only rows [r0, r0 + rows) of each
+// crop, grid (rows, B), output (B, rows, crop, C). The crop offset clamps
+// first, and the band starts r0 rows into the crop after that. The whole
+// crop is the band r0 = 0, rows = crop.
+//
 // Design. The TPU kernel builds 0/1 selector matrices for crop and flip
 // (Mosaic has no unaligned sublane slice and no `rev`) and transposes the
 // image to NCHW; here the block indexes the band rows directly and reads
@@ -64,13 +70,14 @@ preprocess_kernel(const uint8_t* __restrict__ img,   // (B, H, W, C)
                   const float* __restrict__ taps_w,  // (load, kw)
                   const int* __restrict__ cy, const int* __restrict__ cx,
                   const int* __restrict__ flip,      // (B,) each
-                  OutT* __restrict__ out,            // (B, crop, crop, C)
-                  int H, int W, int C, int load, int crop, int kh, int kw) {
+                  OutT* __restrict__ out,            // (B, rows, crop, C)
+                  int H, int W, int C, int load, int crop, int kh, int kw,
+                  int r0, int rows) {
   extern __shared__ float v_s[];   // ((whi - wlo) * C,): the vertical pass
 
   const int b = blockIdx.y, row = blockIdx.x;
   const int span = load - crop;
-  const int y = min(max(cy[b], 0), span) + row;
+  const int y = min(max(cy[b], 0), span) + r0 + row;
   const int x0 = min(max(cx[b], 0), span);
   const bool flipped = flip[b] != 0;
   const int WC = W * C;
@@ -89,7 +96,7 @@ preprocess_kernel(const uint8_t* __restrict__ img,   // (B, H, W, C)
   }
   __syncthreads();
 
-  OutT* o = out + ((size_t)b * crop + row) * crop * C;
+  OutT* o = out + ((size_t)b * rows + row) * crop * C;
   for (int e = threadIdx.x; e < crop * C; e += kThreads) {
     const int q = e / C, c = e - q * C;
     const int sel = x0 + (flipped ? crop - 1 - q : q);
@@ -106,8 +113,8 @@ template <typename OutT>
 cudaError_t launch(const void* img, const void* lo_h, const void* taps_h,
                    const void* lo_w, const void* taps_w, const void* cy,
                    const void* cx, const void* flip, void* out, int B, int H,
-                   int W, int C, int load, int crop, int kh, int kw,
-                   cudaStream_t stream) {
+                   int W, int C, int load, int crop, int kh, int kw, int r0,
+                   int rows, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)W * C;
   auto kernel = preprocess_kernel<OutT>;
   if (smem > 48 * 1024) {
@@ -115,13 +122,13 @@ cudaError_t launch(const void* img, const void* lo_h, const void* taps_h,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid(crop, B);
+  const dim3 grid(rows, B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const uint8_t*>(img), static_cast<const int*>(lo_h),
       static_cast<const float*>(taps_h), static_cast<const int*>(lo_w),
       static_cast<const float*>(taps_w), static_cast<const int*>(cy),
       static_cast<const int*>(cx), static_cast<const int*>(flip),
-      static_cast<OutT*>(out), H, W, C, load, crop, kh, kw);
+      static_cast<OutT*>(out), H, W, C, load, crop, kh, kw, r0, rows);
   return cudaGetLastError();
 }
 
@@ -130,23 +137,26 @@ cudaError_t launch(const void* img, const void* lo_h, const void* taps_h,
 // Plain C entry point (bound with ctypes): launches on `stream` and returns
 // cudaGetLastError() of the launch. out_bf16 selects a bf16 output, else
 // f32. lo_h/taps_h and lo_w/taps_w are resize_band(H, load) and
-// resize_band(W, load), of kh and kw taps.
+// resize_band(W, load), of kh and kw taps. Rows [r0, r0 + rows) of each
+// crop are written (r0 0, rows crop: the whole crop).
 extern "C" int pcgan_preprocess(const void* img, const void* lo_h,
                                 const void* taps_h, const void* lo_w,
                                 const void* taps_w, const void* cy,
                                 const void* cx, const void* flip, void* out,
                                 int out_bf16, int B, int H, int W, int C,
-                                int load, int crop, int kh, int kw,
-                                void* stream) {
+                                int load, int crop, int kh, int kw, int r0,
+                                int rows, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || crop <= 0 || crop > load ||
-      kh <= 0 || kh > H || kw <= 0 || kw > W)
+      kh <= 0 || kh > H || kw <= 0 || kw > W || r0 < 0 || rows <= 0 ||
+      r0 + rows > crop)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       out_bf16
           ? launch<__nv_bfloat16>(img, lo_h, taps_h, lo_w, taps_w, cy, cx,
-                                  flip, out, B, H, W, C, load, crop, kh, kw, s)
+                                  flip, out, B, H, W, C, load, crop, kh, kw,
+                                  r0, rows, s)
           : launch<float>(img, lo_h, taps_h, lo_w, taps_w, cy, cx, flip, out,
-                          B, H, W, C, load, crop, kh, kw, s);
+                          B, H, W, C, load, crop, kh, kw, r0, rows, s);
   return (int)e;
 }

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pcgan_tpu_torch.models.layers import Norm, TorchConv, conv_bias_before_norm
+from pcgan_tpu_torch.parallel import spatial
 
 _SQRT2 = 1.4142135623730951
 
@@ -61,12 +62,16 @@ class Comparator(nn.Module):
         # return channels-last weight gradients, which the fused Adam of
         # pretraining refuses beside its contiguous parameters
         h = x.permute(0, 3, 1, 2).contiguous()
+        # inside spatial.banded x is this rank's band: the convs take their
+        # halos, and the pool is the band's sum over the line's count
+        H = spatial.global_h(h.shape[2])
         for i, conv in enumerate(self.convs):
-            h = conv(h)
+            h = conv(h, H=H)
+            H = conv.out_size(H)
             if i > 0:
                 h = self.norms[i - 1](h)
             h = F.leaky_relu(h, 0.2)
-        h = F.leaky_relu(self.fc(h.float().mean(dim=(2, 3))), 0.2)
+        h = F.leaky_relu(self.fc(spatial.mean_hw(h.float())), 0.2)
         if return_features:
             return h
         out = self.head(h)

@@ -25,12 +25,15 @@ the post-activation map of every pre-logit block, shallowest first
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from pcgan_tpu_torch.models.generator import SelfAttention, broadcast_cond
 from pcgan_tpu_torch.models.layers import Norm, TorchConv, conv_bias_before_norm
+from pcgan_tpu_torch.parallel import spatial
 
 
 def _nhwc(h: torch.Tensor) -> torch.Tensor:
@@ -82,26 +85,33 @@ class NLayerDiscriminator(nn.Module):
             size = (size - 2) // 2 + 1          # k4 s2 p1
         return size - 2                          # two k4 s1 p1
 
-    def trunk(self, h: torch.Tensor):
+    def trunk(self, h: torch.Tensor, H: Optional[int] = None):
         """NCHW (condition already concatenated) -> (NCHW f32 logits, the
-        NHWC feature taps)."""
+        NHWC feature taps). ``H``: h's global height where h is a band of
+        it (``parallel/spatial.py``)."""
         feats = []
-        h = F.leaky_relu(self.convs[0](h), 0.2)
+        h = F.leaky_relu(self.convs[0](h, H=H), 0.2)
+        H = None if H is None else self.convs[0].out_size(H)
         feats.append(h)
         for i in range(1, self.n_layers):
-            h = F.leaky_relu(self.norms[i - 1](self.convs[i](h)), 0.2)
+            h = F.leaky_relu(self.norms[i - 1](self.convs[i](h, H=H)), 0.2)
+            H = None if H is None else self.convs[i].out_size(H)
             feats.append(h)
         if self.attn is not None:
             h = self.attn(h)
-        h = F.leaky_relu(self.norms[-1](self.convs[-2](h)), 0.2)
+        h = F.leaky_relu(self.norms[-1](self.convs[-2](h, H=H)), 0.2)
+        H = None if H is None else self.convs[-2].out_size(H)
         feats.append(h)
-        return self.convs[-1](h).float(), tuple(_nhwc(f) for f in feats)
+        return (self.convs[-1](h, H=H).float(),
+                tuple(_nhwc(f) for f in feats))
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 return_features: bool = False):
         """x: (N,H,W,C); cond: (N,cond_nc). Returns (N,h,w,1) f32 logits
-        (and the feature taps)."""
-        out, feats = self.trunk(_with_cond(x, cond))
+        (and the feature taps); inside ``spatial.banded`` x and the logits
+        are this rank's bands."""
+        out, feats = self.trunk(_with_cond(x, cond),
+                                spatial.global_h(x.shape[1]))
         out = _nhwc(out)
         return (out, feats) if return_features else out
 
@@ -159,6 +169,10 @@ class PixelDiscriminator(nn.Module):
             TorchConv(ndf, ndf * 2, 1, 1, 0, use_bias=use_bias, **sn),
             TorchConv(ndf * 2, 1, 1, 1, 0, use_bias=True, **sn)])
         self.norms = nn.ModuleList([Norm(norm, ndf * 2)])
+
+    def patch_size(self, size: int) -> int:
+        """The side of the logit map for an input of side ``size``."""
+        return size
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 return_features: bool = False):

@@ -15,6 +15,9 @@ bottleneck features (``'bottleneck'``, followed by a 1x1 projection back to
 the trunk width). ``forward`` takes and returns NHWC, like the JAX module.
 
 ``--norm`` is instance, batch, group or none, one norm module per site.
+Inside ``parallel.spatial.banded`` the resnet G computes on this rank's
+band of rows (its convs told their input's global height; the condition
+map broadcast at the band's height).
 With dropout (``--no-no_dropout``) a training forward draws one keep-mask
 per block from an explicit ``torch.Generator``; ``--remat`` recomputes the
 first ``--remat_blocks`` blocks in the backward pass.
@@ -58,6 +61,7 @@ from pcgan_tpu_torch.models.layers import (Norm, ResizeConv, TorchConv,
                                            conv_bias_before_norm,
                                            frozen_stats, norm_uses_bias)
 from pcgan_tpu_torch.parallel import rows as draw
+from pcgan_tpu_torch.parallel import spatial
 
 
 def broadcast_cond(cond: torch.Tensor, h: int, w: int,
@@ -82,14 +86,16 @@ class ResnetBlock(nn.Module):
         self.use_dropout = use_dropout
 
     def forward(self, x: torch.Tensor,
-                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+                keep: Optional[torch.Tensor] = None,
+                H: Optional[int] = None) -> torch.Tensor:
         """``keep``: the dropout mask (bool, x's shape) of a training
         forward, drawn by the caller (flax ``nn.Dropout(0.5)``: kept
-        entries are scaled by 2)."""
-        h = F.relu(self.norm0(self.conv0(x)))
+        entries are scaled by 2). ``H``: x's global height where x is a
+        band of it (``parallel/spatial.py``)."""
+        h = F.relu(self.norm0(self.conv0(x, H=H)))
         if keep is not None:
             h = torch.where(keep, h / 0.5, torch.zeros_like(h))
-        h = self.norm1(self.conv1(h))
+        h = self.norm1(self.conv1(h, H=H))
         return x + h
 
 
@@ -202,20 +208,24 @@ class ResnetGenerator(nn.Module):
             raise ValueError("a training forward with dropout needs the "
                              "train state's generator")
         h = x.permute(0, 3, 1, 2)
+        # inside spatial.banded x is this rank's band of the image: every
+        # conv is told its input's global height
+        H = spatial.global_h(h.shape[2])
         if self.stem_cond:
-            h = self.stem(h, cond)
+            h = self.stem(h, cond, H=H)
         else:
             if self.cond_inject == "input":
                 h = torch.cat([h, broadcast_cond(cond, h.shape[2], h.shape[3],
                                                  h.dtype)], 1)
-            h = self.stem(h)
+            h = self.stem(h, H=H)
         h = F.relu(self.stem_norm(h))
         for conv, norm in zip(self.down, self.down_norm):
-            h = F.relu(norm(conv(h)))
+            h = F.relu(norm(conv(h, H=H)))
+            H = conv.out_size(H)
         if self.cond_proj is not None:
             h = torch.cat([h, broadcast_cond(cond, h.shape[2], h.shape[3],
                                              h.dtype)], 1)
-            h = self.cond_proj(h)
+            h = self.cond_proj(h, H=H)
         remat = self.training and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
             keep = (draw.rand(h.shape, generator, rows, device=h.device)
@@ -226,12 +236,13 @@ class ResnetGenerator(nn.Module):
                 h = checkpoint(block, h, keep, use_reentrant=False,
                                context_fn=_recompute_frozen(block))
             else:
-                h = block(h, keep)
+                h = block(h, keep, H)
             if i == self.attn_after:
                 h = self.attn(h)
         for deconv, norm in zip(self.up, self.up_norm):
-            h = F.relu(norm(deconv(h)))
-        h = self.tail(h)
+            h = F.relu(norm(deconv(h, H=H)))
+            H = deconv.out_size(H)
+        h = self.tail(h, H=H)
         return torch.tanh(h.float()).permute(0, 2, 3, 1)
 
 

@@ -38,7 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pcgan_tpu_torch.ops.pad import pad2d
+from pcgan_tpu_torch.ops.pad import pad2d, pad_edges
+from pcgan_tpu_torch.parallel import spatial
 
 # --------------------------------------------------------------------------- #
 # init (normal | xavier | kaiming | orthogonal), JAX semantics
@@ -221,26 +222,42 @@ class TorchConv(_QuantSite):
     def weight_from_hwio(k: torch.Tensor) -> torch.Tensor:
         return k.permute(3, 2, 0, 1)
 
+    def out_size(self, H: int) -> int:
+        """The output height of an input of ``H`` rows."""
+        k = self.weight.shape[2]
+        return (H + 2 * self.padding - k) // self.stride + 1
+
     def forward(self, x: torch.Tensor,
-                cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+                cond: Optional[torch.Tensor] = None,
+                H: Optional[int] = None) -> torch.Tensor:
         """``cond`` (N, nc): the condition channels of a conditional G's
         stem, kept apart (the bf16 path). The conv of a spatially constant
         channel through a full stride-1 reflect pad is constant, so those
         channels add exactly a per-sample bias, ``cond @ sum_taps(W_cond)``,
         and the conv runs over the image channels alone (10/13 of the stem's
         FLOPs skipped at 10 bins). The weight keeps its concat shape
-        (F, C_img + nc, k, k)."""
+        (F, C_img + nc, k, k).
+
+        ``H``: x's global height where x is this rank's band of it
+        (``parallel/spatial.py``): the conv then computes its output's band
+        from x and the halo rows of the neighbouring bands. The routes are
+        chosen by the global shape."""
         dt = self.compute_dtype
         xd = x.to(dt)
         p = self.padding
+        line = spatial.active() if H is not None else None
+        gh = x.shape[2] if line is None else H
         # route precedence as in the JAX package: the s2d and fused-reflect
         # forms before int8 (they are the tail/stem forms, which PTQ keeps
         # in the compute dtype)
-        s2d = (self.s2d_r and x.shape[2] % self.s2d_r == 0
+        s2d = (self.s2d_r and gh % self.s2d_r == 0
                and x.shape[3] % self.s2d_r == 0)
         fused = (not s2d and self.fused_reflect and self.full_reflect
-                 and min(x.shape[2], x.shape[3]) >= p + 2)
+                 and min(gh, x.shape[3]) >= p + 2)
         quant = self.quant and not (s2d or fused)
+        if line is not None and quant:
+            raise NotImplementedError("an int8 conv on a band (int8 is an "
+                                      "inference lever)")
         if cond is not None and (quant or not self.full_reflect):
             raise ValueError(
                 "separated-cond TorchConv requires a full stride-1 reflect "
@@ -259,7 +276,10 @@ class TorchConv(_QuantSite):
             w_cond = wd[:, xc:].float().sum(dim=(2, 3)).to(dt)   # (F, nc)
             cond_bias = (cond.to(dt) @ w_cond.T)[:, :, None, None]
             wd = wd[:, :xc]
-        if s2d:
+        if line is not None:
+            y = self._band_conv(xd, wd, H, "s2d" if s2d else
+                                "fused" if fused else "plain")
+        elif s2d:
             from pcgan_tpu_torch.ops.lowch_conv import s2d_conv_nchw
             y = s2d_conv_nchw(pad2d(xd, p, "reflect"), wd, self.s2d_r)
         elif fused:
@@ -281,6 +301,48 @@ class TorchConv(_QuantSite):
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
         return y.to(dt)
+
+    def _band_conv(self, xd: torch.Tensor, wd: torch.Tensor, H: int,
+                   route: str) -> torch.Tensor:
+        """This rank's band of the conv's output from its band ``xd`` of
+        the H-row input: the window of input rows its output band reads
+        (halo rows fetched from the neighbouring bands), padded at the
+        image's global top and bottom only, then the route's conv (no
+        bias; ``forward`` adds it)."""
+        line = spatial.active()
+        k, s, p = wd.shape[2], self.stride, self.padding
+        wins = spatial.conv_windows(H, line.n, k, s, p)
+        mine = wins[line.coord]
+        w_out = (xd.shape[3] + 2 * p - k) // s + 1
+        if route == "s2d":
+            # the fold groups rows by 4: every band a multiple of 4
+            rows = [b.h for b in spatial.bands_of(self.out_size(H), line.n)]
+            if any(h % self.s2d_r for h in rows):
+                raise ValueError(
+                    f"the space-to-depth tail on a band: {H} rows over a "
+                    f"spatial axis of {line.n} give bands of {rows} rows; "
+                    f"each must divide by {self.s2d_r}")
+        xw = spatial.fetch(xd, H, wins)
+        if mine is None:
+            return spatial.empty_like_out(xw, wd, (xd.shape[0], wd.shape[0],
+                                                   0, w_out))
+        top, bottom = max(0, -mine[0]), max(0, mine[1] - H)
+        mode = self.pad_mode
+        if route == "s2d":
+            from pcgan_tpu_torch.ops.lowch_conv import s2d_conv_nchw
+            y = s2d_conv_nchw(pad_edges(xw, top, bottom, p, p, "reflect"),
+                              wd, self.s2d_r)
+        elif route == "fused":
+            from pcgan_tpu_torch.ops.lowch_conv import reflect_conv_cols
+            y = reflect_conv_cols(pad_edges(xw, top, bottom, 0, 0,
+                                            "reflect"), wd, p)
+        elif mode == "zero":
+            y = F.conv2d(pad_edges(xw, top, bottom, 0, 0, "zero"), wd,
+                         stride=s, padding=(0, p))
+        else:
+            y = F.conv2d(pad_edges(xw, top, bottom, p, p, mode), wd,
+                         stride=s)
+        return y
 
 
 class TorchConvTranspose(_QuantSite):
@@ -317,8 +379,23 @@ class TorchConvTranspose(_QuantSite):
         from pcgan_tpu_torch.ops.quant import deconv_as_conv_weight
         return deconv_as_conv_weight(self.weight)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.quant:
+    def out_size(self, H: int) -> int:
+        """The output height of an input of ``H`` rows."""
+        k = self.weight.shape[2]
+        return ((H - 1) * self.stride - 2 * self.padding + k
+                + self.output_padding)
+
+    def forward(self, x: torch.Tensor, H: Optional[int] = None
+                ) -> torch.Tensor:
+        """``H``: x's global height where x is this rank's band of it: the
+        output band is then computed from the input rows it reads
+        (``parallel/spatial.py``)."""
+        if H is not None and spatial.active() is not None:
+            if self.quant:
+                raise NotImplementedError("an int8 conv on a band (int8 is "
+                                          "an inference lever)")
+            y = self._band_deconv(x.to(self.compute_dtype), H)
+        elif self.quant:
             k = self.weight.shape[2]
             lo = k - 1 - self.padding
             hi = lo + self.output_padding
@@ -332,6 +409,27 @@ class TorchConvTranspose(_QuantSite):
         if self.bias is not None:
             y = y + self.bias.view(1, -1, 1, 1)
         return y.to(self.compute_dtype)
+
+    def _band_deconv(self, xd: torch.Tensor, H: int) -> torch.Tensor:
+        """This rank's band of the output from the input rows its output
+        band reads: the transposed conv over that window (no padding along
+        H), its rows cropped to the band."""
+        line = spatial.active()
+        wd = self.weight.to(self.compute_dtype)
+        k, s, p = wd.shape[2], self.stride, self.padding
+        op = self.output_padding
+        H_out, wins = spatial.deconv_windows(H, line.n, k, s, p, op)
+        mine = wins[line.coord]
+        xw = spatial.fetch(xd, H, wins)
+        w_out = (xd.shape[3] - 1) * s - 2 * p + k + op
+        if mine is None:
+            return spatial.empty_like_out(xw, wd, (xd.shape[0], wd.shape[1],
+                                                   0, w_out))
+        band = spatial.band_of(H_out, line.n, line.coord)
+        y = F.conv_transpose2d(xw, wd, stride=s, padding=(0, p),
+                               output_padding=(0, op))
+        first = band.r0 + p - mine[0] * s
+        return y[:, :, first:first + band.h]
 
 
 class ResizeConv(nn.Module):
@@ -347,7 +445,14 @@ class ResizeConv(nn.Module):
         self.conv = TorchConv(in_ch, features, 3, 1, 1, "zero", use_bias,
                               dtype, quant)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def out_size(self, H: int) -> int:
+        return 2 * H
+
+    def forward(self, x: torch.Tensor, H: Optional[int] = None
+                ) -> torch.Tensor:
+        if H is not None and spatial.active() is not None:
+            raise NotImplementedError("the resize conv on a band (ROADMAP.md "
+                                      "A10d)")
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
@@ -448,7 +553,11 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
     f32: exact two-pass mean/var. bf16: single-pass E[x^2]-E[x]^2 with f32
     accumulation (x*x rounds in bf16, as in JAX), output cast to bf16.
+    Inside ``spatial.banded`` x is this rank's band along H: the moments
+    are the band's sums over the spatial line, over its count.
     """
+    if spatial.active() is not None:
+        return _band_instance_norm(x, eps)
     if x.dtype == torch.float32:
         mean = x.mean(dim=(2, 3), keepdim=True)
         var = (x - mean).square().mean(dim=(2, 3), keepdim=True)
@@ -456,6 +565,30 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     xf = x.float()
     mean = xf.mean(dim=(2, 3), keepdim=True)
     mean2 = (x * x).float().mean(dim=(2, 3), keepdim=True)
+    var = torch.clamp(mean2 - mean.square(), min=0.0)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def _band_instance_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """``instance_norm`` of a band: the same two forms, each moment a sum
+    over the band summed over the line (``spatial.line_sum``) over the
+    line's count; f32 takes two collectives, bf16 one."""
+    n, c, h, w = x.shape
+    count = x.new_tensor([float(h * w)], dtype=torch.float32)
+    if x.dtype == torch.float32:
+        tot = spatial.line_sum(torch.cat([x.sum(dim=(2, 3)).reshape(-1),
+                                          count]))
+        cnt = tot[-1].detach()
+        mean = (tot[:-1] / cnt).view(n, c, 1, 1)
+        var = spatial.line_sum((x - mean).square().sum(dim=(2, 3))) / cnt
+        return (x - mean) * torch.rsqrt(var.view(n, c, 1, 1) + eps)
+    xf = x.float()
+    tot = spatial.line_sum(torch.cat([xf.sum(dim=(2, 3)).reshape(-1),
+                                      (x * x).float().sum(dim=(2, 3))
+                                      .reshape(-1), count]))
+    cnt = tot[-1].detach()
+    mean = (tot[:n * c] / cnt).view(n, c, 1, 1)
+    mean2 = (tot[n * c:2 * n * c] / cnt).view(n, c, 1, 1)
     var = torch.clamp(mean2 - mean.square(), min=0.0)
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
@@ -516,7 +649,8 @@ class BatchNorm(StatefulModule):
     normalizes by the batch's f32 stats (``E[x^2] - E[x]^2``, clipped at 0)
     and moves the running stats toward them with the BIASED variance; eval
     mode reads the running stats. Inside ``batch_norm_group`` the batch is
-    the global one: the moments are averaged over the group."""
+    the global one: the moments are averaged over the group; inside
+    ``spatial.banded`` they are first summed over the spatial line."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  eps: float = 1e-5):
@@ -532,8 +666,17 @@ class BatchNorm(StatefulModule):
             return _affine(x, self.running_mean, self.running_var,
                            self.weight, self.bias, self.eps)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        mean2 = xf.square().mean(dim=(0, 2, 3))
+        if spatial.active() is not None:
+            # a band: the rows' sums over the spatial line, over its count
+            # (the data ranks of a line hold equal counts)
+            tot = spatial.line_sum(torch.cat([
+                xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
+                xf.new_tensor([float(xf[:, 0].numel())])]))
+            c = xf.shape[1]
+            mean, mean2 = (tot[:2 * c] / tot[-1].detach()).view(2, c)
+        else:
+            mean = xf.mean(dim=(0, 2, 3))
+            mean2 = xf.square().mean(dim=(0, 2, 3))
         if _BN_GROUP is not None:
             mean, mean2 = _GroupMean.apply(torch.stack([mean, mean2]),
                                            _BN_GROUP).unbind(0)

@@ -30,7 +30,7 @@ _OUT_DTYPES = (torch.float32, torch.bfloat16)
 @functools.cache
 def _kernel():
     fn = _build.load("pcgan_preprocess", SOURCE).pcgan_preprocess
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -53,11 +53,14 @@ def preprocess_batch_cuda(imgs: torch.Tensor, crop_y: torch.Tensor,
                           crop_x: torch.Tensor, flip: torch.Tensor,
                           load_size: int, crop_size: int,
                           method: str = "bicubic",
-                          out_dtype=torch.float32) -> torch.Tensor:
+                          out_dtype=torch.float32, row0: int = 0,
+                          n_rows: int = None) -> torch.Tensor:
     """Launch the kernel on ``imgs`` (B, H, W, C) u8, contiguous, on a CUDA
     device; crop_y/crop_x/flip are (B,) integer/bool tensors. Returns
     (B, crop, crop, C) in ``out_dtype`` (f32 or bf16) on the same device,
-    enqueued on the current stream."""
+    enqueued on the current stream; with ``row0``/``n_rows``, only rows
+    [row0, row0 + n_rows) of each crop, (B, n_rows, crop, C): a band of a
+    spatial axis (an empty band launches nothing)."""
     global launches
     if imgs.device.type != "cuda":
         raise ValueError(f"preprocess kernel: imgs on {imgs.device}, want cuda")
@@ -73,6 +76,11 @@ def preprocess_batch_cuda(imgs: torch.Tensor, crop_y: torch.Tensor,
     if not 0 < crop_size <= load_size:
         raise ValueError(f"preprocess kernel: crop {crop_size} must be in "
                          f"(0, load {load_size}]")
+    n_rows = crop_size - row0 if n_rows is None else n_rows
+    if row0 < 0 or n_rows < 0 or row0 + n_rows > crop_size:
+        raise ValueError(f"preprocess kernel: rows [{row0}, "
+                         f"{row0 + n_rows}) are not in a crop of "
+                         f"{crop_size}")
     dev = imgs.device
     idx = []
     for name, t in (("crop_y", crop_y), ("crop_x", crop_x), ("flip", flip)):
@@ -82,8 +90,10 @@ def preprocess_batch_cuda(imgs: torch.Tensor, crop_y: torch.Tensor,
         idx.append(t.to(device=dev, dtype=torch.int32).contiguous())
     lo_h, taps_h = _band_on(h, load_size, method, dev)
     lo_w, taps_w = _band_on(w, load_size, method, dev)
-    out = torch.empty((b, crop_size, crop_size, c), dtype=out_dtype,
+    out = torch.empty((b, n_rows, crop_size, c), dtype=out_dtype,
                       device=dev)
+    if n_rows == 0:
+        return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _kernel()(imgs.data_ptr(), lo_h.data_ptr(), taps_h.data_ptr(),
@@ -92,7 +102,8 @@ def preprocess_batch_cuda(imgs: torch.Tensor, crop_y: torch.Tensor,
                         idx[2].data_ptr(), out.data_ptr(),
                         int(out_dtype == torch.bfloat16),
                         b, h, w, c, load_size, crop_size,
-                        taps_h.shape[1], taps_w.shape[1], stream)
+                        taps_h.shape[1], taps_w.shape[1], row0, n_rows,
+                        stream)
     if err != 0:
         raise RuntimeError(f"preprocess kernel launch failed: CUDA error "
                            f"{err}")

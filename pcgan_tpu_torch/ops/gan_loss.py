@@ -7,7 +7,9 @@ or a tuple of them (``--netD multiscale``), whose per-scale criteria are
 averaged; every loss reduces in f32. ``gradient_penalty`` and
 ``r1_penalty`` are double backward: ``torch.autograd.grad`` of the summed
 logits with ``create_graph=True``, so D's parameter gradient flows through
-the input gradient.
+the input gradient. Inside ``parallel.spatial.banded`` the logits are this
+rank's band of ``H`` rows and ``gan_loss`` is its share of the loss
+(``band_mean``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+
+from pcgan_tpu_torch.parallel.spatial import band_mean
 
 PORTED_MODES = ("vanilla", "lsgan", "wgangp", "hinge")
 
@@ -37,28 +41,32 @@ def _sum_logits(out) -> torch.Tensor:
 
 
 def gan_loss(logits, target_is_real: bool, mode: str = "lsgan",
-             for_discriminator: bool = True) -> torch.Tensor:
+             for_discriminator: bool = True, H=None) -> torch.Tensor:
     """Loss for one batch of D outputs (reference GANLoss semantics); a
-    multiscale tuple averages the per-scale criteria."""
+    multiscale tuple averages the per-scale criteria. ``H``: the logits'
+    global height where they are a band of it."""
     if isinstance(logits, (tuple, list)):
         per = [gan_loss(lg, target_is_real, mode, for_discriminator)
                for lg in logits]
         return sum(per) / len(per)
     x = logits.float()
+
+    def mean(v):
+        return band_mean(v, H)
     if mode == "lsgan":
-        return torch.mean((x - (1.0 if target_is_real else 0.0)) ** 2)
+        return mean((x - (1.0 if target_is_real else 0.0)) ** 2)
     if mode == "vanilla":
         # stable BCE-with-logits against a constant target, as in JAX
         t = 1.0 if target_is_real else 0.0
-        return torch.mean(torch.clamp(x, min=0) - x * t
-                          + torch.log1p(torch.exp(-x.abs())))
+        return mean(torch.clamp(x, min=0) - x * t
+                    + torch.log1p(torch.exp(-x.abs())))
     if mode == "wgangp":
-        return -torch.mean(x) if target_is_real else torch.mean(x)
+        return -mean(x) if target_is_real else mean(x)
     if mode == "hinge":
         if for_discriminator:
-            return (torch.mean(F.relu(1.0 - x)) if target_is_real
-                    else torch.mean(F.relu(1.0 + x)))
-        return -torch.mean(x)
+            return (mean(F.relu(1.0 - x)) if target_is_real
+                    else mean(F.relu(1.0 + x)))
+        return -mean(x)
     raise NotImplementedError(f"gan_mode [{mode}] not implemented")
 
 

@@ -318,19 +318,38 @@ def reflect_conv_nchw(x: torch.Tensor, w: torch.Tensor,
         corr = F.conv2d(strip, w[:, :, rb:rb + 1])
         y = torch.cat([y[:, :, :h - nr], y[:, :, h - nr:] + corr.flip(2)],
                       dim=2)
+    return _reflect_cols(y, x, w, p, row_pad=p)
+
+
+def _reflect_cols(y: torch.Tensor, x: torch.Tensor, w: torch.Tensor, p: int,
+                  row_pad: int) -> torch.Tensor:
+    """``y`` plus the terms of the reflected column ends: for each kernel
+    column reading reflected columns, a k x 1 conv over the source-column
+    strip of ``x`` with ``row_pad`` zero rows (p where ``y`` padded the rows
+    with zeros, 0 where ``x``'s rows are padded already)."""
+    wd = x.shape[3]
     for c in range(p):
         nc = p - c
-        # left: out cols j < nc miss kernel col c reading x-col (p - j - c);
-        # zero row padding keeps only row-in-range terms
+        # left: out cols j < nc miss kernel col c reading x-col (p - j - c)
         strip = x[..., 1:p - c + 1].flip(3)               # cols p-c .. 1
-        corr = F.conv2d(strip, w[..., c:c + 1], padding=(p, 0))
+        corr = F.conv2d(strip, w[..., c:c + 1], padding=(row_pad, 0))
         y = torch.cat([y[..., :nc] + corr, y[..., nc:]], dim=3)
         cb = 2 * p - c
         strip = x[..., wd - 1 - p + c:wd - 1]             # cols w-1-(p-c)..w-2
-        corr = F.conv2d(strip, w[..., cb:cb + 1], padding=(p, 0))
+        corr = F.conv2d(strip, w[..., cb:cb + 1], padding=(row_pad, 0))
         y = torch.cat([y[..., :wd - nc], y[..., wd - nc:] + corr.flip(3)],
                       dim=3)
     return y
+
+
+def reflect_conv_cols(x_rows: torch.Tensor, w: torch.Tensor,
+                      p: int) -> torch.Tensor:
+    """``reflect_conv_nchw``'s columns alone: a stride-1 conv (k = 2p+1)
+    over ``x_rows``, whose rows are padded already (a band with its halo
+    rows, reflected where the image ends), with ReflectionPad(p) on W done
+    without the padded tensor. (B, Cin, h + 2p, W) -> (B, Cout, h, W)."""
+    y = F.conv2d(x_rows, w, padding=(0, p))
+    return _reflect_cols(y, x_rows, w, p, row_pad=0)
 
 
 def reflect_conv(x: torch.Tensor, kernel: torch.Tensor,

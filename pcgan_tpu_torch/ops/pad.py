@@ -9,7 +9,9 @@ slices out the interior and folds the border cotangents back onto their
 sources by slice-adds in a fixed order: the same bits on every run, on the
 card and on the CPU.
 
-Layout NCHW; the pad is the same ``p`` on all four sides of H and W.
+Layout NCHW; ``pad2d`` pads the same ``p`` on all four sides of H and W,
+``pad_edges`` each edge by its own amount (a band of an image split
+along H pads only where the image ends).
 """
 
 from __future__ import annotations
@@ -18,23 +20,29 @@ import torch
 import torch.nn.functional as F
 
 
-def _fold_edges(g: torch.Tensor, p: int, mode: str, dim: int) -> torch.Tensor:
-    """The transpose of a ``mode`` pad of ``p`` along ``dim`` (2 or 3): a
-    new contiguous tensor of the interior with the 2p border slices added
-    onto their sources, the top (left) border first."""
-    n = g.shape[dim] - 2 * p
-    out = g.narrow(dim, p, n).clone(memory_format=torch.contiguous_format)
-    lo, hi = g.narrow(dim, 0, p), g.narrow(dim, n + p, p)
+def _fold_edges(g: torch.Tensor, lo: int, hi: int, mode: str,
+                dim: int) -> torch.Tensor:
+    """The transpose of a ``mode`` pad of ``lo`` before and ``hi`` after
+    along ``dim`` (2 or 3): a new contiguous tensor of the interior with
+    the border slices added onto their sources, the top (left) border
+    first."""
+    n = g.shape[dim] - lo - hi
+    out = g.narrow(dim, lo, n).clone(memory_format=torch.contiguous_format)
+    top, bottom = g.narrow(dim, 0, lo), g.narrow(dim, n + lo, hi)
     if mode == "reflect":
-        # padded row i < p mirrors source row p - i; row n + p + j mirrors
-        # source row n - 2 - j (a one-row border is its own mirror image)
-        if p > 1:
-            lo, hi = lo.flip(dim), hi.flip(dim)
-        out.narrow(dim, 1, p).add_(lo)
-        out.narrow(dim, n - 1 - p, p).add_(hi)
+        # padded row i < lo mirrors source row lo - i; row n + lo + j
+        # mirrors source row n - 2 - j (a one-row border is its own mirror
+        # image)
+        if lo:
+            out.narrow(dim, 1, lo).add_(top.flip(dim) if lo > 1 else top)
+        if hi:
+            out.narrow(dim, n - 1 - hi, hi).add_(bottom.flip(dim) if hi > 1
+                                                 else bottom)
     else:
-        out.narrow(dim, 0, 1).add_(lo.sum(dim, keepdim=True))
-        out.narrow(dim, n - 1, 1).add_(hi.sum(dim, keepdim=True))
+        if lo:
+            out.narrow(dim, 0, 1).add_(top.sum(dim, keepdim=True))
+        if hi:
+            out.narrow(dim, n - 1, 1).add_(bottom.sum(dim, keepdim=True))
     return out
 
 
@@ -44,7 +52,7 @@ def pad_fold(g: torch.Tensor, p: int, mode: str) -> torch.Tensor:
     contiguous tensor of x's shape; no atomics, no index ops."""
     if p == 0:
         return g.contiguous()
-    return _fold_edges(_fold_edges(g, p, mode, 2), p, mode, 3)
+    return _fold_edges(_fold_edges(g, p, p, mode, 2), p, p, mode, 3)
 
 
 class ReflectPad2d(torch.autograd.Function):
@@ -76,6 +84,25 @@ class ReplicatePad2d(torch.autograd.Function):
         return pad_fold(g, ctx.p, "replicate"), None
 
 
+class PadEdges(torch.autograd.Function):
+    """``F.pad(x, (left, right, top, bottom), mode)`` (reflect or
+    replicate) with the fold of each edge as its backward, H first: the
+    pads of a band, which pads only the image's global top and bottom
+    (``parallel/spatial.py``)."""
+
+    @staticmethod
+    def forward(ctx, x, top, bottom, left, right, mode):
+        ctx.pads, ctx.mode = (top, bottom, left, right), mode
+        return F.pad(x, (left, right, top, bottom), mode=mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        top, bottom, left, right = ctx.pads
+        g = _fold_edges(g, top, bottom, ctx.mode, 2)
+        return (_fold_edges(g, left, right, ctx.mode, 3), None, None, None,
+                None, None)
+
+
 _FUNCTIONS = {"reflect": ReflectPad2d, "replicate": ReplicatePad2d}
 
 
@@ -87,3 +114,17 @@ def pad2d(x: torch.Tensor, p: int, mode: str) -> torch.Tensor:
     if mode not in _FUNCTIONS:
         raise NotImplementedError(f"pad mode [{mode}]")
     return _FUNCTIONS[mode].apply(x, p)
+
+
+def pad_edges(x: torch.Tensor, top: int, bottom: int, left: int, right: int,
+              mode: str) -> torch.Tensor:
+    """Pad an NCHW tensor by ``top``/``bottom`` rows and ``left``/``right``
+    columns: zeros (``mode`` zero, ``F.pad``'s own backward slices), or
+    reflect/replicate through ``PadEdges``."""
+    if not (top or bottom or left or right):
+        return x
+    if mode == "zero":
+        return F.pad(x, (left, right, top, bottom))
+    if mode not in _FUNCTIONS:
+        raise NotImplementedError(f"pad mode [{mode}]")
+    return PadEdges.apply(x, top, bottom, left, right, mode)

@@ -44,21 +44,30 @@ def preprocess_batch(imgs: torch.Tensor, crop_y: torch.Tensor,
                      crop_x: torch.Tensor, flip: torch.Tensor,
                      load_size: int, crop_size: int,
                      method: str = "bicubic",
-                     out_dtype=torch.float32) -> torch.Tensor:
+                     out_dtype=torch.float32, row0: int = 0,
+                     n_rows: int = None) -> torch.Tensor:
     """Fused resize->crop->flip->normalize, plain PyTorch (the twin of
     ``pcgan_tpu/ops/preprocess.py:101-137``).
 
     imgs: (B, H, W, C) u8 (or float in [0, 255]).
     crop_y/crop_x: (B,) int offsets in resized (load_size) coordinates,
     in [0, load_size - crop_size]. flip: (B,) bool.
-    Returns (B, crop_size, crop_size, C) in [-1, 1], ``out_dtype``.
+    Returns (B, crop_size, crop_size, C) in [-1, 1], ``out_dtype``; with
+    ``row0``/``n_rows``, rows [row0, row0 + n_rows) of each crop only (a
+    band of an image split along H: the offset clamps first, then the band
+    starts ``row0`` rows into the crop).
     """
     _, h, w, _ = imgs.shape
     dev = imgs.device
+    n_rows = crop_size - row0 if n_rows is None else n_rows
+    if row0 < 0 or n_rows < 0 or row0 + n_rows > crop_size:
+        raise ValueError(f"preprocess: rows [{row0}, {row0 + n_rows}) are "
+                         f"not in a crop of {crop_size}")
     m_h = torch.from_numpy(resize_matrix(h, load_size, method)).to(dev)
     m_w = torch.from_numpy(resize_matrix(w, load_size, method)).to(dev)
     ys, xs = crop_rows(crop_y.to(dev), crop_x.to(dev), flip.to(dev),
                        load_size, crop_size)
+    ys = ys[:, row0:row0 + n_rows]
     mh_b, mw_b = m_h[ys], m_w[xs]                    # (B, crop, H|W)
     # full f32: u8 pixel data needs >8 mantissa bits through the two
     # products (TF32 off on the card, pcgan_tpu_torch/device.py)
@@ -71,14 +80,17 @@ def preprocess_batch(imgs: torch.Tensor, crop_y: torch.Tensor,
 
 
 def make_preprocess(cfg, train: bool = True):
-    """Returns f(generator, raw_batch, rows=None) -> batch dict.
+    """Returns f(generator, raw_batch, rows=None, band=None) -> batch dict.
 
     raw_batch: {'image': (B,H,W,C) u8 native-size tensor, ...}. Handles the
     reference's --preprocess modes and --no_flip; at eval (train=False) uses
     center crop and no flip (the reference's test transform). In training,
     crop offsets and flips come from ``generator`` (a CPU torch.Generator);
     ``rows`` (``parallel.rows.Rows``) draws them for the global batch and
-    keeps this rank's rows (the sharded-state step).
+    keeps this rank's rows (the sharded-state step); ``band``
+    (``parallel.spatial.Band`` of the crop) writes only those rows of each
+    crop (a spatial axis). ``f.crop_of(h)`` is the crop's side for
+    canvases of side h.
     On a CUDA tensor the hand-written kernel runs; on a CPU tensor the plain
     version; any other device raises. With ``--no-pallas_pipeline`` the
     plain version runs on whatever device the batch is on (the JAX
@@ -103,11 +115,14 @@ def make_preprocess(cfg, train: bool = True):
     crop = d.crop_size if "crop" in mode else load
     out_dtype = compute_dtype(cfg.model.dtype)
 
-    def fn(generator, raw, rows=None):
+    def crop_of(h):
+        return crop or load or h
+
+    def fn(generator, raw, rows=None, band=None):
         imgs = raw["image"]
         b = imgs.shape[0]
         eff_load = load or imgs.shape[1]
-        eff_crop = crop or eff_load
+        eff_crop = crop_of(imgs.shape[1])
         span = eff_load - eff_crop
         if train and span > 0:
             cy = draw.randint(0, span + 1, b, generator, rows)
@@ -126,10 +141,12 @@ def make_preprocess(cfg, train: bool = True):
             run = preprocess_batch
         else:
             raise ValueError(f"preprocess: unsupported device {imgs.device}")
+        kw = {} if band is None else {"row0": band.r0, "n_rows": band.h}
         out["image"] = run(imgs, cy, cx, fl, eff_load, eff_crop,
-                           out_dtype=out_dtype)
+                           out_dtype=out_dtype, **kw)
         return out
 
+    fn.crop_of = crop_of
     return fn
 
 

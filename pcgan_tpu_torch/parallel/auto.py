@@ -1,6 +1,6 @@
 """Sharded training state across cards (counterpart of
-``pcgan_tpu/parallel/auto.py:46-186``): the ``model`` axis and
-``--zero1``.
+``pcgan_tpu/parallel/auto.py:46-186``): the ``model`` axis, ``--zero1``
+and the ``spatial`` axis (``parallel/spatial.py``).
 
 JAX's GSPMD step is the one-device step over the global batch, its state
 placed by one per-leaf rule (``state_shardings``):
@@ -37,6 +37,11 @@ In PyTorch the collectives are written out around the fused step
    and the EMA twin's shard updated; D is gathered again for the G pass;
 5. the full copies of the model-sharded parameters are dropped.
 
+Under a spatial axis > 1 the step runs inside ``spatial.banded``: each
+rank computes on its band of rows of every image, B1 writes only that
+band, the pool keeps each image's band, each loss is the band's share,
+and the gradients are summed over the spatial group before step 3.
+
 So each rank keeps params/m + Adam/(m*d under ``--zero1``, else m) +
 EMA/m of the divisible leaves. An N-rank step equals the one-device
 step on the global batch up to f32 summation order. The collectives are
@@ -49,7 +54,6 @@ keeps its slice.
 from __future__ import annotations
 
 import contextlib
-import time
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
@@ -58,35 +62,17 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from pcgan_tpu_torch.parallel.mesh import DATA, MODEL, DataMesh
+from pcgan_tpu_torch.parallel.axis import (COLLECTIVE_MS,  # noqa: F401
+                                           COLLECTIVES, TIMING)
+from pcgan_tpu_torch.parallel.axis import Axis as _Axis
+from pcgan_tpu_torch.parallel.axis import record as _record
+from pcgan_tpu_torch.parallel import spatial
+from pcgan_tpu_torch.parallel.mesh import (DATA, MODEL, SPATIAL, DataMesh,
+                                           all_reduce_flat)
 from pcgan_tpu_torch.parallel.rows import Rows
 from pcgan_tpu_torch.train import (StepParts, adam_count, adam_step,
                                    check_finite, make_train_step)
 from pcgan_tpu_torch.utils import image_pool
-
-# the collectives the sharded step issued, by kind and axis, and (with
-# ``TIMING['on']``: the device synchronized around each) their wall ms
-COLLECTIVES: Dict[str, int] = {}
-COLLECTIVE_MS: Dict[str, float] = {}
-TIMING = {"on": False}
-
-
-@contextlib.contextmanager
-def _record(kind: str, device: torch.device):
-    COLLECTIVES[kind] = COLLECTIVES.get(kind, 0) + 1
-    if not TIMING["on"]:
-        yield
-        return
-
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-    sync()
-    t0 = time.perf_counter()
-    yield
-    sync()
-    COLLECTIVE_MS[kind] = (COLLECTIVE_MS.get(kind, 0.0)
-                           + 1e3 * (time.perf_counter() - t0))
 
 # --------------------------------------------------------------------------- #
 # the per-leaf rule
@@ -161,84 +147,10 @@ def plan_module(module: nn.Module, n_model: int, n_data: int,
 
 
 def uses_sharded_step(cfg, mesh: DataMesh) -> bool:
-    """The GSPMD step's routing (root ``train.py:253-255``): ``--zero1`` or
-    a model axis > 1."""
-    return bool(cfg.parallel.zero1) or mesh.size(MODEL) > 1
-
-
-# --------------------------------------------------------------------------- #
-# collectives over one axis
-# --------------------------------------------------------------------------- #
-
-
-class _Axis:
-    """The collectives over this rank's line along one mesh axis, in
-    coordinate order (a group's own rank order is its sorted global ranks,
-    which the hybrid mesh permutes)."""
-
-    def __init__(self, mesh: DataMesh, axis: str):
-        self.group = mesh.axis_group(axis)
-        self.n, self.coord = mesh.size(axis), mesh.coord(axis)
-        self.name, self.device = axis, mesh.device
-        if self.group is not None:
-            line = mesh.line(axis)
-            self.group_rank = [dist.get_group_rank(self.group, r)
-                               for r in line]
-            self.nccl = dist.get_backend(self.group) == "nccl"
-
-    def _record(self, kind: str):
-        return _record(f"{kind}/{self.name}", self.device)
-
-    def all_gather(self, flat: torch.Tensor) -> List[torch.Tensor]:
-        """Every coordinate's ``flat`` (1-D, equal sizes), in coordinate
-        order."""
-        with self._record("all_gather"):
-            if self.nccl:
-                out = flat.new_empty((self.n * flat.numel(),))
-                dist.all_gather_into_tensor(out, flat, group=self.group)
-                by_rank = list(out.chunk(self.n))
-            else:
-                by_rank = [torch.empty_like(flat) for _ in range(self.n)]
-                dist.all_gather(by_rank, flat.contiguous(), group=self.group)
-        return [by_rank[g] for g in self.group_rank]
-
-    def reduce_scatter_mean(self, chunks: List[torch.Tensor]
-                            ) -> torch.Tensor:
-        """The mean over the line of chunk ``coord`` of ``chunks`` (one
-        1-D chunk per coordinate, equal sizes)."""
-        with self._record("reduce_scatter"):
-            if self.nccl:
-                by_rank = [None] * self.n
-                for c, g in enumerate(self.group_rank):
-                    by_rank[g] = chunks[c]
-                mine = chunks[0].new_empty(chunks[0].shape)
-                dist.reduce_scatter_tensor(mine, torch.cat(by_rank),
-                                           group=self.group)
-            else:
-                flat = torch.cat(chunks)
-                dist.all_reduce(flat, group=self.group)
-                mine = flat.chunk(self.n)[self.coord]
-        return mine / torch.tensor(self.n, dtype=mine.dtype,
-                                   device=mine.device)
-
-    def all_reduce_mean(self, flat: torch.Tensor) -> torch.Tensor:
-        flat = flat.clone()
-        with self._record("all_reduce"):
-            dist.all_reduce(flat, group=self.group)
-        return flat / torch.tensor(self.n, dtype=flat.dtype,
-                                   device=flat.device)
-
-    def gather_dims(self, shards: List[torch.Tensor], dims: List[int]
-                    ) -> List[torch.Tensor]:
-        """Each tensor whole again: its shards over the line concatenated
-        along its dim, one collective for the list."""
-        if not shards:
-            return []
-        flat = torch.cat([s.detach().reshape(-1) for s in shards])
-        parts = [p.split([s.numel() for s in shards])
-                 for p in self.all_gather(flat)]
-        return [torch.cat([p[i].view(s.shape) for p in parts], dim)
-                for i, (s, dim) in enumerate(zip(shards, dims))]
+    """The GSPMD step's routing (root ``train.py:253-271``): ``--zero1``, a
+    model axis > 1 or a spatial axis > 1."""
+    return (bool(cfg.parallel.zero1) or mesh.size(MODEL) > 1
+            or mesh.size(SPATIAL) > 1)
 
 
 def _narrow(t: torch.Tensor, dim: Optional[int], n: int, coord: int
@@ -274,6 +186,7 @@ class StatePlan:
                  zero1: bool):
         self.mesh = mesh
         self.model, self.data = _Axis(mesh, MODEL), _Axis(mesh, DATA)
+        self.spatial = _Axis(mesh, SPATIAL)
         self.zero1 = bool(zero1) and self.data.n > 1
         self.nets = {"G": G, "D": D}
         self.leaves: Dict[str, List[_Leaf]] = {}
@@ -325,12 +238,16 @@ class StatePlan:
     def reduce(self, net: str, grads: List[torch.Tensor]
                ) -> List[torch.Tensor]:
         """The gradients of the tensors Adam steps: the model shard of each
-        full gradient, averaged over the data group (reduce-scattered along
+        full gradient, summed over the spatial group (each band's share of
+        the loss), averaged over the data group (reduce-scattered along
         the leaf's data dim under ``--zero1``), and the leaves the model
         axis replicates averaged over the model group."""
         m, d = self.model, self.data
         shards = [_narrow(g, lf.plan.model_dim, m.n, m.coord)
                   for lf, g in zip(self.leaves[net], grads)]
+        if self.spatial.group is not None:
+            with _record("all_reduce_sum/spatial", self.mesh.device):
+                shards = all_reduce_flat(shards, self.spatial.group)
         out = shards if d.group is None else self._data_mean(net, shards)
         rep = [i for i, lf in enumerate(self.leaves[net])
                if lf.plan.model_dim is None]
@@ -525,10 +442,30 @@ def shard_state(state, mesh: DataMesh, zero1: bool = False):
             (lf.name, _narrow(state.ema[lf.name], lf.plan.model_dim,
                               plan.model.n, plan.model.coord).clone())
             for lf in plan.leaves["G"])
+    plan.pool_h = state.pool.imgs.shape[1]
+    if plan.spatial.group is not None:
+        # each rank keeps its band of every pooled image
+        b = spatial.band_of(plan.pool_h, plan.spatial.n, plan.spatial.coord)
+        state.pool = image_pool.PoolState(
+            state.pool.imgs[:, b.r0:b.r1].clone(), state.pool.conds,
+            state.pool.count)
     for net in plan.nets:
         plan.release(net)
     state.shard_plan = plan
     return state
+
+
+def _whole_pool(plan: StatePlan, pool):
+    """The pool with each image whole: the bands of the spatial line
+    gathered (each padded to the widest band)."""
+    sp, imgs = plan.spatial, pool.imgs
+    bands = spatial.bands_of(plan.pool_h, sp.n)
+    pad = imgs.new_zeros((imgs.shape[0], bands[0].h) + imgs.shape[2:])
+    pad[:, :imgs.shape[1]] = imgs
+    parts = sp.all_gather(pad.reshape(-1))
+    whole = torch.cat([p.view(pad.shape)[:, :b.h]
+                       for p, b in zip(parts, bands)], 1)
+    return image_pool.PoolState(whole, pool.conds, pool.count)
 
 
 class _WholeAdam:
@@ -549,16 +486,18 @@ class _WholeAdam:
 def gathered(state, optimizer: bool = False):
     """Inside, ``state`` reads as a one-device state: G and D whole in their
     modules, ``state.ema`` whole and (``optimizer``) ``opt_g``/``opt_d``
-    whole for ``save_state``. Every rank enters it (it gathers); a state
-    without a plan passes through."""
+    whole for ``save_state``, the pool's images whole. Every rank enters
+    it (it gathers); a state without a plan passes through."""
     plan = state.shard_plan
     if plan is None:
         yield state
         return
     for net in plan.nets:
         plan.gather(net)
-    saved = (state.ema, state.opt_g, state.opt_d)
+    saved = (state.ema, state.opt_g, state.opt_d, state.pool)
     try:
+        if plan.spatial.group is not None:
+            state.pool = _whole_pool(plan, state.pool)
         if state.ema is not None:
             state.ema = OrderedDict(zip(state.ema, plan.whole(
                 "G", list(state.ema.values()), False)))
@@ -567,7 +506,7 @@ def gathered(state, optimizer: bool = False):
             state.opt_d = _WholeAdam(plan, state.opt_d, "D")
         yield state
     finally:
-        state.ema, state.opt_g, state.opt_d = saved
+        state.ema, state.opt_g, state.opt_d, state.pool = saved
         for net in plan.nets:
             plan.release(net)
 
@@ -632,6 +571,16 @@ class ShardedParts(StepParts):
     def grad_norm(self, which, grads):
         return self.plan.grad_norm(which, grads)
 
+    def metrics(self, state, losses, g_grads, d_grads, rt):
+        """The losses are each band's share: summed over the spatial line
+        (one collective), they are the global batch's."""
+        if spatial.active() is not None:
+            keys = list(losses)
+            tot = spatial.line_total(torch.stack(
+                [losses[k].detach().float() for k in keys]))
+            losses = dict(zip(keys, tot.unbind()))
+        return super().metrics(state, losses, g_grads, d_grads, rt)
+
 
 def make_sharded_train_step(cfg, G: nn.Module, D: nn.Module,
                             C: Optional[nn.Module] = None,
@@ -643,7 +592,10 @@ def make_sharded_train_step(cfg, G: nn.Module, D: nn.Module,
     rank's rows of the global batch (``Rows``' layout: its data
     coordinate's rows of each microbatch); with ``with_preprocess``, u8
     canvases that B1 crops and flips with draws made for the global batch.
-    The metrics are the global batch's, alike on every rank.
+    Under a spatial axis > 1 each rank computes on its band of every image
+    (``parallel/spatial.py``): B1 writes only the band, or the band of a
+    whole preprocessed image is taken. The metrics are the global batch's,
+    alike on every rank.
 
     The ranks of a model line compute the same rows and step what they
     hold from what they computed, so they must compute alike bit for bit:
@@ -658,17 +610,28 @@ def make_sharded_train_step(cfg, G: nn.Module, D: nn.Module,
     pre = (make_preprocess(cfg, train=train_preprocess) if with_preprocess
            else None)
     accum = max(1, int(cfg.train.grad_accum))
+    line = spatial.spatial_line(mesh)
 
     def step(state, raw):
         plan = parts.plan = state.shard_plan
         rows = Rows(parts.n_data, parts.coord,
                     raw["image"].shape[0] // accum)
+        # a spatial line splits every image along H: B1 writes this rank's
+        # band of each crop (or the band of a whole image is taken)
+        H = (raw["image"].shape[1] if pre is None
+             else pre.crop_of(raw["image"].shape[1]))
+        band = (None if line is None
+                else spatial.band_of(H, line.n, line.coord))
         plan.gather("G")
         plan.gather("D")
         try:
-            with batch_norm_group(parts.group):
-                batch = (raw if pre is None
-                         else pre(state.generator, raw, rows))
+            with batch_norm_group(parts.group), spatial.banded(line, H):
+                if pre is not None:
+                    batch = pre(state.generator, raw, rows, band)
+                elif band is not None:
+                    batch = {**raw, "image": raw["image"][:, band.r0:band.r1]}
+                else:
+                    batch = raw
                 return inner(state, batch)
         finally:
             plan.release("G")

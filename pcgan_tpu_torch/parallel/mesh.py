@@ -25,8 +25,10 @@ collective: it is the one-device path. Under torchrun every rank joins the
 group, a world of one included, so the NCCL path also runs on one card.
 
 An axis of size 1 is the plain path, as in JAX. ``--spatial_shards`` is
-parsed and read by nothing, as in JAX. A ``spatial`` axis > 1 (activations
-split along H) raises ``NotImplementedError`` naming ROADMAP.md A10c.
+parsed and read by nothing, as in JAX. A ``spatial`` axis > 1 splits the
+activations along H (``parallel/spatial.py``); the training flags not yet
+ported to bands raise ``NotImplementedError`` under it, naming ROADMAP.md
+A10d (``spatial_unported``).
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-A10C = "ROADMAP.md A10c"
+A10D = "ROADMAP.md A10d"
 DATA, SPATIAL, MODEL = "data", "spatial", "model"
 
 
@@ -61,20 +63,47 @@ def resolve_mesh_shape(shape: Sequence[int], n_devices: int
     return shape
 
 
-def reject_spatial(axes: Sequence[str], dims: Sequence[int]) -> None:
-    """A ``spatial`` axis above 1 raises, naming A10c."""
+def spatial_unported(cfg) -> List[str]:
+    """The set flags of ``cfg`` that a spatial axis > 1 does not run yet
+    (ROADMAP.md A10d), in the order a later slice takes them."""
+    m, t = cfg.model, cfg.train
+    on = [("--g_attn", m.g_attn), ("--d_attn", m.d_attn),
+          ("--netD multiscale", m.netD == "multiscale"),
+          ("--netG unet_*", m.netG.startswith("unet")),
+          ("--netG *@resize_conv", "@resize_conv" in m.netG),
+          ("--norm group", m.norm == "group"),
+          ("dropout (--no-no_dropout)", not m.no_dropout),
+          ("--remat", bool(m.remat)),
+          ("--lambda_r1", t.lambda_r1 > 0),
+          ("the gradient penalty (--gan_mode wgangp)",
+           t.gan_mode == "wgangp"),
+          ("--lambda_feat", t.lambda_feat > 0),
+          ("--lambda_vgg", t.lambda_vgg > 0),
+          ("--diff_augment", bool(t.diff_augment)),
+          ("--ada_target", t.ada_target > 0)]
+    return [flag for flag, is_on in on if is_on]
+
+
+def reject_spatial(axes: Sequence[str], dims: Sequence[int],
+                   cfg=None) -> None:
+    """Under a ``spatial`` axis above 1, every flag of ``cfg`` not yet
+    ported to bands raises, naming A10d."""
     size = dict(zip(axes, dims)).get(SPATIAL, 1)
-    if size > 1:
+    if size <= 1 or cfg is None or cfg.model.model != "pcgan":
+        return
+    flags = spatial_unported(cfg)
+    if flags:
         raise NotImplementedError(
-            f"a 'spatial' mesh axis of {size} (activations split along H, "
-            f"conv halo exchanges) is not ported to pcgan_tpu_torch yet "
-            f"({A10C}); the port shards over the 'data' and 'model' axes")
+            f"{', '.join(flags)} under a 'spatial' mesh axis of {size} "
+            f"(activations split along H) is not ported to pcgan_tpu_torch "
+            f"yet ({A10D}); the band path runs the main training flags")
 
 
 def reject_unported_parallel(cfg) -> None:
-    """A ``spatial`` axis set above 1 raises (a -1 there is checked once
-    the world size resolves it, ``make_mesh``)."""
-    reject_spatial(cfg.parallel.mesh_axes, cfg.parallel.mesh_shape)
+    """Under a ``spatial`` axis set above 1, the flags not ported to bands
+    raise (a -1 there is checked once the world size resolves it,
+    ``mesh_from_config``)."""
+    reject_spatial(cfg.parallel.mesh_axes, cfg.parallel.mesh_shape, cfg)
 
 
 def hybrid_layout(shape: Sequence[int], axes: Sequence[str], dcn_data: int,
@@ -310,7 +339,7 @@ def make_mesh(mesh: DataMesh, shape: Sequence[int], axes: Sequence[str],
     """``mesh`` (this process's place in the world) laid out over ``axes``:
     row-major over ``shape``, or the hybrid mesh when ``dcn_data > 1``;
     then the axis groups. Raises for a shape whose product is not the
-    world size and for a spatial axis > 1."""
+    world size."""
     axes = tuple(axes)
     if dcn_data > 1:
         lay = hybrid_layout(shape, axes, dcn_data, list(range(mesh.world)),
@@ -319,18 +348,17 @@ def make_mesh(mesh: DataMesh, shape: Sequence[int], axes: Sequence[str],
     else:
         lay = np.arange(mesh.world).reshape(check_mesh_shape(shape,
                                                              mesh.world))
-    reject_spatial(axes, lay.shape)
     mesh.axes, mesh.layout = axes, lay
     return build_axis_groups(mesh)
 
 
 def mesh_from_config(cfg, granule_of: Optional[Callable] = None
                      ) -> DataMesh:
-    """The CLIs' mesh: a spatial axis raises, the group is joined and
-    ``--mesh_shape``/``--mesh_axes`` laid out over the world (the hybrid
-    mesh under ``--dcn_data``). Outside torchrun, ``--mesh_shape -1`` with
-    several cards visible raises rather than train on one card of
-    several."""
+    """The CLIs' mesh: the flags a spatial axis does not run raise, the
+    group is joined and ``--mesh_shape``/``--mesh_axes`` laid out over the
+    world (the hybrid mesh under ``--dcn_data``). Outside torchrun,
+    ``--mesh_shape -1`` with several cards visible raises rather than
+    train on one card of several."""
     reject_unported_parallel(cfg)
     p = cfg.parallel
     shape = tuple(p.mesh_shape)
@@ -344,7 +372,9 @@ def mesh_from_config(cfg, granule_of: Optional[Callable] = None
             f"torch.distributed.run), or pass --mesh_shape 1 for one card")
     mesh = init_distributed(cfg.run.device)
     try:
-        return make_mesh(mesh, shape, p.mesh_axes, p.dcn_data, granule_of)
+        mesh = make_mesh(mesh, shape, p.mesh_axes, p.dcn_data, granule_of)
+        reject_spatial(mesh.axes, mesh.layout.shape, cfg)
+        return mesh
     except BaseException:
         mesh.close()
         raise

@@ -70,6 +70,7 @@ from pcgan_tpu_torch.ops.gan_loss import (feature_matching_loss, gan_loss,
                                           gradient_penalty, overfit_heuristic,
                                           r1_penalty, split_pred)
 from pcgan_tpu_torch.parallel import rows as draw
+from pcgan_tpu_torch.parallel import spatial
 from pcgan_tpu_torch.parallel.mesh import all_reduce_flat
 from pcgan_tpu_torch.utils import image_pool
 
@@ -283,8 +284,8 @@ _XLA_ONLY = {
 def reject_unported_train(cfg: Config) -> None:
     """Every training flag the port does not implement raises when it is
     set away from its default; none is ignored. The XLA-only flags raise
-    for good; a spatial mesh axis raises naming ROADMAP.md A10c
-    (``parallel/mesh.py``)."""
+    for good; under a spatial mesh axis the flags not yet ported to bands
+    raise naming ROADMAP.md A10d (``parallel/mesh.py``)."""
     from pcgan_tpu_torch.parallel.mesh import reject_unported_parallel
     m, r = cfg.model, cfg.run
     if m.model not in ("pcgan", "comparator"):
@@ -426,6 +427,14 @@ class StepParts:
     def begin(self, bsz: int) -> None:
         """Called with the (micro)batch size before a step's draws."""
 
+    def pred_h(self, real: torch.Tensor) -> Optional[int]:
+        """The global height of D's logits on ``real``, a band of images
+        inside ``spatial.banded`` (the D's a spatial axis admits give it),
+        else None."""
+        if spatial.active() is None:
+            return None
+        return self.D.patch_size(spatial.global_h(real.shape[1]))
+
     def g_forward(self, state: TrainState, x: torch.Tensor,
                   c: torch.Tensor) -> torch.Tensor:
         """G's training forward, its dropout masks from the state's device
@@ -554,8 +563,9 @@ class StepParts:
             pred_real = D(real_d, cond_real)
             pred_fake = D(fake_dd, cond_fake_d.to(cd))
             r1_real = real_d
-        l_real = gan_loss(pred_real, True, t.gan_mode)
-        l_fake = gan_loss(pred_fake, False, t.gan_mode)
+        h = self.pred_h(real)
+        l_real = gan_loss(pred_real, True, t.gan_mode, H=h)
+        l_fake = gan_loss(pred_fake, False, t.gan_mode, H=h)
         loss = 0.5 * (l_real + l_fake)
         end = stats_state(D)
         load_stats_state(D, start)
@@ -609,14 +619,18 @@ class StepParts:
             else:
                 pred = D(fake_for_d, cond_target)
                 l_feat = zero
-        l_gan = gan_loss(pred, True, t.gan_mode, for_discriminator=False)
-        l_l1 = torch.mean(torch.abs(idt.float() - real.float()))
+        l_gan = gan_loss(pred, True, t.gan_mode, for_discriminator=False,
+                         H=self.pred_h(real))
+        l_l1 = spatial.band_mean(torch.abs(idt.float() - real.float()),
+                                 spatial.global_h(real.shape[1]))
         l_cond = zero
         if self.use_cond_loss:
-            # C is frozen: the gradient reaches G through fake only
+            # C is frozen: the gradient reaches G through fake only; on a
+            # spatial line every rank holds C's whole output, and takes its
+            # share of the loss
             mu, log_var = self.C(fake)
-            l_cond = condition_consistency_loss(mu, log_var, cond_lo,
-                                                cond_hi)
+            l_cond = spatial.share(condition_consistency_loss(
+                mu, log_var, cond_lo, cond_hi))
         l_vgg = (vgg_perceptual_loss(state.vgg, idt, real)
                  if t.lambda_vgg > 0 else zero)
         loss = (l_gan + t.lambda_L1 * l_l1 + t.lambda_cond * l_cond

@@ -77,10 +77,18 @@ lays the mesh out over k torchrun nodes (``parallel/mesh.py``).
 Comparator pretraining stays data-parallel over the data axis, as in
 JAX.
 
-Runs on cuda unless ``--device cpu``. A spatial axis > 1 (ROADMAP.md A10c)
-raises ``NotImplementedError``, as do the XLA-only ``--profile_server``,
-``--compile_cache`` and ``--xla_opt`` for good; ``--spatial_shards`` is
-read by nothing, as in JAX.
+A ``spatial`` axis > 1 (``--mesh_shape 1,2 --mesh_axes data,spatial``, or
+``2,2`` by the positional axis default) also takes the sharded-state
+step: each rank of a spatial line computes on its band of rows of every
+image and activation (``parallel/spatial.py``; B1 writes the band), and
+keeps its band of the pool; checkpoints hold the whole pool. Evaluation,
+previews and sampling stay whole-image on every rank.
+
+Runs on cuda unless ``--device cpu``. The flags a spatial axis does not
+run yet (ROADMAP.md A10d, ``parallel/mesh.py spatial_unported``) raise
+``NotImplementedError`` under it, as do the XLA-only
+``--profile_server``, ``--compile_cache`` and ``--xla_opt`` for good;
+``--spatial_shards`` is read by nothing, as in JAX.
 """
 
 from __future__ import annotations

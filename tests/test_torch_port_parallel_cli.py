@@ -14,8 +14,8 @@
 - each flag of the GSPMD step and the hybrid mesh (A10b) does what JAX
   does with it in one process: ``--zero1`` exits (no data axis to shard
   over), ``--dcn_data 2`` finds one granule, ``--spatial_shards`` trains
-  (nothing reads it), a data x model mesh of two devices needs two
-  processes, and a spatial axis raises naming A10c.
+  (nothing reads it), and a data x model or data x spatial mesh of two
+  devices needs two processes.
 
 Each launch runs under its own timeout, and a cohort that outlives it is
 killed with its process group.
@@ -119,7 +119,7 @@ _A10B = {"zero1": (SystemExit, "data axis > 1"),
          "spatial_shards": None,
          "dcn_data": (ValueError, "granule"),
          "mesh_shape_data,model": (ValueError, "--mesh_shape 1,2"),
-         "mesh_shape_data,spatial": (NotImplementedError, "A10c")}
+         "mesh_shape_data,spatial": (ValueError, "--mesh_shape 1,2")}
 
 
 @pytest.mark.parametrize("flags", [

@@ -251,14 +251,16 @@ def test_unported_training_flags_raise(tmp_path):
     # the sharded device cache and the data axis are ported (A10)
     reject_unported_train(tcfg.parse_config(["--device_cache_sharded"]))
     reject_unported_train(tcfg.parse_config(["--mesh_shape", "2"]))
-    # the GSPMD flags (A10b) pass the config check, as in JAX (the mesh
-    # judges them); a spatial axis (A10c) raises, and the XLA-only flags
-    # for good
+    # the GSPMD flags (A10b) and a spatial axis (A10c) pass the config
+    # check, as in JAX (the mesh judges them); a flag the band path does
+    # not run yet raises under a spatial axis (A10d), and the XLA-only
+    # flags for good
     for argv in (["--zero1"], ["--spatial_shards", "2"],
-                 ["--dcn_data", "2"]):
+                 ["--dcn_data", "2"],
+                 ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial"]):
         reject_unported_train(tcfg.parse_config(argv))
     for argv, flag in ((["--mesh_shape", "1,2", "--mesh_axes",
-                         "data,spatial"], "A10c"),
+                         "data,spatial", "--g_attn"], "A10d"),
                        (["--xla_opt", "x"], "XLA-only"),
                        (["--compile_cache", "d"], "XLA-only"),
                        (["--profile_server", "9000"], "XLA-only")):

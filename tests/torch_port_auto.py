@@ -9,7 +9,8 @@
   port's plan (``parallel.auto.plan_module``).
 - ``jax_auto_run``: JAX's GSPMD step (``make_auto_train_step``) on a CPU
   mesh after one warm-up step, each state before and after a step carried
-  into the port's payload format.
+  into the port's payload format; on request also JAX's one-device step
+  (``make_train_step``) from each of the same states.
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ from pcgan_tpu.parallel.auto import (make_auto_train_step, place_auto_state,
                                      state_shardings)
 from pcgan_tpu.parallel.mesh import make_mesh
 from pcgan_tpu.train import create_train_state as j_create_train_state
+from pcgan_tpu.train import make_train_step as j_make_train_step
 
 from pcgan_tpu_torch import config as tcfg
 from pcgan_tpu_torch.convert import convert_train_state
@@ -111,11 +113,19 @@ def with_parallel(jc, tc, shape, axes, zero1):
             dataclasses.replace(tc, parallel=tcfg.ParallelConfig(**kw)))
 
 
-def jax_auto_run(over, shape, axes, zero1, b, n_steps, seed=11):
+_ONE_DEVICE = {}   # the jitted one-device step of each config
+
+
+def jax_auto_run(over, shape, axes, zero1, b, n_steps, seed=11,
+                 warm=True, one_device=None):
     """(port cfg, JAX codes, [payload before step i], [global batch i],
     [(JAX metrics, payload after step i)]) of JAX's GSPMD step on a CPU
-    mesh of ``shape`` after one warm-up step (f32, pool off, target bins
-    pinned)."""
+    mesh of ``shape`` after one warm-up step (none with ``warm=False``:
+    step 0 starts from the fresh state, as ``tests/test_auto_parallel.py``
+    does) (f32, pool off, target bins pinned). A list ``one_device``
+    receives, for each step, (metrics, payload after) of JAX's
+    one-device ``make_train_step`` from the same state on the same
+    batch."""
     jc, tc = cfgs(data={"batch_size": b}, **over)
     jc, tc = with_parallel(jc, tc, shape, axes, zero1)
     with warnings.catch_warnings():
@@ -134,10 +144,23 @@ def jax_auto_run(over, shape, axes, zero1, b, n_steps, seed=11):
     def run(st, batch):
         return step(st, {k: jnp.asarray(v) for k, v in batch.items()})
     codes = jax_codes(jstate, mesh, zero1)
-    jstate, _ = run(jstate, bs[0])
+    if warm:
+        jstate, _ = run(jstate, bs[0])
+    if one_device is not None:
+        key = (repr(over), b)
+        if key not in _ONE_DEVICE:
+            jc1 = dataclasses.replace(jc, parallel=jcfg.ParallelConfig())
+            _ONE_DEVICE[key] = jax.jit(j_make_train_step(
+                jc1, Gj, Dj, steps_per_epoch=1000))
+        one = _ONE_DEVICE[key]
     payloads, want = [], []
     for batch in bs[1:]:
-        payloads.append(convert_train_state(jax.device_get(jstate)))
+        host = jax.device_get(jstate)
+        payloads.append(convert_train_state(host))
+        if one_device is not None:
+            st, jm = one(host, {k: jnp.asarray(v) for k, v in batch.items()})
+            one_device.append(({k: float(v) for k, v in jm.items()},
+                               convert_train_state(jax.device_get(st))))
         jstate, jm = run(jstate, batch)
         want.append(({k: float(v) for k, v in jm.items()},
                      convert_train_state(jax.device_get(jstate))))

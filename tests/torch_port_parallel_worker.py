@@ -30,10 +30,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_cohort(cases: dict, workdir: str, world: int = 2,
-               timeout: float = 120.0, device: str = "cpu") -> list:
-    """{name: case} -> [{name: result} for each rank]."""
-    path = os.path.join(str(workdir), "cohort_cases.pt")
+def start_cohort(cases: dict, workdir: str, world: int = 2,
+                 device: str = "cpu", tag: str = "") -> tuple:
+    """Starts the ranks of a cohort and returns its handle for
+    ``finish_cohort`` (so a test can work while the ranks run)."""
+    path = os.path.join(str(workdir), f"cohort_cases{tag}.pt")
     torch.save(cases, path)
     port = str(_free_port())
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
@@ -45,6 +46,13 @@ def run_cohort(cases: dict, workdir: str, world: int = 2,
         [sys.executable, os.path.abspath(__file__), path, str(r), str(world),
          port, device], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
+    return procs, path
+
+
+def finish_cohort(handle: tuple, timeout: float = 120.0) -> list:
+    """Waits for a started cohort (killing every rank once ``timeout``
+    expires) and returns each rank's results."""
+    procs, path = handle
     try:
         outs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
@@ -52,10 +60,19 @@ def run_cohort(cases: dict, workdir: str, world: int = 2,
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{out}"
+    failed = [f"rank {r} failed:\n{out[-6000:]}"
+              for r, (p, out) in enumerate(zip(procs, outs))
+              if p.returncode != 0]
+    assert not failed, "\n".join(failed)
     return [torch.load(f"{path}.rank{r}", weights_only=False)
-            for r in range(world)]
+            for r in range(len(procs))]
+
+
+def run_cohort(cases: dict, workdir: str, world: int = 2,
+               timeout: float = 120.0, device: str = "cpu") -> list:
+    """{name: case} -> [{name: result} for each rank]."""
+    return finish_cohort(start_cohort(cases, workdir, world, device),
+                         timeout)
 
 
 # --------------------------------------------------------------------------- #
@@ -109,7 +126,8 @@ def _relu_margins(seen: list):
 
     def watch(fn):
         def wrapped(x, *args, **kwargs):
-            seen.append(float(x.detach().abs().min()))
+            if x.numel():        # a band may be empty
+                seen.append(float(x.detach().abs().min()))
             return fn(x, *args, **kwargs)
         return wrapped
     for name, fn in fns.items():
@@ -271,6 +289,135 @@ def sharded_steps(mesh, case):
                     "coords": {ax: mesh.coord(ax) for ax in mesh.axes},
                     "relu_margin": min(margins, default=float("inf"))})
     return out
+
+
+# --------------------------------------------------------------------------- #
+# the spatial axis (test_torch_port_spatial_*.py)
+# --------------------------------------------------------------------------- #
+
+
+def build_piece(spec):
+    """(module or None, x (N, C, H, W), cond or None, cotangent of the
+    output) of one band-layer case, drawn from the case's seed; the same
+    on every rank and in the test that holds the bands to the whole
+    image."""
+    from pcgan_tpu_torch.models.layers import TorchConv, TorchConvTranspose
+    g = torch.Generator().manual_seed(spec["seed"])
+    n, c, h, w = 2, spec["cin"], spec["H"], spec.get("W", 12)
+    dt = getattr(torch, spec.get("dtype", "float32"))
+    x = torch.randn((n, c, h, w), generator=g).to(dt)
+    cond = mod = None
+    kind = spec["kind"]
+    if kind == "conv":
+        route = spec.get("route", "plain")
+        extra = spec.get("cond", 0)
+        mod = TorchConv(c + extra, spec["cout"], spec["k"], spec["s"],
+                        spec["p"], spec["mode"],
+                        fused_reflect=route == "fused")
+        if route == "s2d":
+            mod.s2d_r = 4          # the tail's route, held here in f32
+        if extra:
+            cond = torch.randn((n, extra), generator=g)
+        out_h, out_w = mod.out_size(h), mod.out_size(w)
+    elif kind == "deconv":
+        mod = TorchConvTranspose(c, spec["cout"], spec["k"], spec["s"],
+                                 spec["p"], spec["op"])
+        out_h, out_w = mod.out_size(h), mod.out_size(w)
+    else:
+        out_h, out_w = h, w
+    if mod is not None:
+        with torch.no_grad():
+            for prm in mod.parameters():
+                prm.copy_(torch.randn(prm.shape, generator=g) * 0.3)
+        c = spec["cout"]
+    cot = torch.randn((n, c, out_h, out_w), generator=g)
+    return mod, x, cond, cot
+
+
+def run_piece(mod, x, cond, H, kind):
+    """One band layer's output of ``x`` (a band of H rows, or the whole
+    image outside ``spatial.banded``)."""
+    from pcgan_tpu_torch.models.layers import instance_norm
+    if kind == "conv":
+        return mod(x, cond, H=H)
+    if kind == "deconv":
+        return mod(x, H=H)
+    return instance_norm(x)
+
+
+def spatial_pieces(mesh, case):
+    """Each band-layer case of ``case['specs']`` on this rank's band over a
+    1 x world data x spatial mesh: the output band, the gradient of the
+    input band and the parameter gradients summed over the line (or the
+    error every rank raises)."""
+    import torch.distributed as dist
+    from pcgan_tpu_torch.parallel import spatial
+    mesh = _case_mesh(mesh, {"shape": (1, mesh.world),
+                             "axes": ("data", "spatial")})
+    line = spatial.spatial_line(mesh)
+    out = {}
+    for name, spec in case["specs"].items():
+        mod, x, cond, cot = build_piece(spec)
+        H = x.shape[2]
+        b = spatial.band_of(H, line.n, line.coord)
+        xb = x[:, :, b.r0:b.r1].clone().requires_grad_(True)
+        params = [] if mod is None else list(mod.parameters())
+        try:
+            with spatial.banded(line, H):
+                y = run_piece(mod, xb, cond, H, spec["kind"])
+                ob = spatial.band_of(cot.shape[2], line.n, line.coord)
+                loss = (y.float() * cot[:, :, ob.r0:ob.r1]).sum()
+                grads = torch.autograd.grad(loss, [xb] + params)
+        except ValueError as e:
+            out[name] = {"error": str(e)}
+            continue
+        gw = [gr.clone() for gr in grads[1:]]
+        for gr in gw:
+            dist.all_reduce(gr, group=line.group)
+        out[name] = {"y": y.detach().float(), "gx": grads[0].float(),
+                     "gw": gw}
+    return out
+
+
+def spatial_steps(mesh, case):
+    """Consecutive sharded-state steps from one ``save_state`` payload over
+    the case's mesh, B1's plain twin writing each rank's band with every
+    draw made (crops, flips, target bins, pool slots): each step's metrics
+    and the ranks' bits after it; after the last, the state gathered whole
+    (the pool's images whole too). With ``case['C']`` the frozen
+    comparator (its state dict and score anchors) joins the step."""
+    from pcgan_tpu_torch.models import define_C, define_D, define_G
+    from pcgan_tpu_torch.parallel import auto
+    from pcgan_tpu_torch.train import create_train_state
+    from pcgan_tpu_torch.utils.checkpoint import load_state
+    tc = case["cfg"]
+    mesh = _case_mesh(mesh, case)
+    G, D = define_G(tc).to(mesh.device), define_D(tc).to(mesh.device)
+    C = None
+    if case.get("C") is not None:
+        C = define_C(tc)
+        C.load_state_dict(case["C"])
+    state = create_train_state(tc, G, D, torch.Generator().manual_seed(0),
+                               C=C, bin_anchors=case.get("anchors"))
+    load_state(state, case["payload"])
+    auto.shard_state(state, mesh, tc.parallel.zero1)
+    step = auto.make_sharded_train_step(tc, G, D, state.C, mesh=mesh)
+    rows = auto.batch_rows(tc, mesh)
+    metrics, band_pool = [], []
+    for batch in case["batches"]:
+        local = {k: torch.as_tensor(v).to(mesh.device)
+                 for k, v in mesh.local_rows(batch, rows).items()}
+        m = step(state, local)
+        metrics.append({k: float(v) for k, v in m.items()})
+        band_pool.append(tuple(state.pool.imgs.shape))
+    with auto.gathered(state, optimizer=True):
+        res = _step_result(state, m)
+        res["ema"] = (None if state.ema is None else
+                      {k: v.cpu().clone() for k, v in state.ema.items()})
+        res["pool"] = {"imgs": state.pool.imgs.cpu().clone(),
+                       "count": int(state.pool.count)}
+    return {**res, "steps": metrics, "band_pool": band_pool,
+            "coords": {ax: mesh.coord(ax) for ax in mesh.axes}}
 
 
 def main(path: str, rank: int, world: int, port: str, device: str) -> None:

@@ -98,7 +98,7 @@ class NLayerDiscriminator(nn.Module):
             H = None if H is None else self.convs[i].out_size(H)
             feats.append(h)
         if self.attn is not None:
-            h = self.attn(h)
+            h = self.attn(h, H)
         h = F.leaky_relu(self.norms[-1](self.convs[-2](h, H=H)), 0.2)
         H = None if H is None else self.convs[-2].out_size(H)
         feats.append(h)
@@ -119,7 +119,11 @@ class NLayerDiscriminator(nn.Module):
 class MultiScaleDiscriminator(nn.Module):
     """pix2pixHD-style multi-scale PatchGAN: ``D_k`` scores the input after
     k exact 2x2/stride-2 mean pools (the condition is concatenated once, at
-    full resolution). A scale whose patch map would be empty raises."""
+    full resolution; VALID, as ``nn.avg_pool``: an odd side drops its last
+    row). A scale whose patch map would be empty raises. Inside
+    ``spatial.banded`` each pool is a window over the bands
+    (``spatial.pool2``), each ``D_k`` runs on the band of its scale's
+    global height, and each scale's logits are a band."""
 
     def __init__(self, input_nc: int = 3, cond_nc: int = 10, ndf: int = 64,
                  n_layers: int = 3, num_D: int = 2, norm: str = "instance",
@@ -132,24 +136,36 @@ class MultiScaleDiscriminator(nn.Module):
                 input_nc + cond_nc, 0, ndf, n_layers, norm, dtype,
                 spectral_norm, d_attn))
 
+    def patch_size(self, size: int) -> tuple:
+        """The side of each scale's patch map for an input of side
+        ``size``, finest first."""
+        out = []
+        for k in range(self.num_D):
+            if k:
+                size = spatial.conv_out(size, 2, 2, 0)
+            out.append(getattr(self, f"D_{k}").patch_size(size))
+        return tuple(out)
+
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 return_features: bool = False):
         h = _with_cond(x, cond)
+        H = spatial.global_h(h.shape[2])
         outs, all_feats = [], []
         for k in range(self.num_D):
             if k:
-                h = F.avg_pool2d(h, 2, 2)
+                h = spatial.pool2(h, H, "avg")
+                H = spatial.conv_out(H, 2, 2, 0)
             d = getattr(self, f"D_{k}")
-            ph, pw = d.patch_size(h.shape[2]), d.patch_size(h.shape[3])
+            ph, pw = d.patch_size(H), d.patch_size(h.shape[3])
             if ph < 1 or pw < 1:
                 raise ValueError(
-                    f"--netD multiscale: D_{k} (input {h.shape[2]}x"
+                    f"--netD multiscale: D_{k} (input {H}x"
                     f"{h.shape[3]} after {k} 2x pools) produces an empty "
                     f"{max(ph, 0)}x{max(pw, 0)} patch map. Lower --num_D or "
                     f"--n_layers_D, or raise --crop_size: scale k needs "
                     f"crop_size/2^k to survive n_layers_D stride-2 convs "
                     f"plus two 4x4 valid-ish convs.")
-            out, feats = d.trunk(h)
+            out, feats = d.trunk(h, H)
             outs.append(_nhwc(out))
             all_feats.append(feats)
         if return_features:

@@ -15,12 +15,14 @@ bottleneck features (``'bottleneck'``, followed by a 1x1 projection back to
 the trunk width). ``forward`` takes and returns NHWC, like the JAX module.
 
 ``--norm`` is instance, batch, group or none, one norm module per site.
-Inside ``parallel.spatial.banded`` the resnet G computes on this rank's
-band of rows (its convs told their input's global height; the condition
-map broadcast at the band's height).
+Inside ``parallel.spatial.banded`` either G computes on this rank's band of
+rows (its layers told their input's global height; the condition map
+broadcast at the band's height).
 With dropout (``--no-no_dropout``) a training forward draws one keep-mask
-per block from an explicit ``torch.Generator``; ``--remat`` recomputes the
-first ``--remat_blocks`` blocks in the backward pass.
+per block from an explicit ``torch.Generator``, at the global shape (every
+rank draws the whole mask and keeps its rows and band); ``--remat``
+recomputes the first ``--remat_blocks`` blocks in the backward pass, a
+band's halo exchanges and band sums included (``_checkpoint``).
 
 ``quant_trunk`` (``--quant_int8``) runs the trunk convs in int8
 (``ops/quant.py``): the down convs, the bottleneck projection, both convs of
@@ -54,7 +56,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from pcgan_tpu_torch.models.layers import (Norm, ResizeConv, TorchConv,
                                            TorchConvTranspose,
@@ -105,7 +107,13 @@ class SelfAttention(nn.Module):
     2x, softmax over the keys in f32, the output projection o, and ``x +
     gamma * o`` with gamma starting at 0 (the identity at init). The two
     products are explicit matmuls, as in JAX. ``spectral_norm`` puts each
-    projection under spectral norm (``--d_attn --spectral_norm``)."""
+    projection under spectral norm (``--d_attn --spectral_norm``).
+
+    On a band (``H``, x's global height, given inside ``spatial.banded``)
+    the queries are the band's rows; phi and g are pooled by the global
+    row pairs (``spatial.pool2``) and gathered whole over the line
+    (``spatial.gather_band``), so each query's softmax runs over all HW/4
+    keys; the output projection and the residual stay on the band."""
 
     def __init__(self, dim: int, dtype=torch.float32,
                  spectral_norm: bool = False):
@@ -118,17 +126,20 @@ class SelfAttention(nn.Module):
         self.o = TorchConv(k2, dim, 1, **kw)
         self.gamma = nn.Parameter(torch.zeros(()))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, H: Optional[int] = None
+                ) -> torch.Tensor:
         n, c, h, w = x.shape
-        if h % 2 or w % 2:
+        gh = h if H is None or spatial.active() is None else H
+        if gh % 2 or w % 2:
             raise ValueError(f"SelfAttention needs even spatial dims for the "
-                             f"pooled key/value branches, got {h}x{w}")
-        q = self.theta(x).flatten(2).transpose(1, 2)          # (n, hw, k8)
-        k = F.max_pool2d(self.phi(x), 2, 2).flatten(2)        # (n, k8, hw/4)
-        v = F.max_pool2d(self.g(x), 2, 2).flatten(2)         # (n, k2, hw/4)
+                             f"pooled key/value branches, got {gh}x{w}")
+        q = self.theta(x, H=H).flatten(2).transpose(1, 2)     # (n, hw, k8)
+        k, v = (spatial.gather_band(spatial.pool2(conv(x, H=H), gh, "max"),
+                                    gh // 2).flatten(2)
+                for conv in (self.phi, self.g))     # (n, k8|k2, HW/4)
         attn = torch.softmax(torch.bmm(q, k).float(), dim=-1).to(x.dtype)
         o = torch.bmm(attn, v.transpose(1, 2))               # (n, hw, k2)
-        o = self.o(o.transpose(1, 2).reshape(n, -1, h, w))
+        o = self.o(o.transpose(1, 2).reshape(n, v.shape[1], h, w), H=H)
         return x + self.gamma.to(x.dtype) * o
 
 
@@ -227,27 +238,47 @@ class ResnetGenerator(nn.Module):
                                              h.dtype)], 1)
             h = self.cond_proj(h, H=H)
         remat = self.training and torch.is_grad_enabled()
-        for i, block in enumerate(self.blocks):
-            keep = (draw.rand(h.shape, generator, rows, device=h.device)
-                    < 0.5) if dropout else None
+        keeps = ([spatial.band_slice(k)
+                  for k in self.draw_keeps(h, H, generator, rows)]
+                 if dropout else [None] * len(self.blocks))
+        for i, (block, keep) in enumerate(zip(self.blocks, keeps)):
             if remat and i < self.n_remat:
                 # the recompute in the backward pass must not move the norm
                 # state a second time; the mask is an input, so it replays
-                h = checkpoint(block, h, keep, use_reentrant=False,
-                               context_fn=_recompute_frozen(block))
+                h = _checkpoint(block, (block,), h, keep, H)
             else:
                 h = block(h, keep, H)
             if i == self.attn_after:
-                h = self.attn(h)
+                h = self.attn(h, H)
         for deconv, norm in zip(self.up, self.up_norm):
             h = F.relu(norm(deconv(h, H=H)))
             H = deconv.out_size(H)
         h = self.tail(h, H=H)
         return torch.tanh(h.float()).permute(0, 2, 3, 1)
 
+    def draw_keeps(self, h: torch.Tensor, H: int, generator: torch.Generator,
+                   rows=None) -> list:
+        """The keep-mask (p = 0.5) of every block of a training forward with
+        dropout, in block order, at the trunk's global shape (``H`` rows;
+        ``rows``: for the global batch, this rank's rows kept)."""
+        shape = h.shape[:2] + (H,) + h.shape[3:]
+        return [draw.rand(shape, generator, rows, device=h.device) < 0.5
+                for _ in self.blocks]
+
 
 def _recompute_frozen(*modules: nn.Module):
     return lambda: (contextlib.nullcontext(), frozen_stats(*modules))
+
+
+def _checkpoint(fn, modules, *args):
+    """``fn(*args)`` recomputed in the backward pass without moving the
+    norm state of ``modules`` a second time. On a band the recompute runs
+    the whole segment (no early stop), so every rank re-issues all its halo
+    exchanges and band sums, in the forward's order."""
+    early = spatial.active() is None
+    with set_checkpoint_early_stop(early):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_recompute_frozen(*modules))
 
 
 class UnetSkipBlock(nn.Module):
@@ -281,9 +312,11 @@ class UnetSkipBlock(nn.Module):
                                      dtype, q)
         self.up_norm = None if outermost else Norm(norm, outer_nc)
 
-    def down_path(self, x: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def down_path(self, x: torch.Tensor, cond: torch.Tensor,
+                  H: Optional[int] = None) -> torch.Tensor:
+        """``H``: x's global height where x is a band of it."""
         h = x if self.outermost else F.leaky_relu(x, 0.2)
-        h = self.down(h)
+        h = self.down(h, H=H)
         if self.down_norm is not None:
             h = self.down_norm(h)
         if self.inject_cond:
@@ -292,10 +325,13 @@ class UnetSkipBlock(nn.Module):
         return h
 
     def up_path(self, x: torch.Tensor, h: torch.Tensor,
-                keep: Optional[torch.Tensor]) -> torch.Tensor:
+                keep: Optional[torch.Tensor], H: Optional[int] = None
+                ) -> torch.Tensor:
         """``keep``: the dropout mask (bool, the up output's shape) of a
-        training forward at a dropout level (flax ``nn.Dropout(0.5)``)."""
-        h = self.up(F.relu(h))
+        training forward at a dropout level (flax ``nn.Dropout(0.5)``).
+        ``H``: h's global height where h is a band of it (the skip concat
+        pairs x's band with the up output's band of the same height)."""
+        h = self.up(F.relu(h), H=H)
         if self.outermost:
             return torch.tanh(h.float())
         h = self.up_norm(h)
@@ -345,14 +381,24 @@ class UnetGenerator(nn.Module):
                    rows=None) -> dict:
         """{level: keep-mask of its up output} of a training forward with
         dropout, drawn (p = 0.5) innermost level first from ``generator``
-        on x's device (for the global batch under ``rows``); level i works
-        at 1/2^(depth-1-i) of x's size."""
-        n, h, w = x.shape[0], x.shape[1], x.shape[2]
-        up = len(self.levels) - 1
-        return {i: draw.rand((n, lvl.up.weight.shape[1], h >> (up - i),
-                              w >> (up - i)), generator, rows,
-                             device=x.device) < 0.5
+        on x's device (for the global batch under ``rows``) at the global
+        shape (inside ``spatial.banded`` x is a band: every rank draws the
+        whole mask); level i works at 1/2^(depth-1-i) of x's size."""
+        n = x.shape[0]
+        sizes = self._sizes(spatial.global_h(x.shape[1]), x.shape[2])
+        return {i: draw.rand((n, lvl.up.weight.shape[1]) + sizes[i],
+                             generator, rows, device=x.device) < 0.5
                 for i, lvl in enumerate(self.levels) if lvl.use_dropout}
+
+    def _sizes(self, h: int, w: int) -> list:
+        """(height, width) of each level's input (its up output), level
+        0 the innermost, by the down convs' arithmetic."""
+        out = [None] * len(self.levels)
+        for i in range(len(self.levels) - 1, -1, -1):
+            out[i] = (h, w)
+            h, w = (self.levels[i].down.out_size(h),
+                    self.levels[i].down.out_size(w))
+        return out
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -370,27 +416,30 @@ class UnetGenerator(nn.Module):
                                  "train state's generator")
             keeps = (self.draw_keeps(x, generator) if rows is None
                      else self.draw_keeps(x, generator, rows))
+            keeps = {i: spatial.band_slice(k) for i, k in keeps.items()}
         h = x.permute(0, 3, 1, 2)
+        H = spatial.global_h(h.shape[2])
         if not self.bottleneck:
             h = torch.cat([h, broadcast_cond(cond, h.shape[2], h.shape[3],
                                              h.dtype)], 1)
         remat = self.training and torch.is_grad_enabled()
         return self._level(len(self.levels) - 1, h, cond, keeps,
-                           remat).permute(0, 2, 3, 1)
+                           remat, H).permute(0, 2, 3, 1)
 
     def _level(self, i: int, x: torch.Tensor, cond: torch.Tensor,
-               keeps: dict, remat: bool) -> torch.Tensor:
+               keeps: dict, remat: bool, H: int) -> torch.Tensor:
+        """Level i on x, of ``H`` global rows (a band of them inside
+        ``spatial.banded``)."""
         lvl = self.levels[i]
-        h = lvl.down_path(x, cond)
+        h = lvl.down_path(x, cond, H)
+        inner_h = lvl.down.out_size(H)
         if i > 0:
             if remat and i - 1 < self.n_remat:
                 # the level and everything inside it recompute in the
                 # backward pass, without moving the norm state a second
                 # time; the masks are inputs, so they replay
-                inner = self.levels[:i]
-                h = checkpoint(self._level, i - 1, h, cond, keeps, remat,
-                               use_reentrant=False,
-                               context_fn=_recompute_frozen(*inner))
+                h = _checkpoint(self._level, self.levels[:i], i - 1, h, cond,
+                                keeps, remat, inner_h)
             else:
-                h = self._level(i - 1, h, cond, keeps, remat)
-        return lvl.up_path(x, h, keeps.get(i))
+                h = self._level(i - 1, h, cond, keeps, remat, inner_h)
+        return lvl.up_path(x, h, keeps.get(i), inner_h)

@@ -25,7 +25,8 @@ under ``lowch_matmul`` a bf16 reflect conv with at most 8 output channels
 (the tail) runs as an r=4 space-to-depth conv (``ops/lowch_conv.py``).
 ``fused_reflect`` (a module field, no CLI flag) computes a reflect conv
 without the padded tensor. ``ResizeConv`` is a nearest 2x resize then a
-3x3 conv (``--netG resnet_*@resize_conv``).
+3x3 conv (``--netG resnet_*@resize_conv``). Inside ``parallel.spatial.
+banded`` the convs, the resize conv and the norms compute on bands.
 """
 
 from __future__ import annotations
@@ -437,7 +438,10 @@ class ResizeConv(nn.Module):
     (``pcgan_tpu/models/layers.py:371-398``, at the scale its one caller
     uses): the upsampling of ``--netG resnet_*@resize_conv``. At an exact
     2x, ``F.interpolate``'s nearest takes source pixel i // 2, as
-    ``jax.image.resize``'s does."""
+    ``jax.image.resize``'s does. On a band (``H`` given inside
+    ``spatial.banded``) the upsample writes this rank's band of the 2H
+    rows from its fetched source rows (``spatial.upsample2``), then the
+    conv's band form runs at height 2H."""
 
     def __init__(self, in_ch: int, features: int, use_bias: bool = True,
                  dtype=torch.float32, quant: bool = False):
@@ -451,8 +455,7 @@ class ResizeConv(nn.Module):
     def forward(self, x: torch.Tensor, H: Optional[int] = None
                 ) -> torch.Tensor:
         if H is not None and spatial.active() is not None:
-            raise NotImplementedError("the resize conv on a band (ROADMAP.md "
-                                      "A10d)")
+            return self.conv(spatial.upsample2(x, H), H=2 * H)
         return self.conv(F.interpolate(x, scale_factor=2, mode="nearest"))
 
 
@@ -691,7 +694,10 @@ class BatchNorm(StatefulModule):
 
 class GroupNorm(nn.Module):
     """flax ``nn.GroupNorm(num_groups=min(32, C))`` on NCHW: eps 1e-6 (flax's
-    default), f32 stats ``E[x^2] - E[x]^2`` per (sample, group)."""
+    default), f32 stats ``E[x^2] - E[x]^2`` per (sample, group). Inside
+    ``spatial.banded`` the moments are the band's f32 sums of x and x^2,
+    summed over the line with the rows' count (one collective; an empty
+    band adds zeros)."""
 
     def __init__(self, features: int, eps: float = 1e-6):
         super().__init__()
@@ -707,9 +713,18 @@ class GroupNorm(nn.Module):
         n, c, h, w = x.shape
         g = self.groups
         xf = x.float().reshape(n, g, c // g, h, w)
-        mean = xf.mean(dim=(2, 3, 4), keepdim=True)
-        var = torch.clamp(xf.square().mean(dim=(2, 3, 4), keepdim=True)
-                          - mean.square(), min=0.0)
+        if spatial.active() is not None:
+            tot = spatial.line_sum(torch.cat([
+                xf.sum(dim=(2, 3, 4)).reshape(-1),
+                xf.square().sum(dim=(2, 3, 4)).reshape(-1),
+                xf.new_tensor([float(c // g * h * w)])]))
+            cnt = tot[-1].detach()
+            mean = (tot[:n * g] / cnt).view(n, g, 1, 1, 1)
+            mean2 = (tot[n * g:2 * n * g] / cnt).view(n, g, 1, 1, 1)
+        else:
+            mean = xf.mean(dim=(2, 3, 4), keepdim=True)
+            mean2 = xf.square().mean(dim=(2, 3, 4), keepdim=True)
+        var = torch.clamp(mean2 - mean.square(), min=0.0)
         mul = (torch.rsqrt(var + self.eps)
                * self.weight.view(1, g, c // g, 1, 1))
         y = ((xf - mean) * mul).reshape(n, c, h, w)

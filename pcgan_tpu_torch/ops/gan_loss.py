@@ -8,8 +8,8 @@ averaged; every loss reduces in f32. ``gradient_penalty`` and
 ``r1_penalty`` are double backward: ``torch.autograd.grad`` of the summed
 logits with ``create_graph=True``, so D's parameter gradient flows through
 the input gradient. Inside ``parallel.spatial.banded`` the logits are this
-rank's band of ``H`` rows and ``gan_loss`` is its share of the loss
-(``band_mean``).
+rank's band of ``H`` rows (each multiscale scale a band of its own
+height) and ``gan_loss`` is its share of the loss (``band_mean``).
 """
 
 from __future__ import annotations
@@ -44,10 +44,12 @@ def gan_loss(logits, target_is_real: bool, mode: str = "lsgan",
              for_discriminator: bool = True, H=None) -> torch.Tensor:
     """Loss for one batch of D outputs (reference GANLoss semantics); a
     multiscale tuple averages the per-scale criteria. ``H``: the logits'
-    global height where they are a band of it."""
+    global height where they are a band of it (of a tuple: each scale's,
+    a tuple too)."""
     if isinstance(logits, (tuple, list)):
-        per = [gan_loss(lg, target_is_real, mode, for_discriminator)
-               for lg in logits]
+        hs = [None] * len(logits) if H is None else H
+        per = [gan_loss(lg, target_is_real, mode, for_discriminator, h)
+               for lg, h in zip(logits, hs)]
         return sum(per) / len(per)
     x = logits.float()
 

@@ -3,7 +3,10 @@
 ``Axis`` runs the collectives of this rank's line along one mesh axis in
 coordinate order; ``parallel/auto.py`` (the sharded-state step) and
 ``parallel/spatial.py`` (the halo exchanges and band sums) use it. Each
-collective adds one to ``COLLECTIVES['{kind}/{axis}']``; with
+collective adds one to ``COLLECTIVES['{kind}/{axis}']`` (on the spatial
+line: ``halo`` and ``halo_grad``, a conv's halo rows and their gradient;
+``all_reduce_sum``, the band sums; ``gather_band`` and
+``gather_band_grad``, an operand gathered whole and its gradient); with
 ``TIMING['on']`` the device is synchronized around it and its wall ms
 add to ``COLLECTIVE_MS``.
 """

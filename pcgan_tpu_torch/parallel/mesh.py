@@ -26,9 +26,11 @@ group, a world of one included, so the NCCL path also runs on one card.
 
 An axis of size 1 is the plain path, as in JAX. ``--spatial_shards`` is
 parsed and read by nothing, as in JAX. A ``spatial`` axis > 1 splits the
-activations along H (``parallel/spatial.py``); the training flags not yet
-ported to bands raise ``NotImplementedError`` under it, naming ROADMAP.md
-A10d (``spatial_unported``).
+activations along H (``parallel/spatial.py``), the model levers
+(attention, the multiscale D, the U-Net, the resize conv, group norm,
+dropout, ``--remat``) included; the loss and data levers not yet ported to
+bands raise ``NotImplementedError`` under it, naming ROADMAP.md A10d
+(``spatial_unported``).
 """
 
 from __future__ import annotations
@@ -66,15 +68,8 @@ def resolve_mesh_shape(shape: Sequence[int], n_devices: int
 def spatial_unported(cfg) -> List[str]:
     """The set flags of ``cfg`` that a spatial axis > 1 does not run yet
     (ROADMAP.md A10d), in the order a later slice takes them."""
-    m, t = cfg.model, cfg.train
-    on = [("--g_attn", m.g_attn), ("--d_attn", m.d_attn),
-          ("--netD multiscale", m.netD == "multiscale"),
-          ("--netG unet_*", m.netG.startswith("unet")),
-          ("--netG *@resize_conv", "@resize_conv" in m.netG),
-          ("--norm group", m.norm == "group"),
-          ("dropout (--no-no_dropout)", not m.no_dropout),
-          ("--remat", bool(m.remat)),
-          ("--lambda_r1", t.lambda_r1 > 0),
+    t = cfg.train
+    on = [("--lambda_r1", t.lambda_r1 > 0),
           ("the gradient penalty (--gan_mode wgangp)",
            t.gan_mode == "wgangp"),
           ("--lambda_feat", t.lambda_feat > 0),
@@ -96,7 +91,8 @@ def reject_spatial(axes: Sequence[str], dims: Sequence[int],
         raise NotImplementedError(
             f"{', '.join(flags)} under a 'spatial' mesh axis of {size} "
             f"(activations split along H) is not ported to pcgan_tpu_torch "
-            f"yet ({A10D}); the band path runs the main training flags")
+            f"yet ({A10D}); the band path runs the main training flags and "
+            f"the model levers")
 
 
 def reject_unported_parallel(cfg) -> None:

@@ -36,6 +36,13 @@ A loss is this rank's share of the line's loss (``band_mean``: the band's
 sum over the line's count, which the band rule gives without a
 collective); the shares sum to the one-device loss, so the parameter
 gradients are summed over the line (``parallel/auto.py``).
+
+The model levers run on bands too: a 2x2/stride-2 pool is a k2 s2 p0
+window over the bands (``pool2``), so a band that starts on an odd row or
+is odd in height still pools the global row pairs; a nearest 2x upsample
+fetches its source rows (``upsample2``); an operand every row needs whole
+(self-attention's pooled keys and values) is all-gathered over the line
+(``gather_band``), its gradient summed back to each owner in rank order.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from pcgan_tpu_torch.parallel.axis import Axis
@@ -130,23 +138,94 @@ def plan_text(H: int, n: int, k: int = 0, s: int = 1, p: int = 0) -> str:
 
 
 def band_plan(cfg, n: int) -> dict:
-    """{layer: its input's band heights over n ranks and its halo} of the
-    resnet G and the PatchGAN D at ``--crop_size`` (``tools/doctor.py``)."""
+    """{layer: its input's band heights over n ranks and its halo} of G and
+    D at ``--crop_size`` (``tools/doctor.py``), read off the models: G and
+    D built from ``cfg`` on the meta device run once, and each conv,
+    deconv, attention block (its pooled keys, which every rank gathers
+    whole), resize conv, 2x2 pool and logit map records its input's height
+    in forward order. Layers of one plan under numbered names share a line
+    (``*`` for the number)."""
+    import re
+    import warnings
+    from pcgan_tpu_torch.models import define_D, define_G
+    from pcgan_tpu_torch.models.generator import SelfAttention
+    from pcgan_tpu_torch.models.layers import (ResizeConv, TorchConv,
+                                               TorchConvTranspose)
+    with torch.device("meta"), warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)   # input injection
+        nets = {"G": define_G(cfg).eval(), "D": define_D(cfg).eval()}
+    rows, pools = [], []
+
+    def label(net, name):
+        head, _, rest = name.partition(".")
+        return (f"{head} {rest}" if re.fullmatch(r"D_\d+", head)
+                else f"{net} {name}")
+
+    def record(net, name, mod):
+        def pre(_, args):
+            H = args[0].shape[2]
+            at = label(net, name)
+            if isinstance(mod, SelfAttention):
+                rows.append((f"{at} pooled keys", _attn_text(H, n)))
+                return
+            conv = mod.conv if isinstance(mod, ResizeConv) else mod
+            k, st, p = conv.weight.shape[2], conv.stride, conv.padding
+            kind = f"{k}x{k}" + (f" s{st}" if st > 1 else "")
+            if isinstance(mod, ResizeConv):
+                rows.append((f"{at} resize 2x", plan_text(H, n) + " -> "
+                             + plan_text(2 * H, n, k, st, p)))
+            elif isinstance(mod, TorchConvTranspose):
+                rows.append((f"{at} deconv {kind}", plan_text(H, n)))
+            else:
+                rows.append((f"{at} {kind}", plan_text(H, n, k, st, p)))
+        return pre
+
+    hooks, inner = [], ()
+    for net, model in nets.items():
+        for name, mod in model.named_modules():
+            if isinstance(mod, (SelfAttention, ResizeConv)):
+                inner += (name + ".",)          # their convs: one line
+            elif (not isinstance(mod, (TorchConv, TorchConvTranspose))
+                  or name.startswith(inner)):
+                continue
+            hooks.append(mod.register_forward_pre_hook(
+                record(net, name, mod)))
     h = cfg.data.crop_size
-    out = {"G stem 7x7": plan_text(h, n, 7, 1, 3)}
-    for i in (1, 2):
-        out[f"G down {i} 3x3 s2"] = plan_text(h, n, 3, 2, 1)
-        h = conv_out(h, 3, 2, 1)
-    out["G blocks 3x3"] = plan_text(h, n, 3, 1, 1)
-    h = cfg.data.crop_size
-    for i in range(cfg.model.n_layers_D):
-        out[f"D conv {i} 4x4 s2"] = plan_text(h, n, 4, 2, 1)
-        h = conv_out(h, 4, 2, 1)
-    for i in (1, 2):
-        out[f"D head {i} 4x4 s1"] = plan_text(h, n, 4, 1, 1)
-        h = conv_out(h, 4, 1, 1)
-    out["D logits"] = plan_text(h, n)
+    x = torch.empty(1, h, h, cfg.data.input_nc, device="meta")
+    c = torch.empty(1, cfg.cond_nc, device="meta")
+    _STATE["plan"] = lambda H: pools.append(H)
+    try:
+        with torch.no_grad():
+            nets["G"](x, c)
+            preds = nets["D"](x, c)
+    finally:
+        _STATE["plan"] = None
+        for hk in hooks:
+            hk.remove()
+    for i, H in enumerate(pools, 1):       # the multiscale D's, in order
+        at = next(j for j, (k, _) in enumerate(rows)
+                  if k.startswith(f"D_{i} "))
+        rows.insert(at, (f"D_{i} pool 2x2", plan_text(H, n, 2, 2, 0)))
+    preds = preds if isinstance(preds, tuple) else (preds,)
+    for i, pred in enumerate(preds):        # NHWC logit maps
+        pre = f"D_{i}" if len(preds) > 1 else "D"
+        rows.append((f"{pre} logits", plan_text(pred.shape[1], n)))
+    groups: dict = {}
+    for k, text in rows:
+        groups.setdefault(re.sub(r"\.\d+", ".*", k), []).append((k, text))
+    out = {}
+    for key, members in groups.items():
+        if len(members) > 1 and len({t for _, t in members}) == 1:
+            out[key] = members[0][1]
+        else:
+            out.update(members)
     return out
+
+
+def _attn_text(H: int, n: int) -> str:
+    """``8: 2+2+2+2 halo 0/0, keys 4 rows gathered`` (the 2x2 pool's)."""
+    return (f"{plan_text(H, n, 2, 2, 0)}, keys {conv_out(H, 2, 2, 0)} rows "
+            f"gathered")
 
 
 # --------------------------------------------------------------------------- #
@@ -154,7 +233,7 @@ def band_plan(cfg, n: int) -> dict:
 # --------------------------------------------------------------------------- #
 
 
-_STATE = {"line": None, "image_h": None}
+_STATE = {"line": None, "image_h": None, "plan": None}
 
 
 def spatial_line(mesh) -> Optional[Axis]:
@@ -335,6 +414,86 @@ def fetch(x: torch.Tensor, H: int,
     return _Fetch.apply(x, line, lay)
 
 
+class _Gather(torch.autograd.Function):
+    """The whole tensor from every rank's band (``gather_band``); the
+    backward all-gathers every rank's whole gradient and each owner adds
+    its rows' in rank order (the same bits on every run)."""
+
+    @staticmethod
+    def forward(ctx, x, line, H):
+        ctx.line, ctx.H = line, H
+        bands = bands_of(H, line.n)
+        pad = x.new_zeros(x.shape[:2] + (bands[0].h,) + x.shape[3:])
+        pad[:, :, :x.shape[2]] = x
+        parts = line.all_gather(pad.reshape(-1), "gather_band")
+        return torch.cat([p.view(pad.shape)[:, :, :b.h]
+                          for p, b in zip(parts, bands)], 2)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        line = ctx.line
+        b = band_of(ctx.H, line.n, line.coord)
+        g = g.contiguous()
+        parts = line.all_gather(g.reshape(-1), "gather_band_grad")
+        gx = parts[0].view(g.shape)[:, :, b.r0:b.r1].clone()
+        for p in parts[1:]:
+            gx += p.view(g.shape)[:, :, b.r0:b.r1]
+        return gx, None, None
+
+
+def gather_band(x: torch.Tensor, H: int) -> torch.Tensor:
+    """The whole NCHW tensor of ``H`` rows whose band is ``x``, from every
+    rank of the line in rank order (one all-gather, each band padded to the
+    widest); ``x`` itself outside ``banded``."""
+    line = _STATE["line"]
+    return x if line is None else _Gather.apply(x, line, H)
+
+
+def pool2(x: torch.Tensor, H: int, mode: str) -> torch.Tensor:
+    """The 2x2/stride-2 ``'max'`` or ``'avg'`` pool (VALID: an odd height or
+    width drops its last row or column) of the NCHW tensor of ``H`` rows
+    whose band is ``x``: this rank's band of the ``H // 2`` pooled rows,
+    its window fetched over the line (the whole pool outside
+    ``banded``)."""
+    pool = F.max_pool2d if mode == "max" else F.avg_pool2d
+    line = _STATE["line"]
+    if line is None:
+        if _STATE["plan"] is not None and mode == "avg":
+            _STATE["plan"](H)   # band_plan's: the multiscale D's pools
+        return pool(x, 2, 2)
+    wins = conv_windows(H, line.n, 2, 2, 0)
+    xw = fetch(x, H, wins)
+    if wins[line.coord] is None:
+        return xw[:, :, :0, :x.shape[3] // 2]
+    return pool(xw, 2, 2)
+
+
+def upsample2(x: torch.Tensor, H: int) -> torch.Tensor:
+    """The nearest 2x upsample (output row r reads row r // 2) of the NCHW
+    tensor of ``H`` rows whose band is ``x``: this rank's band of the 2H
+    rows, its source rows ``[r0 // 2, ceil(r1 / 2))`` fetched over the
+    line."""
+    line = _STATE["line"]
+    out = bands_of(2 * H, line.n)
+    wins = [None if b.h == 0 else (b.r0 // 2, -(-b.r1 // 2)) for b in out]
+    b = out[line.coord]
+    xw = fetch(x, H, wins).repeat_interleave(2, dim=2)
+    first = b.r0 - 2 * (b.r0 // 2)
+    return xw[:, :, first:first + b.h].repeat_interleave(2, dim=3)
+
+
+def band_slice(t: torch.Tensor) -> torch.Tensor:
+    """This rank's band (along dim 2) of a whole tensor every rank holds,
+    such as a dropout mask drawn at the global shape (``t`` itself outside
+    ``banded``)."""
+    line = _STATE["line"]
+    if line is None:
+        return t
+    b = band_of(t.shape[2], line.n, line.coord)
+    return t[:, :, b.r0:b.r1]
+
+
 # --------------------------------------------------------------------------- #
 # sums over the line
 # --------------------------------------------------------------------------- #
@@ -411,6 +570,47 @@ def mean_hw(x: torch.Tensor) -> torch.Tensor:
 def empty_like_out(x: torch.Tensor, w: torch.Tensor, shape) -> torch.Tensor:
     """A layer's empty output band (``shape`` has 0 rows) kept in the
     graph of its input and weight, so its backward (and the halo
-    collectives behind it) runs on this rank as on the others."""
-    zero = (x.sum() + w.sum()) * 0
+    collectives behind it) runs on this rank as on the others. The
+    products make the zero gradients whole tensors (a sum's own backward
+    is a stride-0 expand, which an in-place accumulation refuses)."""
+    zero = (x * 0).sum() + (w * 0).sum()
     return x.new_zeros(shape) + zero.to(x.dtype)
+
+
+class SavedAudit:
+    """Inside ``with``, watches what autograd saves for the backward
+    (``torch.autograd.graph.saved_tensors_hooks``; the run is unchanged):
+    ``saved_bytes``, the bytes of the distinct storages it keeps,
+    parameters aside, and ``whole``, the shapes of the 4-d (NCHW) tensors
+    whose rows equal their columns and exceed what a band of ``n`` ranks
+    holds with a 7x7 conv's halo, ``ceil(h/n) + 6``: a whole square image,
+    which a band run of square crops never keeps (a lever quietly
+    computing on the whole image does). Levels of 2n + 6 rows or fewer are
+    not seen."""
+
+    def __init__(self, n: int):
+        self.n = n
+        self.storages: dict = {}
+        self.whole: List[tuple] = []
+        self._hooks = torch.autograd.graph.saved_tensors_hooks(
+            self._pack, lambda t: t)
+
+    def _pack(self, t: torch.Tensor) -> torch.Tensor:
+        if not (t.requires_grad and t.is_leaf):
+            st = t.untyped_storage()
+            self.storages[st.data_ptr()] = st.nbytes()
+            h = t.shape[2] if t.dim() == 4 else 0
+            if h and h == t.shape[3] and h > -(-h // self.n) + 6:
+                self.whole.append(tuple(t.shape))
+        return t
+
+    @property
+    def saved_bytes(self) -> int:
+        return sum(self.storages.values())
+
+    def __enter__(self) -> "SavedAudit":
+        self._hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._hooks.__exit__(*exc)

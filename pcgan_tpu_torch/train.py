@@ -429,8 +429,8 @@ class StepParts:
 
     def pred_h(self, real: torch.Tensor) -> Optional[int]:
         """The global height of D's logits on ``real``, a band of images
-        inside ``spatial.banded`` (the D's a spatial axis admits give it),
-        else None."""
+        inside ``spatial.banded`` (of a multiscale D, each scale's), else
+        None."""
         if spatial.active() is None:
             return None
         return self.D.patch_size(spatial.global_h(real.shape[1]))

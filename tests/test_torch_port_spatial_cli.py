@@ -13,14 +13,20 @@
   equal the one-device CLI run's on the same data (on one thread, as the
   ranks run) within 1e-5. (Later steps may cross a ReLU kink, where f32
   summation order picks the slope: by step 8 a loss may move by 1e-4.)
-- Every flag the band path does not run yet raises ``NotImplementedError``
-  under a spatial axis, naming ROADMAP.md A10d, and passes without one.
+- The model levers (attention, the multiscale D, the U-Net, the resize
+  conv, group norm, dropout, ``--remat``) pass under a spatial axis and
+  ``doctor`` prints their band plan; all of them at once (the resnet G)
+  and the U-Net with dropout and remat each take two CLI steps at 1 x 2.
+  Every flag the band path does not run yet (the loss and data levers)
+  raises ``NotImplementedError`` under a spatial axis, naming ROADMAP.md
+  A10d, and passes without one.
 - ``tools.doctor`` over a world of two prints the band plan of
   ``--mesh_shape 1,2 --mesh_axes data,spatial`` and names A10d for a flag
   the band path does not run.
 """
 
 import json
+import math
 import os
 
 import pytest
@@ -46,10 +52,19 @@ CLI = ["--dataset_mode", "synthetic", "--max_dataset_size", "16",
        "--save_epoch_freq", "0", "--dtype", "float32"]
 MESHES = {2: ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial"],
           4: ["--mesh_shape", "2,2", "--device_cache_sharded"]}
-A10D = [["--g_attn"], ["--d_attn"], ["--netD", "multiscale"],
-        ["--netG", "unet_32"], ["--netG", "resnet_6blocks@resize_conv"],
-        ["--norm", "group"], ["--no-no_dropout"], ["--remat"],
-        ["--lambda_r1", "1"], ["--gan_mode", "wgangp"],
+# the model levers, ported to bands (ROADMAP A10d items 1-6)
+LEVERS = [["--g_attn"], ["--d_attn"], ["--netD", "multiscale"],
+          ["--netG", "unet_32"], ["--netG", "resnet_6blocks@resize_conv"],
+          ["--norm", "group"], ["--no-no_dropout"], ["--remat"]]
+# every lever at once through the CLI, two steps at 1 x 2
+LEVER_RUNS = {
+    "levers_resnet": ["--netG", "resnet_6blocks@resize_conv", "--g_attn",
+                      "--d_attn", "--netD", "multiscale", "--n_layers_D", "2",
+                      "--norm", "group", "--no-no_dropout", "--remat",
+                      "--remat_blocks", "2"],
+    "levers_unet": ["--netG", "unet_32", "--no-no_dropout", "--remat"]}
+# the loss and data levers, not yet (items 7-9)
+A10D = [["--lambda_r1", "1"], ["--gan_mode", "wgangp"],
         ["--lambda_feat", "10"], ["--lambda_vgg", "10"],
         ["--diff_augment", "color"],
         ["--diff_augment", "color", "--ada_target", "0.6"]]
@@ -76,6 +91,9 @@ def runs(tmp_path_factory):
                 (argv(world, f"straight{world}"), None), (cut, 6),
                 (cut + ["--continue_train"], None)] + (
                 [(argv(world, "epoch2", "--niter", "1"), None)]
+                + [(argv(world, name, "--niter", "1", "--max_dataset_size",
+                         "8", *flags), None)
+                   for name, flags in LEVER_RUNS.items()]
                 if world == 2 else [])}}, work, world=world, tag=str(world))
     # the first epoch on one device, meanwhile
     threads = torch.get_num_threads()
@@ -93,6 +111,12 @@ def runs(tmp_path_factory):
 def test_resume_is_exact_and_loads_on_one_device(runs, world):
     work, ranks = runs
     assert [r["resume"][:3] for r in ranks[world]] == [[8, "cut", 8]] * world
+    if world == 2:      # the lever runs: two steps each
+        assert [r["resume"][4:] for r in ranks[world]] == [[2, 2]] * world
+        for name in LEVER_RUNS:
+            got = _losses(os.path.join(work, name, "metrics.jsonl"))
+            assert len(got) == 2 and all(
+                math.isfinite(v) for row in got for v in row.values())
     a, b = (_losses(os.path.join(work, f"{n}{world}", "metrics.jsonl"))
             for n in ("straight", "cut"))
     assert len(a) == 8 and a == b
@@ -121,6 +145,32 @@ def test_spatial_cli_equals_the_one_device_run(runs):
     for net in ("G", "D"):
         for k, v in one[net].items():
             assert float((two[net][k] - v).abs().max()) <= 1e-5, (net, k)
+
+
+@pytest.mark.parametrize("flags", LEVERS,
+                         ids=lambda f: "_".join(f).strip("-"))
+def test_ported_levers_pass_under_a_spatial_axis(flags, monkeypatch):
+    """A model lever runs under a spatial axis, and ``doctor`` prints its
+    band plan with the lever's layers (read off a forward of the models:
+    ``--n_layers_D 2``, as at 32 px a 3-layer multiscale D's second scale
+    has an empty patch map, which the model refuses)."""
+    argv = flags + ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial",
+                    "--crop_size", "32", "--n_layers_D", "2"]
+    cfg = tcfg.parse_config(argv)
+    assert spatial_unported(cfg) == []
+    reject_unported_train(cfg)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    rep = doctor.main(["--device", "cpu", *argv])
+    assert rep["mesh"] == {"data": 1, "spatial": 2}
+    plan = rep["band_plan"]
+    want = {"--g_attn": "G attn pooled keys", "--d_attn": "D attn pooled keys",
+            "multiscale": "D_1 pool 2x2", "unet_32": "G levels.0.down 4x4 s2",
+            "resnet_6blocks@resize_conv": "G up.1 resize 2x"}
+    for flag, key in want.items():
+        if flag in flags:
+            assert key in plan, (key, plan)
+    first = "G levels.4.down 4x4 s2" if "unet_32" in flags else "G stem 7x7"
+    assert plan[first].startswith("32: 16+16 halo")
 
 
 @pytest.mark.parametrize("flags", A10D, ids=lambda f: "_".join(f).strip("-"))
@@ -154,6 +204,6 @@ def test_doctor_prints_the_band_plan(monkeypatch, capsys):
     assert plan["D logits"] == "2: 1+1"
     assert "band_plan" in capsys.readouterr().out
     rep = doctor.main(["--device", "cpu", "--mesh_shape", "1,2",
-                       "--mesh_axes", "data,spatial", "--g_attn"])
+                       "--mesh_axes", "data,spatial", "--lambda_r1", "1"])
     assert rep["mesh"].startswith("FAILED") and "A10d" in rep["mesh"]
     assert "band_plan" not in rep

@@ -15,6 +15,17 @@ than the halo with an empty band (6: 2+2+2+0, 3: 1+1+1+0) and two empty
 bands (2: 1+1+0+0). The s2d route needs bands that divide by 4: 40 rows
 (10 a band) raise on every rank.
 
+The model levers' pieces: ``gather_band`` (every rank holds the whole
+tensor; each rank's share of the cotangent differs, and the owners' summed
+gradients equal the whole image's); the 2x2 max and average pools over
+bands that start on odd rows, are odd in height or empty (VALID: 7, 5 and
+3 rows drop their last); self-attention (gamma drawn, never 0) on even,
+odd, 1-row and empty bands; the resize conv at heights where ``2 *
+ceil(H/4)`` is not ``ceil(2H/4)``; group norm (2 channels a group) with an
+empty band; and a U-Net level pair (the outer level's down conv and norm,
+the innermost's down and up, both skip concats) down to 1-row and empty
+bands.
+
 B1's plain twin writing a band equals the slice of its whole crop (the
 crop offset clamped first), bit for bit.
 """
@@ -60,6 +71,14 @@ def _cases():
     add("inorm_f32", (32, 30, 6, 3), kind="inorm", cin=4)
     add("inorm_bf16", (32, 30, 6, 3), kind="inorm", cin=4,
         dtype="bfloat16")
+    # the model levers' band primitives and layers (ROADMAP A10d 1-6)
+    add("gather", (8, 6, 3, 2), kind="gather", cin=3)
+    for mode in ("max", "avg"):
+        add(f"pool_{mode}", (8, 10, 7, 5, 3), kind="pool", cin=3, mode=mode)
+    add("attn", (8, 10, 4, 6), kind="attn", cin=16)
+    add("resize", (5, 6, 8), kind="resize", cin=4, cout=5)
+    add("gnorm", (30, 6, 3), kind="gnorm", cin=64)
+    add("unet_pair", (8, 4), kind="unet_pair", cin=4)
     return out
 
 
@@ -78,7 +97,7 @@ def _whole(spec):
     mod, x, cond, cot = build_piece(spec)
     x = x.clone().requires_grad_(True)
     params = [] if mod is None else list(mod.parameters())
-    y = run_piece(mod, x, cond, None, spec["kind"])
+    y = run_piece(mod, x, cond, None, spec)
     grads = torch.autograd.grad((y.float() * cot).sum(), [x] + params)
     return y.detach().float(), grads[0].float(), grads[1:]
 
@@ -94,7 +113,15 @@ def test_band_layer_matches_whole_image(pieces, name):
     y, gx, gw = _whole(spec)
     got = [r[name] for r in pieces]
     tol = 1e-2 if spec.get("dtype") == "bfloat16" else 1e-5
-    assert_close(f"{name} y", torch.cat([g["y"] for g in got], 2), y, tol)
+    if spec["kind"] == "gather":
+        # every rank holds the whole tensor, and counted the gather
+        for g in got:
+            assert torch.equal(g["y"], y)
+            assert g["collectives"]["gather_band/spatial"] > 0
+            assert g["collectives"]["gather_band_grad/spatial"] > 0
+    else:
+        assert_close(f"{name} y", torch.cat([g["y"] for g in got], 2), y,
+                     tol)
     assert_close(f"{name} dx", torch.cat([g["gx"] for g in got], 2), gx,
                  tol)
     for i, want in enumerate(gw):

@@ -39,6 +39,7 @@ over the line), the condition loss and the pixel D.
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -129,9 +130,13 @@ def run_cohorts(work):
     started = {w: start_cohort(cases, work, world=w, tag=str(w))
                for w, cases in by_world.items() if w != 8}
     one_jax = {name: [] for name in CASES}
-    runs = {name: jax_auto_run(over, shape, axes, False, 4, STEPS,
-                               warm=False, one_device=one_jax[name])
-            for name, (over, shape, axes) in CASES.items()}
+
+    def jax_case(name):
+        over, shape, axes = CASES[name]
+        return jax_auto_run(over, shape, axes, False, 4, STEPS, warm=False,
+                            one_device=one_jax[name])
+    with ThreadPoolExecutor(len(CASES)) as pool:   # XLA compiles outside
+        runs = dict(zip(CASES, pool.map(jax_case, CASES)))   # the GIL
     for name, (tc, _, payloads, bs, _) in runs.items():
         shape, axes = CASES[name][1:]
         by_world[8][name] = {

@@ -260,7 +260,7 @@ def test_unported_training_flags_raise(tmp_path):
                  ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial"]):
         reject_unported_train(tcfg.parse_config(argv))
     for argv, flag in ((["--mesh_shape", "1,2", "--mesh_axes",
-                         "data,spatial", "--g_attn"], "A10d"),
+                         "data,spatial", "--lambda_r1", "1"], "A10d"),
                        (["--xla_opt", "x"], "XLA-only"),
                        (["--compile_cache", "d"], "XLA-only"),
                        (["--profile_server", "9000"], "XLA-only")):

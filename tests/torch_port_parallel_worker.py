@@ -119,15 +119,19 @@ def gan_steps(mesh, case):
 
 @contextlib.contextmanager
 def _relu_margins(seen: list):
-    """Records the smallest |input| of every ``F.relu`` and
-    ``F.leaky_relu`` call (G's and D's kinks) while it is open."""
+    """Records the smallest nonzero |input| of every ``F.relu`` and
+    ``F.leaky_relu`` call (G's and D's kinks) while it is open. An exact
+    zero is structural (a one-hot's, a dropped unit's), the same in every
+    framework, and no f32 noise picks its slope."""
     import torch.nn.functional as F
     fns = {"relu": F.relu, "leaky_relu": F.leaky_relu}
 
     def watch(fn):
         def wrapped(x, *args, **kwargs):
-            if x.numel():        # a band may be empty
-                seen.append(float(x.detach().abs().min()))
+            a = x.detach().abs()
+            a = a[a > 0]
+            if a.numel():        # a band may be empty
+                seen.append(float(a.min()))
             return fn(x, *args, **kwargs)
         return wrapped
     for name, fn in fns.items():
@@ -244,11 +248,34 @@ def _case_mesh(mesh, case):
                      None if granules is None else granules.__getitem__)
 
 
+@contextlib.contextmanager
+def _replay_keeps(keeps):
+    """Inside, the generators' dropout draws are ``keeps`` ({block or
+    level: the global batch's NCHW mask}), of which each rank's G keeps
+    its rows (and, on a spatial line, its band); None: their own draws."""
+    from pcgan_tpu_torch.models.generator import (ResnetGenerator,
+                                                  UnetGenerator)
+    own = ResnetGenerator.draw_keeps, UnetGenerator.draw_keeps
+
+    def take(m, rows, device):
+        return (m if rows is None else rows.take(m)).to(device)
+    if keeps is not None:
+        ResnetGenerator.draw_keeps = lambda self, h, H, g, rows=None: [
+            take(keeps[i], rows, h.device) for i in range(len(self.blocks))]
+        UnetGenerator.draw_keeps = lambda self, x, g, rows=None: {
+            i: take(m, rows, x.device) for i, m in keeps.items()}
+    try:
+        yield
+    finally:
+        ResnetGenerator.draw_keeps, UnetGenerator.draw_keeps = own
+
+
 def sharded_steps(mesh, case):
     """One sharded-state step (``parallel/auto.py``) from each given state
     (a ``save_state``/``convert_train_state`` payload) on this rank's rows
     of its global batch: the step's metrics, the state gathered whole, and
-    the rank's own shards after the step."""
+    the rank's own shards after the step. ``case['keeps']``: each step's
+    dropout masks, replayed (``_replay_keeps``)."""
     from pcgan_tpu_torch.models import define_D, define_G
     from pcgan_tpu_torch.parallel import auto
     from pcgan_tpu_torch.train import create_train_state
@@ -256,7 +283,9 @@ def sharded_steps(mesh, case):
     tc, out = case["cfg"], []
     mesh = _case_mesh(mesh, case)
     rows = auto.batch_rows(tc, mesh)
-    for payload, batch in zip(case["payloads"], case["batches"]):
+    keeps = case.get("keeps") or [None] * len(case["payloads"])
+    for payload, batch, keep in zip(case["payloads"], case["batches"],
+                                    keeps):
         G, D = define_G(tc).to(mesh.device), define_D(tc).to(mesh.device)
         state = create_train_state(tc, G, D,
                                    torch.Generator().manual_seed(0))
@@ -268,7 +297,7 @@ def sharded_steps(mesh, case):
         local = {k: torch.as_tensor(v).to(mesh.device)
                  for k, v in mesh.local_rows(batch, rows).items()}
         margins = []
-        with _relu_margins(margins):
+        with _relu_margins(margins), _replay_keeps(keep):
             m = step(state, local)
         plan = state.shard_plan
         shards = {}
@@ -300,8 +329,11 @@ def build_piece(spec):
     """(module or None, x (N, C, H, W), cond or None, cotangent of the
     output) of one band-layer case, drawn from the case's seed; the same
     on every rank and in the test that holds the bands to the whole
-    image."""
-    from pcgan_tpu_torch.models.layers import TorchConv, TorchConvTranspose
+    image. An attention case's gamma is drawn too (never 0, where the block
+    is the identity)."""
+    from pcgan_tpu_torch.models.generator import SelfAttention
+    from pcgan_tpu_torch.models.layers import (GroupNorm, ResizeConv,
+                                               TorchConv, TorchConvTranspose)
     g = torch.Generator().manual_seed(spec["seed"])
     n, c, h, w = 2, spec["cin"], spec["H"], spec.get("W", 12)
     dt = getattr(torch, spec.get("dtype", "float32"))
@@ -318,40 +350,73 @@ def build_piece(spec):
             mod.s2d_r = 4          # the tail's route, held here in f32
         if extra:
             cond = torch.randn((n, extra), generator=g)
-        out_h, out_w = mod.out_size(h), mod.out_size(w)
     elif kind == "deconv":
         mod = TorchConvTranspose(c, spec["cout"], spec["k"], spec["s"],
                                  spec["p"], spec["op"])
-        out_h, out_w = mod.out_size(h), mod.out_size(w)
-    else:
-        out_h, out_w = h, w
+    elif kind == "attn":
+        mod = SelfAttention(c)
+    elif kind == "resize":
+        mod = ResizeConv(c, spec["cout"])
+    elif kind == "gnorm":
+        mod = GroupNorm(c)
+    elif kind == "unet_pair":
+        mod = _unet_pair(c)
     if mod is not None:
         with torch.no_grad():
             for prm in mod.parameters():
                 prm.copy_(torch.randn(prm.shape, generator=g) * 0.3)
-        c = spec["cout"]
-    cot = torch.randn((n, c, out_h, out_w), generator=g)
+    with torch.no_grad():
+        shape = run_piece(mod, x, cond, None, spec).shape
+    cot = torch.randn(shape, generator=g)
     return mod, x, cond, cot
 
 
-def run_piece(mod, x, cond, H, kind):
+def _unet_pair(c):
+    """Two U-Net levels, the inner one innermost: the outer's down conv
+    and norm, the inner's down and up convs, the skip concats."""
+    from torch import nn
+    from pcgan_tpu_torch.models.generator import UnetSkipBlock
+    return nn.ModuleList([
+        UnetSkipBlock(6, 6, 8, 8, innermost=True),
+        UnetSkipBlock(c, c, 6, 12)])
+
+
+def run_piece(mod, x, cond, H, spec):
     """One band layer's output of ``x`` (a band of H rows, or the whole
-    image outside ``spatial.banded``)."""
+    image outside ``spatial.banded``): the whole tensor for a
+    ``gather_band`` case."""
     from pcgan_tpu_torch.models.layers import instance_norm
+    from pcgan_tpu_torch.parallel import spatial
+    kind, gh = spec["kind"], spec["H"]
     if kind == "conv":
         return mod(x, cond, H=H)
-    if kind == "deconv":
+    if kind in ("deconv", "attn", "resize"):
         return mod(x, H=H)
+    if kind == "gnorm":
+        return mod(x)
+    if kind == "gather":
+        return spatial.gather_band(x, gh)
+    if kind == "pool":
+        return spatial.pool2(x, gh, spec["mode"])
+    if kind == "unet_pair":
+        inner, outer = mod
+        h1 = outer.down.out_size(gh)
+        h = outer.down_path(x, None, H and gh)
+        hi = inner.down_path(h, None, H and h1)
+        hi = inner.up_path(h, hi, None, H and inner.down.out_size(h1))
+        return outer.up_path(x, hi, None, H and h1)
     return instance_norm(x)
 
 
 def spatial_pieces(mesh, case):
     """Each band-layer case of ``case['specs']`` on this rank's band over a
-    1 x world data x spatial mesh: the output band, the gradient of the
-    input band and the parameter gradients summed over the line (or the
-    error every rank raises)."""
+    1 x world data x spatial mesh: the output band (a ``gather_band``
+    case: the whole tensor, its cotangent this rank's share of the whole
+    one), the gradient of the input band and the parameter gradients
+    summed over the line (or the error every rank raises)."""
     import torch.distributed as dist
     from pcgan_tpu_torch.parallel import spatial
+    from pcgan_tpu_torch.parallel.axis import COLLECTIVES
     mesh = _case_mesh(mesh, {"shape": (1, mesh.world),
                              "axes": ("data", "spatial")})
     line = spatial.spatial_line(mesh)
@@ -364,9 +429,15 @@ def spatial_pieces(mesh, case):
         params = [] if mod is None else list(mod.parameters())
         try:
             with spatial.banded(line, H):
-                y = run_piece(mod, xb, cond, H, spec["kind"])
-                ob = spatial.band_of(cot.shape[2], line.n, line.coord)
-                loss = (y.float() * cot[:, :, ob.r0:ob.r1]).sum()
+                y = run_piece(mod, xb, cond, H, spec)
+                if spec["kind"] == "gather":
+                    # distinct shares that sum to the whole cotangent
+                    k = line.coord + 1
+                    loss = (y.float() * cot * (2.0 * k / (line.n * (
+                        line.n + 1)))).sum()
+                else:
+                    ob = spatial.band_of(cot.shape[2], line.n, line.coord)
+                    loss = (y.float() * cot[:, :, ob.r0:ob.r1]).sum()
                 grads = torch.autograd.grad(loss, [xb] + params)
         except ValueError as e:
             out[name] = {"error": str(e)}
@@ -375,7 +446,7 @@ def spatial_pieces(mesh, case):
         for gr in gw:
             dist.all_reduce(gr, group=line.group)
         out[name] = {"y": y.detach().float(), "gx": grads[0].float(),
-                     "gw": gw}
+                     "gw": gw, "collectives": dict(COLLECTIVES)}
     return out
 
 
@@ -384,10 +455,12 @@ def spatial_steps(mesh, case):
     the case's mesh, B1's plain twin writing each rank's band with every
     draw made (crops, flips, target bins, pool slots): each step's metrics
     and the ranks' bits after it; after the last, the state gathered whole
-    (the pool's images whole too). With ``case['C']`` the frozen
-    comparator (its state dict and score anchors) joins the step."""
+    (the pool's images whole too); each step's ``spatial.SavedAudit``
+    (what autograd kept, and any whole square image among it). With
+    ``case['C']`` the frozen comparator (its state dict and score anchors)
+    joins the step."""
     from pcgan_tpu_torch.models import define_C, define_D, define_G
-    from pcgan_tpu_torch.parallel import auto
+    from pcgan_tpu_torch.parallel import auto, spatial
     from pcgan_tpu_torch.train import create_train_state
     from pcgan_tpu_torch.utils.checkpoint import load_state
     tc = case["cfg"]
@@ -403,13 +476,17 @@ def spatial_steps(mesh, case):
     auto.shard_state(state, mesh, tc.parallel.zero1)
     step = auto.make_sharded_train_step(tc, G, D, state.C, mesh=mesh)
     rows = auto.batch_rows(tc, mesh)
-    metrics, band_pool = [], []
+    n = dict(zip(case["axes"], case["shape"])).get("spatial", 1)
+    metrics, band_pool, saved = [], [], []
     for batch in case["batches"]:
         local = {k: torch.as_tensor(v).to(mesh.device)
                  for k, v in mesh.local_rows(batch, rows).items()}
-        m = step(state, local)
+        with spatial.SavedAudit(n) as audit:
+            m = step(state, local)
         metrics.append({k: float(v) for k, v in m.items()})
         band_pool.append(tuple(state.pool.imgs.shape))
+        saved.append({"whole": audit.whole,
+                      "saved_bytes": audit.saved_bytes})
     with auto.gathered(state, optimizer=True):
         res = _step_result(state, m)
         res["ema"] = (None if state.ema is None else
@@ -417,6 +494,7 @@ def spatial_steps(mesh, case):
         res["pool"] = {"imgs": state.pool.imgs.cpu().clone(),
                        "count": int(state.pool.count)}
     return {**res, "steps": metrics, "band_pool": band_pool,
+            "saved": saved,
             "coords": {ax: mesh.coord(ax) for ax in mesh.axes}}
 
 

@@ -3130,8 +3130,9 @@ def _unet128(torch, tmp, plain) -> dict:
     out["train"] = {"steps": n, "cli_wall_s": wall, "rates": rates,
                     "last_metrics": res["metrics"]}
     say(f"unet_128 (batch 32, bf16, 30 steps): {_rates_str(rates, LEVER_B)}")
-    prof = _profile_train(torch, tmp, argv=_variant_argv(
-        tmp, "unet128_profile", 2, "unet_128", steps=4),
+    # two epochs of 2 steps (a depth cut to keep the script in its time)
+    prof = _profile_train(torch, tmp, steps=2, argv=_variant_argv(
+        tmp, "unet128_profile", 2, "unet_128", steps=2),
         what="unet_128 step")
     _b2_after("unet_128 profile")
     launches["profile"] = prof["launches"]
@@ -3597,8 +3598,8 @@ def phase_variants(torch, tmp, folder, bundle_dir, plain) -> dict:
                      out["unet_128"]["launches"].items()})
     out["unet_256_remat"] = _unet256_remat(torch, tmp)
 
-    prof = _profile_train(torch, tmp, argv=_variant_argv(
-        tmp, "resize_attn_profile", 2, "resnet_9blocks@resize_conv", steps=4,
+    prof = _profile_train(torch, tmp, steps=2, argv=_variant_argv(
+        tmp, "resize_attn_profile", 2, "resnet_9blocks@resize_conv", steps=2,
         extra=("--g_attn",)), what="resize_conv + g_attn step")
     _b2_after("resize_conv + g_attn")
     launches["resize_attn_profile"] = prof["launches"]
@@ -4953,6 +4954,22 @@ def _audited(torch, dev, n, fn, history):
 
 def _auto_steps(torch, mesh, inputs, work, flags=(), steps=None,
                 timed=True) -> dict:
+    """``_auto_steps_body`` with cuDNN's deterministic algorithms, on one
+    rank as on the ranks, so that cuDNN's atomic algorithms add nothing to
+    the gap the gates read (on an H100 80GB HBM3, two runs of phase 25
+    differed x4.6 in their largest parameter gap without it; with it two
+    passes still differ by a few percent: other reductions)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _auto_steps_body(torch, mesh, inputs, work, flags, steps,
+                                timed)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _auto_steps_body(torch, mesh, inputs, work, flags=(), steps=None,
+                     timed=True) -> dict:
     """The steps of ``inputs``: with ``mesh`` None the one-rank plain step
     on the whole batch from the warm state ``{work}/s0.pt``, writing the
     state before each later step; else the sharded-state step over the
@@ -4986,7 +5003,8 @@ def _auto_steps(torch, mesh, inputs, work, flags=(), steps=None,
             _w.simplefilter("ignore", RuntimeWarning)   # input injection
             G, D = define_G(cfg).to(dev), define_D(cfg).to(dev)
         state = create_train_state(cfg, G, D,
-                                   torch.Generator().manual_seed(0))
+                                   torch.Generator().manual_seed(0),
+                                   vgg=_vgg_of(cfg))
         load_state(state, torch.load(os.path.join(work, f"s{i}.pt"),
                                      weights_only=True))
         return state
@@ -5068,6 +5086,15 @@ def _auto_steps(torch, mesh, inputs, work, flags=(), steps=None,
     return out
 
 
+def _vgg_of(cfg):
+    """``--lambda_vgg``'s frozen trunk (``--vgg_path random``: the seeded
+    random VGG19 the train CLI builds), else None."""
+    if cfg.train.lambda_vgg <= 0:
+        return None
+    from pcgan_tpu_torch.models.vgg import random_vgg19
+    return random_vgg19(0)
+
+
 def _auto_rank(rank, port, work):
     """A spawned rank of phase 23 (a): gloo over CUDA tensors, both ranks
     on cuda:0; each mesh of AUTO_MESHES in turn."""
@@ -5105,6 +5132,17 @@ def _auto_rank(rank, port, work):
                                 SP_MESH, steps=1, timed=False)
             res["no_remat"] = {"collectives": plain["collectives"][-1],
                                "peak_bytes": plain["peak_bytes"]}
+            res["wall_s"] = time.perf_counter() - t0
+            torch.save(res, os.path.join(lw, f"rank{rank}.pt"))
+        # phase 26's ranks: each loss-lever config
+        for name in LOSS_SP:
+            lw = os.path.join(os.path.dirname(work), f"losses_{name}")
+            if not os.path.exists(os.path.join(lw, "inputs.pt")):
+                continue
+            li = torch.load(os.path.join(lw, "inputs.pt"),
+                            weights_only=False)
+            t0 = time.perf_counter()
+            res = _auto_steps(torch, mesh, li, lw, SP_MESH)
             res["wall_s"] = time.perf_counter() - t0
             torch.save(res, os.path.join(lw, f"rank{rank}.pt"))
     finally:
@@ -5181,7 +5219,25 @@ ENV_SHARE = 2e-3          # the envelope's share beyond lr/4
 ENV_SHARE_MIN = 5000      # tensors held to it alone: 10 entries or more
 
 
-def _envelope(name, got, want, start, what, count=2) -> dict:
+def _inert(argv) -> set:
+    """The parameters of the config ``argv`` whose gradient is 0 in exact
+    arithmetic, so that both runs step them by Adam's sign of f32 noise:
+    under ``--gan_mode wgangp`` the bias of each of D's logit convs (the
+    critic's loss, -mean D(real) + mean D(fake), cancels a constant, and
+    the penalty reads only input gradients)."""
+    import torch
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_D
+    cfg = parse_config(argv, is_train=True)
+    if cfg.train.gan_mode != "wgangp":
+        return set()
+    with torch.device("meta"):
+        D = define_D(cfg)
+    return {f"D.{pre + '.' if pre else ''}convs.{len(m.convs) - 1}.bias"
+            for pre, m in D.named_modules() if hasattr(m, "convs")}
+
+
+def _envelope(name, got, want, start, what, count=2, inert=()) -> dict:
     """One Adam step's parameter change within the lockstep's envelope:
     bulk (each tensor's median) below 2e-6; entries beyond lr/4 under
     ENV_SHARE of all the parameters together and of each tensor of
@@ -5189,9 +5245,9 @@ def _envelope(name, got, want, start, what, count=2) -> dict:
     entry); and the sign-flip bound at most: 2.1 lr, or ``_adam_pair`` of
     the step's Adam count ``count`` where that is larger (a step from a
     state three or more steps on; the stem's condition channels, which
-    instance norm cancels, to the sign-flip bound alone). Returns the
-    worst median, max, share (of all and of the tensors held alone), the
-    max in lr and the bound in lr."""
+    instance norm cancels, and the ``inert`` parameters (``_inert``) to the
+    sign-flip bound alone). Returns the worst median, max, share (of all
+    and of the tensors held alone), the max in lr and the bound in lr."""
     bound_lr = max(2.1, _adam_pair(count))
     bound = bound_lr * LR
     worst = {"median": 0.0, "max": 0.0, "share": 0.0, "share_tensor": 0.0}
@@ -5203,6 +5259,11 @@ def _envelope(name, got, want, start, what, count=2) -> dict:
                   f"{what}: {name}: the stem's condition channels moved by "
                   f"{diff[:, C:].max()} (bound {bound})")
             diff = diff[:, :C]
+        if k in inert:
+            check(diff.max() <= bound, f"{what}: {name}: {k}, whose "
+                  f"gradient is 0 in exact arithmetic, moved by "
+                  f"{diff.max()} (bound {bound})")
+            continue
         med, mx = float(np.median(diff)), float(diff.max())
         n_beyond = int((diff > 0.25 * LR).sum())
         beyond, total = beyond + n_beyond, total + diff.size
@@ -5263,6 +5324,10 @@ def _auto_ranks(torch, tmp) -> dict:
     for name in LEVER_SP:
         _spatial_prepare(torch, tmp, f"levers_{name}", _lever_inputs(name))
     prep_s = time.perf_counter() - t25
+    t26 = time.perf_counter()
+    for name in LOSS_SP:
+        _spatial_prepare(torch, tmp, f"losses_{name}", _loss_inputs(name))
+    prep26_s = time.perf_counter() - t26
     t0 = time.perf_counter()
     ctx = mp.start_processes(_auto_rank, args=(_free_port(), work),
                              nprocs=2, join=False, start_method="spawn")
@@ -5284,7 +5349,8 @@ def _auto_ranks(torch, tmp) -> dict:
                  for k, v in s0[n].items()
                  if f"{n}.{k}" in one["params"][0]}
     out = {"one_rank": {"bytes": one["bytes"], "b1": one["b1"]},
-           "spawn_wall_s": wall, "levers_prepare_s": prep_s}
+           "spawn_wall_s": wall, "levers_prepare_s": prep_s,
+           "losses_prepare_s": prep26_s}
     # the nearest 2x upsample's backward under a model axis: the ranks of
     # the line must stay alike bit for bit
     rz = [ranks[r]["resize_conv"] for r in range(2)]
@@ -5639,7 +5705,8 @@ def _auto_cards(torch, tmp, n) -> dict:
     near-zero gradients), against one card's plain step: losses within
     1e-4 rel, the parameters within the one-step envelope, every rank
     bit-identical; then the train CLI on that mesh (``_auto_cards_cli``);
-    then data_parallel over the n cards against one card's call."""
+    then data_parallel over the n cards against one card's call on the
+    same shards, its gap to the whole batch's call printed."""
     from pcgan_tpu_torch.config import parse_config
     from pcgan_tpu_torch.models import define_G
     from pcgan_tpu_torch.serving import export_generator, load_exported
@@ -5672,8 +5739,22 @@ def _auto_cards(torch, tmp, n) -> dict:
     rng = np.random.default_rng(5)
     x = rng.uniform(-1, 1, (AUTO_SERVE_B, CROP, CROP, C)).astype(np.float32)
     c = np.eye(NB, dtype=np.float32)[rng.integers(0, NB, AUTO_SERVE_B)]
-    err = float(np.abs(call(x, c) - served(x, c)).max())
-    check(err <= 1e-5, f"--cards: data_parallel off one card's by {err}")
+    # Like batch sizes: each card's rows against one card's call on
+    # those rows alone (the gate), beside one card's call on the whole
+    # batch: cuDNN picks its algorithms by the batch size, so one card's
+    # call at AUTO_SERVE_B // n rows and at AUTO_SERVE_B rows may sum in
+    # another order
+    got, whole = call(x, c), served(x, c)
+    k = AUTO_SERVE_B // n
+    alone = np.concatenate([served(x[i * k:(i + 1) * k], c[i * k:(i + 1) * k])
+                            for i in range(n)])
+    err = float(np.abs(got - alone).max())
+    err_whole = float(np.abs(got - whole).max())
+    err_batch = float(np.abs(alone - whole).max())
+    check(err <= 1e-5, f"--cards: data_parallel off one card's call on the "
+          f"same {k}-row shards by {err} (against the {AUTO_SERVE_B}-row "
+          f"call {err_whole}; one card at {k} rows against {AUTO_SERVE_B}: "
+          f"{err_batch})")
 
     def rate(fn):
         for _ in range(3):
@@ -5682,10 +5763,15 @@ def _auto_cards(torch, tmp, n) -> dict:
         for _ in range(AUTO_SERVE_CALLS):
             fn(x, c)
         return AUTO_SERVE_B * AUTO_SERVE_CALLS / (time.perf_counter() - t)
-    out["serve"] = {"max_abs_err": err, "rows_per_s_cards": rate(call),
+    out["serve"] = {"max_abs_err": err, "err_against_whole_call": err_whole,
+                    "one_card_batch_gap": err_batch,
+                    "rows_per_s_cards": rate(call),
                     "rows_per_s_one_card": rate(served)}
-    say(f"--cards {n}: data_parallel (f32, batch {AUTO_SERVE_B}) within "
-        f"{err:.3g} of one card's call; {out['serve']['rows_per_s_cards']:.1f}"
+    say(f"--cards {n}: data_parallel (f32, batch {AUTO_SERVE_B}, {k} rows a "
+        f"card) within {err:.3g} of one card's call on the same {k}-row "
+        f"shards; {err_whole:.3g} off one card's {AUTO_SERVE_B}-row call, "
+        f"where one card's {k}-row calls are {err_batch:.3g} off it; "
+        f"{out['serve']['rows_per_s_cards']:.1f}"
         f" rows/s over {n} cards, {out['serve']['rows_per_s_one_card']:.1f}"
         f" on one (host round trip included)")
     return out
@@ -5707,6 +5793,13 @@ SP_MESH = ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial"]
 # parameters' envelope), and D's output moves with them
 SP_LOSS_REL = 1e-5
 SP_AFTER_D_UPDATE = ("loss_G", "loss_G_GAN")
+# phase 26: under R1 or the gradient penalty, loss_D and loss_D_r1 read
+# D's input gradient, which jumps where a leaky ReLU's input sits within
+# f32 noise of 0 (D at 256 px has millions a layer; one summation order
+# takes the other slope): held to TRAIN_STEP_TOL, as phase 23 (a) holds
+# every loss against one rank's own step (loss_D met 1.9e-5 of it on an
+# H100 80GB HBM3 at 700 W, step 2 of resnet_losses)
+SP_PENALTY_LOSSES = ("loss_D", "loss_D_r1")
 SP_CLI_STEPS, SP_CLI_B = 4, 32   # (b): train_256_fid.sh's flags, 4 steps
 # (b): the bf16 bounds stated before the first run (PERF.md, PR 14): the
 # first logged step (the same weights) within 2e-2 of max(0.1, |loss|) of
@@ -5826,7 +5919,8 @@ def _spatial_prepare(torch, tmp, name: str = "spatial",
     written under ``{tmp}/{name}`` for the ranks (phase 23 (a)'s spawn, or
     --cards' torchrun); returns the plain steps. ``inputs['gamma']``: every
     attention block's gamma before the warm-up step (at 0 the block is the
-    identity)."""
+    identity); ``inputs['ada_p']``: ADA's p before it (at 0 no sample is
+    augmented)."""
     from pcgan_tpu_torch.config import parse_config
     from pcgan_tpu_torch.models import define_D, define_G
     from pcgan_tpu_torch.parallel.train_parallel import (
@@ -5848,7 +5942,10 @@ def _spatial_prepare(torch, tmp, name: str = "spatial",
                 for k, prm in net.named_parameters():
                     if k.endswith("attn.gamma"):
                         prm.fill_(inputs["gamma"])
-    state = create_train_state(cfg, G, D, torch.Generator().manual_seed(0))
+    state = create_train_state(cfg, G, D, torch.Generator().manual_seed(0),
+                               vgg=_vgg_of(cfg))
+    if "ada_p" in inputs:
+        state.aug_p = torch.tensor(inputs["ada_p"], device=DEV)
     make_parallel_train_step(cfg, G, D)(
         state, {k: torch.from_numpy(v).to(DEV) for k, v in
                 inputs["batches"][0].items()})
@@ -5885,13 +5982,16 @@ def _spatial_d_swapped(torch, work, band) -> list:
                 for k, p in state.D.named_parameters():
                     p.copy_(d_after[k])
     ttrain.StepParts.update = swapped
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True     # as ``_auto_steps``
     try:
         for i, b in enumerate(inputs["batches"][1:]):
             with warnings.catch_warnings():
                 warnings.simplefilter("ignore", RuntimeWarning)
                 G, D = define_G(cfg).to(DEV), define_D(cfg).to(DEV)
             state = create_train_state(cfg, G, D,
-                                       torch.Generator().manual_seed(0))
+                                       torch.Generator().manual_seed(0),
+                                       vgg=_vgg_of(cfg))
             load_state(state, torch.load(os.path.join(work, f"s{i}.pt"),
                                          weights_only=True))
             d_after.clear()
@@ -5903,6 +6003,7 @@ def _spatial_d_swapped(torch, work, band) -> list:
             out.append({k: float(m[k]) for k in SP_AFTER_D_UPDATE})
     finally:
         ttrain.StepParts.update = update
+        torch.backends.cudnn.deterministic = prev
     return out
 
 
@@ -5910,7 +6011,8 @@ def _against_one(torch, what, ranks, one, work, steps, loss_ok) -> dict:
     """Every rank's gathered parameters bit-identical to rank 0's, each
     step's losses ``loss_ok(i, key, got, want)`` against one rank's, and
     the parameters within the one-step envelope of one rank's step from
-    the same state (``{work}/s0.pt``, then one rank's after each step)."""
+    the same state (``{work}/s0.pt``, then one rank's after each step),
+    the config's inert parameters (``_inert``) to its sign-flip bound."""
     a = ranks[0]
     for r, b in enumerate(ranks[1:], 1):
         apart = sorted({k for i, ps in enumerate(a["params"])
@@ -5928,9 +6030,12 @@ def _against_one(torch, what, ranks, one, work, steps, loss_ok) -> dict:
     s0 = torch.load(os.path.join(work, "s0.pt"), weights_only=True)
     starts[0] = {f"{n}.{k}": v for n in ("G", "D") for k, v in s0[n].items()
                  if f"{n}.{k}" in one["params"][0]}
+    inputs = torch.load(os.path.join(work, "inputs.pt"), weights_only=False)
+    inert = _inert(inputs["argv"])
     worst = _worst_of([_envelope(f"step {i}", a["params"][i],
                                  one["params"][i], starts[i], what,
-                                 count=i + 2) for i in range(steps)])
+                                 count=i + 2, inert=inert)
+                       for i in range(steps)])
     b1 = [r["b1"] for r in ranks]
     check(b1 == [steps] * len(ranks), f"{what}: B1 launches {b1} (want "
           f"{steps} a rank)")
@@ -5947,12 +6052,21 @@ def _spatial_ranks(torch, work, what="(a) data 1 x spatial 2",
     a, b = [torch.load(os.path.join(work, f"rank{r}.pt"),
                        weights_only=False) for r in range(2)]
     swap = _spatial_d_swapped(torch, work, a["params"])
-    gaps = {"forward": 0.0, "after_d_update": 0.0, "d_swapped": 0.0}
+    gaps = {"forward": 0.0, "after_d_update": 0.0, "d_swapped": 0.0,
+            "penalty": 0.0}
+    from pcgan_tpu_torch.config import parse_config
+    t = parse_config(torch.load(os.path.join(work, "inputs.pt"),
+                                weights_only=False)["argv"]).train
+    penalty = (SP_PENALTY_LOSSES if t.lambda_r1 > 0 or t.gan_mode == "wgangp"
+               else ())
 
     def rel(x, y):
         return abs(x - y) / max(1.0, abs(y))
 
     def loss_ok(i, k, x, y):
+        if k in penalty:
+            gaps["penalty"] = max(gaps["penalty"], rel(x, y))
+            return abs(x - y) <= TRAIN_STEP_TOL + TRAIN_STEP_TOL * abs(y)
         if k not in SP_AFTER_D_UPDATE:
             gaps["forward"] = max(gaps["forward"], rel(x, y))
             return rel(x, y) <= SP_LOSS_REL
@@ -5968,6 +6082,7 @@ def _spatial_ranks(torch, work, what="(a) data 1 x spatial 2",
           f"{a['collectives'][-1]}")
     b1 = [a["b1"], b["b1"]]
     out = {"loss_max_rel_gap": gaps["forward"],
+           "loss_penalty_gap": gaps["penalty"],
            "loss_after_d_update_gap": gaps["after_d_update"],
            "loss_d_swapped_gap": gaps["d_swapped"],
            "param_diff": worst, "b1_launches": b1,
@@ -5979,10 +6094,12 @@ def _spatial_ranks(torch, work, what="(a) data 1 x spatial 2",
     desc = desc or (f"f32, full width, {SP_CROP} px crops of {SP_NATIVE} px "
                     f"canvases, global batch {SP_B}, everything drawn, pool "
                     f"on")
+    pen = (f", {'/'.join(penalty)} (D's input gradient) within "
+           f"{gaps['penalty']:.3g}" if penalty else "")
     say(f"{what}, two gloo ranks on one card ({desc}): the forward "
         f"passes' losses within "
         f"{gaps['forward']:.3g} (of max(1, |loss|)) of one rank's over "
-        f"{SP_STEPS} steps; loss_G_GAN, loss_G within "
+        f"{SP_STEPS} steps{pen}; loss_G_GAN, loss_G within "
         f"{gaps['d_swapped']:.3g} of one rank's step with D swapped for the "
         f"band run's updated D, and {gaps['after_d_update']:.3g} of one "
         f"rank's own; parameters median/max/share "
@@ -6193,22 +6310,22 @@ def phase_spatial_levers(torch, tmp, prepare_s: float) -> dict:
     return out
 
 
-def _lever_memory(torch, work, name) -> dict:
-    """Phase 25's memory audit of one lever config: no band rank keeps a
-    whole square image for the backward, where one rank's step keeps some
-    (``spatial.SavedAudit``); what autograd keeps a rank against one
+def _lever_memory(torch, work, name, phase="phase 25") -> dict:
+    """Phase 25's (or 26's) memory audit of one config: no band rank keeps
+    a whole square image for the backward, where one rank's step keeps
+    some (``spatial.SavedAudit``); what autograd keeps a rank against one
     rank's; the bytes held before the first step and the owners of the
     peak (``_peak_owners``) on rank 0 and on one rank."""
     one = torch.load(os.path.join(work, "one.pt"), weights_only=False)
     ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
                         weights_only=False) for r in range(2)]
     check(any(a["n_whole"] for a in one["audit"]),
-          f"phase 25 {name}: the audit saw no whole image in one rank's "
+          f"{phase} {name}: the audit saw no whole image in one rank's "
           f"step")
     for r, rk in enumerate(ranks):
         seen = [(i, a["whole"]) for i, a in enumerate(rk["audit"])
                 if a["n_whole"]]
-        check(not seen, f"phase 25 {name}: rank {r} keeps whole square "
+        check(not seen, f"{phase} {name}: rank {r} keeps whole square "
               f"images for the backward (step, shapes): {seen}")
     kept = [[a["saved_bytes"] for a in rk["audit"]] for rk in ranks]
     ratio = [round(max(k) / max(a["saved_bytes"] for a in one["audit"]), 4)
@@ -6219,7 +6336,7 @@ def _lever_memory(torch, work, name) -> dict:
                         for k in ("held_before", "peak", "owners")},
            "rank0": {k: ranks[0]["audit"][0].get(k)
                      for k in ("held_before", "peak", "owners")}}
-    say(f"phase 25 {name}: no whole square image kept by either rank (one "
+    say(f"{phase} {name}: no whole square image kept by either rank (one "
         f"rank's step keeps {one['audit'][0]['n_whole']}, e.g. "
         f"{one['audit'][0]['whole'][:2]}); kept for the backward a rank "
         f"x{ratio} of one rank's ({out['saved_bytes_one_rank'][0]} B)")
@@ -6229,6 +6346,97 @@ def _lever_memory(torch, work, name) -> dict:
             say(f"  {who}: {m['held_before']} B held before the first "
                 f"step, peak {m['peak']} B; live at the peak: "
                 + "; ".join(f"{b} B {w}" for b, w in m["owners"]))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# phase 26: the loss and data levers on bands
+# --------------------------------------------------------------------------- #
+
+LOSS_SP = {   # phase 26: each config's loss and data levers (24 (a)'s after)
+    "resnet_losses": ["--lambda_r1", "10", "--lambda_feat", "10",
+                      "--lambda_vgg", "10", "--vgg_path", "random",
+                      "--diff_augment", "color,translation,cutout",
+                      "--ada_target", "0.6"],
+    "wgangp_attn": ["--gan_mode", "wgangp", "--netD", "multiscale",
+                    "--d_attn", "--norm", "group", "--lambda_feat", "10",
+                    "--diff_augment", "translation,cutout"]}
+LOSS_ADA_P = 0.5                  # ADA's p before the warm-up step
+LOSS_KEYS = ("loss_D", "loss_D_r1", "loss_G_feat", "loss_G_vgg", "ada_p",
+             "ada_rt")            # the new terms (the GP rides in loss_D)
+
+
+def _loss_inputs(name) -> dict:
+    """Phase 26's inputs of one loss-lever config: phase 24 (a)'s (256 px,
+    f32, global batch 4, pool on, everything drawn, the augmentation and
+    ADA's gates and GP's weights too) with the config's flags, the
+    attention's gamma at SP_GAMMA, ADA's p at LOSS_ADA_P before the
+    warm-up step (at 0 no sample is augmented), batches of their own
+    seed."""
+    inputs = _spatial_inputs(extra=LOSS_SP[name],
+                             seed=261 + list(LOSS_SP).index(name))
+    inputs["gamma"] = SP_GAMMA
+    if "--ada_target" in LOSS_SP[name]:
+        inputs["ada_p"] = LOSS_ADA_P
+    inputs["audit"] = 2               # SP_MESH's spatial size
+    return inputs
+
+
+def phase_spatial_losses(torch, tmp, prepare_s: float) -> dict:
+    """Phase 26: the loss and data levers at data 1 x spatial 2 (two gloo
+    ranks on the one card, run in phase 23 (a)'s spawn after phase 25's,
+    their one-rank runs prepared there in ``prepare_s``), each of the
+    LOSS_SP configs held as phase 25 holds its configs (``_spatial_ranks``:
+    the losses, the new terms among them, against one rank's, the
+    envelope, the ranks bit-identical, B1 SP_STEPS times a rank), no whole
+    image kept on a band rank with R1's and GP's double backward in the
+    audit (``_lever_memory``), and the collectives a step counted."""
+    t0 = time.perf_counter()
+    out, wall = {}, 0.0
+    for name, flags in LOSS_SP.items():
+        work = os.path.join(tmp, f"losses_{name}")
+        ada = (f", ADA's p from {LOSS_ADA_P}" if "--ada_target" in flags
+               else "")
+        desc = (f"f32, full width, {' '.join(flags)}{ada}, gamma "
+                f"{SP_GAMMA}, {SP_CROP} px crops, global batch {SP_B}, "
+                f"everything drawn, pool on")
+        r = out[name] = _spatial_ranks(torch, work, f"phase 26 {name}", desc)
+        one = torch.load(os.path.join(work, "one.pt"), weights_only=False)
+        rank0 = torch.load(os.path.join(work, "rank0.pt"), weights_only=False)
+        r["ranks_wall_s"] = rank0["wall_s"]
+        wall += rank0["wall_s"]
+        gaps = {}
+        for k in LOSS_KEYS:
+            if k in one["losses"][0]:
+                gaps[k] = max(abs(x[k] - y[k]) / max(1.0, abs(y[k]))
+                              for x, y in zip(rank0["losses"],
+                                              one["losses"]))
+        r["term_gaps"] = gaps
+        r["terms"] = [{k: x[k] for k in gaps} for x in rank0["losses"]]
+        mine = {k: v for k, v in r["collectives_per_step"].items()
+                if k.endswith("/spatial")}
+        r["spatial_collectives"] = mine
+        if "--d_attn" in flags:
+            check(mine.get("gather_band/spatial", 0) > 0
+                  and mine.get("gather_band_grad/spatial", 0) > 0,
+                  f"phase 26 {name}: no gather of the attention's keys: "
+                  f"{mine}")
+        if "ada_p" in gaps:
+            ps = {round(x["ada_p"], 9) for x in one["losses"]}
+            check(len(ps) > 1, f"phase 26 {name}: ADA's p never moved: "
+                  f"{ps}")
+        say(f"phase 26 {name}: the new terms within {gaps} (of max(1, "
+            f"|term|)) of one rank's, rank 0's {r['terms']}; collectives a "
+            f"step on the spatial line {mine}; peak allocated bytes a rank "
+            f"{r['peak_bytes_rank']} (one rank {r['peak_bytes_one_rank']}); "
+            f"the ranks' steps {rank0['wall_s']:.1f} s")
+        r["memory"] = _lever_memory(torch, work, name, "phase 26")
+    out["launches_per_run"] = {name: sum(out[name]["b1_launches"])
+                               for name in LOSS_SP}
+    out["phase_s"] = time.perf_counter() - t0 + prepare_s + wall
+    say(f"phase 26: {out['phase_s']:.1f} s (the one-rank prepare "
+        f"{prepare_s:.1f} s and the ranks' {wall:.1f} s in phase 23's spawn "
+        f"included); B1 launches {out['launches_per_run']}")
     return out
 
 
@@ -6295,8 +6503,9 @@ def _cards_run(torch, tmp, name, inputs, meshes, n, steps) -> dict:
 
 def _spatial_cards(torch, tmp, n) -> dict:
     """--cards: train_256_fid.sh's model, batch and pool in f32 at data 2 x
-    spatial 2 and at data 1 x spatial 2 x model 2, and phase 25's first
-    lever config at data 1 x spatial 4, on NCCL (``_cards_run``)."""
+    spatial 2 and at data 1 x spatial 2 x model 2, and phase 25's and
+    phase 26's first configs at data 1 x spatial 4, on NCCL
+    (``_cards_run``)."""
     runs = {"train_256_fid": (_spatial_inputs(cards=True), SP_CARDS_MESHES,
                               SP_CARDS_STEPS, f"train_256_fid.sh's model, "
                               f"f32, batch {SP_CLI_B}"),
@@ -6305,6 +6514,12 @@ def _spatial_cards(torch, tmp, n) -> dict:
                                                   "--mesh_axes",
                                                   "data,spatial"]},
                               SP_STEPS, f"phase 25's lever resnet, f32, "
+                              f"batch {SP_B}"),
+            "resnet_losses": (_loss_inputs("resnet_losses"),
+                              {"data1_spatial4": ["--mesh_shape", "1,4",
+                                                  "--mesh_axes",
+                                                  "data,spatial"]},
+                              SP_STEPS, f"phase 26's loss-lever resnet, f32, "
                               f"batch {SP_B}")}
     out = {}
     for run, (inputs, meshes, steps, desc) in runs.items():
@@ -6429,6 +6644,8 @@ def main() -> None:
         spatial = phase_spatial(torch, tmp)
         spatial_levers = phase_spatial_levers(
             torch, tmp, sharded["ranks"]["levers_prepare_s"])
+        spatial_losses = phase_spatial_losses(
+            torch, tmp, sharded["ranks"]["losses_prepare_s"])
     b1["band_form"] = spatial["b1_bands"]
     b1["launches_per_path"] = {
         "sampling": sampling["launches_per_run"],
@@ -6446,7 +6663,8 @@ def main() -> None:
         "data_parallel": dp["launches_per_run"],
         "sharded_state": sharded["launches_per_run"],
         "spatial": spatial["launches_per_run"],
-        "spatial_levers": spatial_levers["launches_per_run"]}
+        "spatial_levers": spatial_levers["launches_per_run"],
+        "spatial_losses": spatial_losses["launches_per_run"]}
     per_path = {p: sum(v.values()) if isinstance(v, dict) else v
                 for p, v in b1["launches_per_path"].items()}
     b1["launches"] = sum(per_path.values())
@@ -6459,6 +6677,7 @@ def main() -> None:
                                "tools": 0, "leftovers": 0,
                                "data_parallel": 0, "sharded_state": 0,
                                "spatial": 0, "spatial_levers": 0,
+                               "spatial_losses": 0,
                                "tail_forms": variants["b2_tail_launches"]}
     b2["launches"] = (path2["launches"] + path1["b2_launches"]
                       + variants["b2_tail_launches"])
@@ -6466,7 +6685,7 @@ def main() -> None:
           and all(per_path[p] > 0 for p in per_path if p != "bench_lowch"),
           f"a kernel was never launched on its path: B1 {per_path}, "
           f"B2 {b2['launches']}")
-    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools, 'leftovers': leftovers, 'data_parallel': dp, 'sharded_state': sharded, 'spatial': spatial, 'spatial_levers': spatial_levers}, default=_jsonable)}")
+    say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools, 'leftovers': leftovers, 'data_parallel': dp, 'sharded_state': sharded, 'spatial': spatial, 'spatial_levers': spatial_levers, 'spatial_losses': spatial_losses}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": [b1, b2]}), flush=True)

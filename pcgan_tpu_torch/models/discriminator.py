@@ -85,6 +85,15 @@ class NLayerDiscriminator(nn.Module):
             size = (size - 2) // 2 + 1          # k4 s2 p1
         return size - 2                          # two k4 s1 p1
 
+    def feature_sizes(self, size: int) -> tuple:
+        """The side of each feature tap (``return_features``) for an input
+        of side ``size``, shallowest first."""
+        out = []
+        for conv in self.convs[:-1]:
+            size = conv.out_size(size)
+            out.append(size)
+        return tuple(out)
+
     def trunk(self, h: torch.Tensor, H: Optional[int] = None):
         """NCHW (condition already concatenated) -> (NCHW f32 logits, the
         NHWC feature taps). ``H``: h's global height where h is a band of
@@ -146,6 +155,16 @@ class MultiScaleDiscriminator(nn.Module):
             out.append(getattr(self, f"D_{k}").patch_size(size))
         return tuple(out)
 
+    def feature_sizes(self, size: int) -> tuple:
+        """Each scale's ``NLayerDiscriminator.feature_sizes``, finest
+        first."""
+        out = []
+        for k in range(self.num_D):
+            if k:
+                size = spatial.conv_out(size, 2, 2, 0)
+            out.append(getattr(self, f"D_{k}").feature_sizes(size))
+        return tuple(out)
+
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 return_features: bool = False):
         h = _with_cond(x, cond)
@@ -189,6 +208,10 @@ class PixelDiscriminator(nn.Module):
     def patch_size(self, size: int) -> int:
         """The side of the logit map for an input of side ``size``."""
         return size
+
+    def feature_sizes(self, size: int) -> tuple:
+        """The side of each feature tap: the input's (1x1 convs)."""
+        return (size, size)
 
     def forward(self, x: torch.Tensor, cond: torch.Tensor,
                 return_features: bool = False):

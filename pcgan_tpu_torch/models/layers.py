@@ -324,10 +324,18 @@ class TorchConv(_QuantSite):
                     f"spatial axis of {line.n} give bands of {rows} rows; "
                     f"each must divide by {self.s2d_r}")
         xw = spatial.fetch(xd, H, wins)
+        top = bottom = 0
         if mine is None:
-            return spatial.empty_like_out(xw, wd, (xd.shape[0], wd.shape[0],
-                                                   0, w_out))
-        top, bottom = max(0, -mine[0]), max(0, mine[1] - H)
+            if route != "plain":
+                return spatial.empty_like_out(xw, wd, (
+                    xd.shape[0], wd.shape[0], 0, w_out))
+            # the band's ops on k rows of zeros (one output row, dropped):
+            # the graph of an empty band is the other ranks', so a double
+            # backward (R1's, GP's) reaches the same collectives on each
+            xw = torch.cat([xw, xw.new_zeros(xw.shape[:2] + (k,)
+                                             + xw.shape[3:])], 2)
+        else:
+            top, bottom = max(0, -mine[0]), max(0, mine[1] - H)
         mode = self.pad_mode
         if route == "s2d":
             from pcgan_tpu_torch.ops.lowch_conv import s2d_conv_nchw
@@ -343,7 +351,7 @@ class TorchConv(_QuantSite):
         else:
             y = F.conv2d(pad_edges(xw, top, bottom, p, p, mode), wd,
                          stride=s)
-        return y
+        return y if mine is not None else y[:, :, :0]
 
 
 class TorchConvTranspose(_QuantSite):

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pcgan_tpu_torch.parallel import spatial
+
 # (torchvision `features` conv index, out_channels), VGG16 'D' config
 CONVS16: Sequence[Tuple[int, int]] = (
     (0, 64), (2, 64),
@@ -63,15 +65,47 @@ class _VGGTaps(nn.Module):
         self.features = nn.ModuleDict(convs)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """NHWC x -> the NHWC taps; inside ``spatial.banded`` x and the
+        taps are this rank's bands (``tap_sizes`` gives their global
+        heights)."""
         h = x.float().permute(0, 3, 1, 2).contiguous()
+        H = spatial.global_h(h.shape[2])
         taps = []
         for idx, _ in self.CONVS:
             if idx in self.POOL_BEFORE:
-                h = F.max_pool2d(h, 2, 2)
-            h = F.relu(self.features[str(idx)](h))
+                h = spatial.pool2(h, H, "max")
+                H //= 2
+            h = F.relu(self._conv(self.features[str(idx)], h, H))
             if idx in self.TAP_AFTER:
                 taps.append(h.permute(0, 2, 3, 1))
         return tuple(taps)
+
+    def tap_sizes(self, size: int) -> Tuple[int, ...]:
+        """The side of each tap for an input of side ``size``."""
+        out = []
+        for idx, _ in self.CONVS:
+            if idx in self.POOL_BEFORE:
+                size //= 2
+            if idx in self.TAP_AFTER:
+                out.append(size)
+        return tuple(out)
+
+    @staticmethod
+    def _conv(conv: nn.Conv2d, h: torch.Tensor, H: int) -> torch.Tensor:
+        """The 3x3 pad-1 conv of the NCHW tensor of H rows whose band is
+        ``h``: its window fetched over the line, zero rows beyond the
+        image (the conv itself outside ``spatial.banded``)."""
+        line = spatial.active()
+        if line is None:
+            return conv(h)
+        wins = spatial.conv_windows(H, line.n, 3, 1, 1)
+        hw = spatial.fetch(h, H, wins)
+        mine = wins[line.coord]
+        if mine is None:    # 3 rows of zeros, one output row, dropped
+            return F.conv2d(F.pad(hw, (0, 0, 0, 3)), conv.weight,
+                            conv.bias, padding=(0, 1))[:, :, :0]
+        hw = F.pad(hw, (0, 0, max(0, -mine[0]), max(0, mine[1] - H)))
+        return F.conv2d(hw, conv.weight, conv.bias, padding=(0, 1))
 
 
 class VGG16Taps(_VGGTaps):
@@ -160,10 +194,15 @@ def load_vgg19(path: str, allow_pickle: bool = False) -> VGG19Taps:
 def vgg_perceptual_loss(net: VGG19Taps, x: torch.Tensor,
                         y: torch.Tensor) -> torch.Tensor:
     """pix2pixHD ``VGGLoss(x, y)``: ``sum_i w_i * mean|tap_i(x) -
-    tap_i(y)|`` over ONE 2B forward; gradients flow through ``x`` only."""
+    tap_i(y)|`` over ONE 2B forward; gradients flow through ``x`` only.
+    Inside ``spatial.banded`` x and y are bands and the loss is this
+    rank's share (each tap's ``band_mean`` over its global height)."""
     b = x.shape[0]
     taps = net(torch.cat([x.float(), y.float()]))
+    sizes = (net.tap_sizes(spatial.global_h(x.shape[1]))
+             if spatial.active() is not None else [None] * len(taps))
     total = torch.zeros((), device=x.device)
-    for w, t in zip(TAP_WEIGHTS, taps):
-        total = total + w * torch.mean(torch.abs(t[:b] - t[b:].detach()))
+    for w, t, h in zip(TAP_WEIGHTS, taps, sizes):
+        total = total + w * spatial.band_mean(torch.abs(t[:b]
+                                                        - t[b:].detach()), h)
     return total

@@ -18,6 +18,13 @@ Each transform is split into a draw (from a ``torch.Generator``, on the
 CPU) and an apply of the drawn parameters on x's device, so the same draw
 can be applied to two batches (the step's feature-matching views) and a
 test can apply the JAX package's draws. Images are NHWC.
+
+Inside ``parallel.spatial.banded`` x is this rank's band of rows of the
+images and the draws are the global batch's, made at the global shape
+(every rank draws alike): the contrast's pixel mean is a per-sample sum
+over the band summed over the line; ``translation`` fetches the rows
+``[r0 - sy, r1 + sy)`` its band reads (zero beyond the image) and takes
+each sample's shift from them; ``cutout`` masks by global row index.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Union
 
 import torch
+
+from pcgan_tpu_torch.parallel import spatial
 
 POLICIES = ("color", "translation", "cutout")
 
@@ -78,12 +87,19 @@ def apply_color(x: torch.Tensor, d: Draw) -> torch.Tensor:
     x = x + col(d["bright"])
     c_mean = x.mean(dim=-1, keepdim=True)
     x = (x - c_mean) * col(d["sat"]) + c_mean
-    p_mean = x.float().mean(dim=(1, 2, 3), keepdim=True).to(x.dtype)
+    if spatial.active() is None:
+        p_mean = x.float().mean(dim=(1, 2, 3), keepdim=True).to(x.dtype)
+    else:
+        count = spatial.global_h(x.shape[1]) * x.shape[2] * x.shape[3]
+        p_mean = (spatial.line_sum(x.float().sum(dim=(1, 2, 3)))
+                  / count).view(-1, 1, 1, 1).to(x.dtype)
     return (x - p_mean) * col(d["cont"]) + p_mean
 
 
 def apply_translation(x: torch.Tensor, d: Draw) -> torch.Tensor:
     """out[y, x] = in[y - dy, x - dx], zero outside."""
+    if spatial.active() is not None:
+        return _band_translation(x, d)
     b, h, w, _ = x.shape
     dev = x.device
     iy = torch.arange(h, device=dev)[None] - d["dy"].to(dev)[:, None]
@@ -95,13 +111,45 @@ def apply_translation(x: torch.Tensor, d: Draw) -> torch.Tensor:
     return out * keep.to(x.dtype)
 
 
+def _band_translation(x: torch.Tensor, d: Draw) -> torch.Tensor:
+    """``apply_translation`` of this rank's band ``x`` of the H-row images:
+    the rows ``[r0 - sy, r1 + sy)`` the band reads (shifts are at most sy
+    = max(1, H // 8)) are fetched over the line with zero rows beyond the
+    image, then each sample takes its rows and columns from them."""
+    line = spatial.active()
+    b, h, w, _ = x.shape
+    H = spatial.global_h(h)
+    sy = max(1, int(H * 0.125))
+    bands = spatial.bands_of(H, line.n)
+    wins = [None if bd.h == 0 else (bd.r0 - sy, bd.r1 + sy) for bd in bands]
+    xw = spatial.fetch(x.unsqueeze(1), H, wins)[:, 0]   # (B, rows, W, C)
+    me = bands[line.coord]
+    if me.h == 0:
+        return xw       # no rows: still in the graph of the exchange
+    lo, hi = wins[line.coord]
+    xw = torch.cat([xw.new_zeros((b, max(0, -lo), w) + xw.shape[3:]), xw,
+                    xw.new_zeros((b, max(0, hi - H), w) + xw.shape[3:])], 1)
+    dev = x.device
+    iy = (torch.arange(me.h, device=dev)[None] + sy
+          - d["dy"].to(dev)[:, None])                  # rows of the window
+    ix = torch.arange(w, device=dev)[None] - d["dx"].to(dev)[:, None]
+    vx = (ix >= 0) & (ix < w)
+    out = xw[torch.arange(b, device=dev)[:, None, None], iy[:, :, None],
+             ix.clamp(0, w - 1)[:, None, :]]
+    return out * vx[:, None, :, None].to(x.dtype)
+
+
 def apply_cutout(x: torch.Tensor, d: Draw) -> torch.Tensor:
+    """The square of half the image's sides at (oy, ox) zeroed; on a band,
+    by global row index."""
     b, h, w, _ = x.shape
     dev = x.device
-    ch, cw = max(1, int(h * 0.5)), max(1, int(w * 0.5))
+    H = spatial.global_h(h)
+    r0 = 0 if spatial.active() is None else spatial.image_band().r0
+    ch, cw = max(1, int(H * 0.5)), max(1, int(w * 0.5))
     oy = d["oy"].to(dev).view(-1, 1, 1)
     ox = d["ox"].to(dev).view(-1, 1, 1)
-    iy = torch.arange(h, device=dev)[None, :, None]
+    iy = torch.arange(r0, r0 + h, device=dev)[None, :, None]
     ix = torch.arange(w, device=dev)[None, None, :]
     cut = (iy >= oy) & (iy < oy + ch) & (ix >= ox) & (ix < ox + cw)
     return x * (1.0 - cut[..., None].to(x.dtype))

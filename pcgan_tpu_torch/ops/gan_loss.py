@@ -9,7 +9,14 @@ averaged; every loss reduces in f32. ``gradient_penalty`` and
 logits with ``create_graph=True``, so D's parameter gradient flows through
 the input gradient. Inside ``parallel.spatial.banded`` the logits are this
 rank's band of ``H`` rows (each multiscale scale a band of its own
-height) and ``gan_loss`` is its share of the loss (``band_mean``).
+height) and every loss is this rank's share of it: ``gan_loss`` and
+feature matching are band means (``band_mean``, each feature over its own
+global height), the penalties sum each sample's squared input gradient
+over its band and then over the line (``line_sum``) before the norm, and
+take their share of the batch mean (``share``). ``_sum_logits`` of a band
+is that band's own sum, so the halo exchange's backward gives each rank
+its band of the input gradient of the global sum. ADA's r_t is the line's
+whole value on every rank.
 """
 
 from __future__ import annotations
@@ -19,7 +26,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
-from pcgan_tpu_torch.parallel.spatial import band_mean
+from pcgan_tpu_torch.parallel.spatial import (band_mean, line_sum,
+                                              line_total, share)
 
 PORTED_MODES = ("vanilla", "lsgan", "wgangp", "hinge")
 
@@ -72,28 +80,40 @@ def gan_loss(logits, target_is_real: bool, mode: str = "lsgan",
     raise NotImplementedError(f"gan_mode [{mode}] not implemented")
 
 
-def overfit_heuristic(pred_real, mode: str = "lsgan") -> torch.Tensor:
+def overfit_heuristic(pred_real, mode: str = "lsgan", H=None
+                      ) -> torch.Tensor:
     """ADA's r_t = E[sign(D(real) - mid)] (mid 0.5 for lsgan, else 0); a
-    multiscale tuple averages the per-scale means."""
+    multiscale tuple averages the per-scale means. ``H`` as in
+    ``gan_loss``: on a band, each rank's shares summed over the line (one
+    collective), so every rank holds r_t and ADA's p moves alike."""
+    return line_total(_sign_mean(pred_real, mode, H))
+
+
+def _sign_mean(pred_real, mode: str, H) -> torch.Tensor:
     if isinstance(pred_real, (tuple, list)):
-        per = [overfit_heuristic(p, mode) for p in pred_real]
+        hs = [None] * len(pred_real) if H is None else H
+        per = [_sign_mean(p, mode, h) for p, h in zip(pred_real, hs)]
         return sum(per) / len(per)
     mid = 0.5 if mode == "lsgan" else 0.0
-    return torch.mean(torch.sign(pred_real.float() - mid))
+    return band_mean(torch.sign(pred_real.float() - mid), H)
 
 
-def feature_matching_loss(fake_feats, real_feats) -> torch.Tensor:
+def feature_matching_loss(fake_feats, real_feats, H=None) -> torch.Tensor:
     """pix2pixHD feature matching: per scale ``4/n_feat * sum_l
     mean|f_fake - f_real|``, averaged over scales (callers detach the real
-    side)."""
+    side). ``H``: each feature's global height where the features are
+    bands of it (of a multiscale D, a tuple per scale), each mean then
+    this rank's share."""
     if fake_feats and isinstance(fake_feats[0], (tuple, list)):
-        per = [feature_matching_loss(f, r)
-               for f, r in zip(fake_feats, real_feats)]
+        hs = [None] * len(fake_feats) if H is None else H
+        per = [feature_matching_loss(f, r, h)
+               for f, r, h in zip(fake_feats, real_feats, hs)]
         return sum(per) / len(per)
+    hs = [None] * len(fake_feats) if H is None else H
     w = 4.0 / max(len(fake_feats), 1)
     total = torch.zeros((), device=fake_feats[0].device)
-    for f, r in zip(fake_feats, real_feats):
-        total = total + w * torch.mean(torch.abs(f.float() - r.float()))
+    for f, r, h in zip(fake_feats, real_feats, hs):
+        total = total + w * band_mean(torch.abs(f.float() - r.float()), h)
     return total
 
 
@@ -113,12 +133,12 @@ def gradient_penalty(d_apply: Callable, real: torch.Tensor,
     ``eps``: (B,1,1,1) uniform draws in f32."""
     inter = eps * real.float() + (1.0 - eps) * fake.float()
     g = _input_grad(d_apply, inter, cond)
-    gnorm = torch.sqrt(torch.sum(g ** 2, dim=(1, 2, 3)) + 1e-16)
-    return torch.mean((gnorm - 1.0) ** 2)
+    gnorm = torch.sqrt(line_sum(torch.sum(g ** 2, dim=(1, 2, 3))) + 1e-16)
+    return share(torch.mean((gnorm - 1.0) ** 2))
 
 
 def r1_penalty(d_apply: Callable, real: torch.Tensor, cond) -> torch.Tensor:
     """R1 (Mescheder et al. 2018): ``E[||grad_x D(x)||^2]`` on real images;
     the caller scales by ``lambda_r1 / 2``."""
     g = _input_grad(d_apply, real, cond)
-    return torch.mean(torch.sum(g ** 2, dim=(1, 2, 3)))
+    return share(torch.mean(line_sum(torch.sum(g ** 2, dim=(1, 2, 3)))))

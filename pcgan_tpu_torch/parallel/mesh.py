@@ -26,11 +26,10 @@ group, a world of one included, so the NCCL path also runs on one card.
 
 An axis of size 1 is the plain path, as in JAX. ``--spatial_shards`` is
 parsed and read by nothing, as in JAX. A ``spatial`` axis > 1 splits the
-activations along H (``parallel/spatial.py``), the model levers
-(attention, the multiscale D, the U-Net, the resize conv, group norm,
-dropout, ``--remat``) included; the loss and data levers not yet ported to
-bands raise ``NotImplementedError`` under it, naming ROADMAP.md A10d
-(``spatial_unported``).
+activations along H (``parallel/spatial.py``) under every training flag:
+the model levers (attention, the multiscale D, the U-Net, the resize conv,
+group norm, dropout, ``--remat``) and the loss and data levers (R1, the
+gradient penalty, feature matching, VGG, DiffAugment and ADA) included.
 """
 
 from __future__ import annotations
@@ -43,7 +42,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-A10D = "ROADMAP.md A10d"
 DATA, SPATIAL, MODEL = "data", "spatial", "model"
 
 
@@ -63,43 +61,6 @@ def resolve_mesh_shape(shape: Sequence[int], n_devices: int
     if int(np.prod(shape)) > n_devices:
         raise ValueError(f"mesh {shape} needs more than {n_devices} devices")
     return shape
-
-
-def spatial_unported(cfg) -> List[str]:
-    """The set flags of ``cfg`` that a spatial axis > 1 does not run yet
-    (ROADMAP.md A10d), in the order a later slice takes them."""
-    t = cfg.train
-    on = [("--lambda_r1", t.lambda_r1 > 0),
-          ("the gradient penalty (--gan_mode wgangp)",
-           t.gan_mode == "wgangp"),
-          ("--lambda_feat", t.lambda_feat > 0),
-          ("--lambda_vgg", t.lambda_vgg > 0),
-          ("--diff_augment", bool(t.diff_augment)),
-          ("--ada_target", t.ada_target > 0)]
-    return [flag for flag, is_on in on if is_on]
-
-
-def reject_spatial(axes: Sequence[str], dims: Sequence[int],
-                   cfg=None) -> None:
-    """Under a ``spatial`` axis above 1, every flag of ``cfg`` not yet
-    ported to bands raises, naming A10d."""
-    size = dict(zip(axes, dims)).get(SPATIAL, 1)
-    if size <= 1 or cfg is None or cfg.model.model != "pcgan":
-        return
-    flags = spatial_unported(cfg)
-    if flags:
-        raise NotImplementedError(
-            f"{', '.join(flags)} under a 'spatial' mesh axis of {size} "
-            f"(activations split along H) is not ported to pcgan_tpu_torch "
-            f"yet ({A10D}); the band path runs the main training flags and "
-            f"the model levers")
-
-
-def reject_unported_parallel(cfg) -> None:
-    """Under a ``spatial`` axis set above 1, the flags not ported to bands
-    raise (a -1 there is checked once the world size resolves it,
-    ``mesh_from_config``)."""
-    reject_spatial(cfg.parallel.mesh_axes, cfg.parallel.mesh_shape, cfg)
 
 
 def hybrid_layout(shape: Sequence[int], axes: Sequence[str], dcn_data: int,
@@ -350,12 +311,10 @@ def make_mesh(mesh: DataMesh, shape: Sequence[int], axes: Sequence[str],
 
 def mesh_from_config(cfg, granule_of: Optional[Callable] = None
                      ) -> DataMesh:
-    """The CLIs' mesh: the flags a spatial axis does not run raise, the
-    group is joined and ``--mesh_shape``/``--mesh_axes`` laid out over the
-    world (the hybrid mesh under ``--dcn_data``). Outside torchrun,
-    ``--mesh_shape -1`` with several cards visible raises rather than
-    train on one card of several."""
-    reject_unported_parallel(cfg)
+    """The CLIs' mesh: the group is joined and ``--mesh_shape``/
+    ``--mesh_axes`` laid out over the world (the hybrid mesh under
+    ``--dcn_data``). Outside torchrun, ``--mesh_shape -1`` with several
+    cards visible raises rather than train on one card of several."""
     p = cfg.parallel
     shape = tuple(p.mesh_shape)
     if ("WORLD_SIZE" not in os.environ and shape == (-1,)
@@ -368,9 +327,7 @@ def mesh_from_config(cfg, granule_of: Optional[Callable] = None
             f"torch.distributed.run), or pass --mesh_shape 1 for one card")
     mesh = init_distributed(cfg.run.device)
     try:
-        mesh = make_mesh(mesh, shape, p.mesh_axes, p.dcn_data, granule_of)
-        reject_spatial(mesh.axes, mesh.layout.shape, cfg)
-        return mesh
+        return make_mesh(mesh, shape, p.mesh_axes, p.dcn_data, granule_of)
     except BaseException:
         mesh.close()
         raise

@@ -21,16 +21,20 @@ the layers compute on bands:
   across a whole band (a band thinner than the halo, or empty) every rank
   exports its whole band instead. The backward sends each halo gradient
   back the same way and its owner adds them in rank order, so the result
-  is the same bits on every run. Pads (reflect, replicate, zero) apply at
+  is the same bits on every run; it is differentiable again (its own
+  backward is the exchange), so a double backward (R1, the gradient
+  penalty) runs on bands. Pads (reflect, replicate, zero) apply at
   the global top and bottom only;
 - a mean over H (instance and batch norm's moments, C's pool) is a sum
   over the band, summed over the line (``line_sum``, whose backward sums
   the gradient over the line), divided by the line's count, which rides
   in the same all-reduce: unequal bands weigh by rows;
 - every rank of a line runs the same layers in the same order, a rank
-  whose band is empty included (its outputs stay joined to the graph), so
-  the collectives of the forward and of the backward (autograd runs the
-  nodes in reverse creation order) pair up.
+  whose band is empty included (its outputs stay joined to the graph; a
+  conv or pool computes on a dummy window of zeros and keeps none of
+  its output, so its graph is the other ranks'), so the collectives of
+  the forward and of the backward (autograd runs the nodes in reverse
+  creation order) pair up, those of a double backward too.
 
 A loss is this rank's share of the line's loss (``band_mean``: the band's
 sum over the line's count, which the band rule gives without a
@@ -53,7 +57,6 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from pcgan_tpu_torch.parallel.axis import Axis
 
@@ -347,8 +350,9 @@ class _Layout:
 
 class _Fetch(torch.autograd.Function):
     """Rank j's window ``windows[j]`` of a tensor banded over the line
-    (see ``fetch``); the backward returns each halo gradient to its
-    owner, which adds them in rank order."""
+    (see ``fetch``); the backward is the exchange's adjoint
+    (``_ReturnHalo``), itself differentiable, so a double backward (R1's,
+    the gradient penalty's) runs on bands."""
 
     @staticmethod
     def forward(ctx, x, line, lay):
@@ -369,9 +373,19 @@ class _Fetch(torch.autograd.Function):
         return torch.cat(out, 2)     # a new tensor, never a view of x
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
-        line, lay, shape = ctx.line, ctx.lay, ctx.shape
+        return _ReturnHalo.apply(g, ctx.line, ctx.lay, ctx.shape), None, None
+
+
+class _ReturnHalo(torch.autograd.Function):
+    """The halo exchange's adjoint: each window gradient ``g`` back on its
+    owners' bands, every halo gradient returned to its owner (one
+    all-gather), which adds them in rank order (the same bits on every
+    run). Linear, so its backward is the exchange again (``_Fetch``)."""
+
+    @staticmethod
+    def forward(ctx, g, line, lay, shape):
+        ctx.line, ctx.lay = line, lay
         n, me = line.n, line.coord
         b = lay.bands[me]
         slab = shape[:2] + (lay.rows,) + shape[3:]
@@ -396,7 +410,11 @@ class _Fetch(torch.autograd.Function):
                 gx[:, :, :t] += mine[:, :, :t]
             if u:
                 gx[:, :, b.h - u:] += mine[:, :, lay.rows - u:]
-        return gx, None, None
+        return gx
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _Fetch.apply(gg, ctx.line, ctx.lay), None, None, None
 
 
 def fetch(x: torch.Tensor, H: int,
@@ -416,8 +434,7 @@ def fetch(x: torch.Tensor, H: int,
 
 class _Gather(torch.autograd.Function):
     """The whole tensor from every rank's band (``gather_band``); the
-    backward all-gathers every rank's whole gradient and each owner adds
-    its rows' in rank order (the same bits on every run)."""
+    backward is its adjoint (``_SumBand``), itself differentiable."""
 
     @staticmethod
     def forward(ctx, x, line, H):
@@ -430,16 +447,30 @@ class _Gather(torch.autograd.Function):
                           for p, b in zip(parts, bands)], 2)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
-        line = ctx.line
-        b = band_of(ctx.H, line.n, line.coord)
+        return _SumBand.apply(g, ctx.line, ctx.H), None, None
+
+
+class _SumBand(torch.autograd.Function):
+    """``gather_band``'s adjoint: this rank's rows of the whole gradient
+    summed over the line (one all-gather of every rank's whole gradient,
+    each owner adding its rows' in rank order: the same bits on every
+    run). Linear, so its backward is the gather again."""
+
+    @staticmethod
+    def forward(ctx, g, line, H):
+        ctx.line, ctx.H = line, H
+        b = band_of(H, line.n, line.coord)
         g = g.contiguous()
         parts = line.all_gather(g.reshape(-1), "gather_band_grad")
         gx = parts[0].view(g.shape)[:, :, b.r0:b.r1].clone()
         for p in parts[1:]:
             gx += p.view(g.shape)[:, :, b.r0:b.r1]
-        return gx, None, None
+        return gx
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _Gather.apply(gg, ctx.line, ctx.H), None, None
 
 
 def gather_band(x: torch.Tensor, H: int) -> torch.Tensor:
@@ -465,7 +496,11 @@ def pool2(x: torch.Tensor, H: int, mode: str) -> torch.Tensor:
     wins = conv_windows(H, line.n, 2, 2, 0)
     xw = fetch(x, H, wins)
     if wins[line.coord] is None:
-        return xw[:, :, :0, :x.shape[3] // 2]
+        # the pool of two rows of zeros, dropped: an empty band's graph is
+        # the other ranks' (``TorchConv._band_conv``)
+        xw = torch.cat([xw, xw.new_zeros(xw.shape[:2] + (2,)
+                                         + xw.shape[3:])], 2)
+        return pool(xw, 2, 2)[:, :, :0]
     return pool(xw, 2, 2)
 
 
@@ -581,12 +616,14 @@ class SavedAudit:
     """Inside ``with``, watches what autograd saves for the backward
     (``torch.autograd.graph.saved_tensors_hooks``; the run is unchanged):
     ``saved_bytes``, the bytes of the distinct storages it keeps,
-    parameters aside, and ``whole``, the shapes of the 4-d (NCHW) tensors
-    whose rows equal their columns and exceed what a band of ``n`` ranks
-    holds with a 7x7 conv's halo, ``ceil(h/n) + 6``: a whole square image,
+    parameters aside, and ``whole``, the shapes of the 4-d tensors whose
+    rows equal their columns and exceed what a band of ``n`` ranks holds
+    with a 7x7 conv's halo, ``ceil(h/n) + 6``: a whole square image,
     which a band run of square crops never keeps (a lever quietly
     computing on the whole image does). Levels of 2n + 6 rows or fewer are
-    not seen."""
+    not seen. The rows and columns are dims 2 and 3, but of an NHWC view
+    of an NCHW activation (dim 2, its width, innermost in memory: D's and
+    VGG's feature taps) dims 1 and 2."""
 
     def __init__(self, n: int):
         self.n = n
@@ -599,8 +636,12 @@ class SavedAudit:
         if not (t.requires_grad and t.is_leaf):
             st = t.untyped_storage()
             self.storages[st.data_ptr()] = st.nbytes()
-            h = t.shape[2] if t.dim() == 4 else 0
-            if h and h == t.shape[3] and h > -(-h // self.n) + 6:
+            h = w = 0
+            if t.dim() == 4:
+                nhwc = (t.shape[2] > 1 and t.stride(2) == 1
+                        and t.stride(3) != 1)
+                h, w = t.shape[1:3] if nhwc else t.shape[2:]
+            if h and h == w and h > -(-h // self.n) + 6:
                 self.whole.append(tuple(t.shape))
         return t
 

@@ -11,9 +11,8 @@ the compiler's error, so the command exits non-zero); the JPEG decoder's
 build and the libjpeg it links (the host's or Pillow's wheel's), or that
 the host has none; host decode workers against the usable cores; the world
 size (``WORLD_SIZE`` under torchrun, else 1) and the mesh (``{axis:
-size}``) the flags would build over it, or why they cannot (under a
-spatial axis > 1 the flags of ROADMAP A10d); under a spatial axis > 1 the
-band plan (each layer height's rows a rank and its conv's halo rows); the
+size}``) the flags would build over it, or why they cannot; under a
+spatial axis > 1 the band plan (each layer height's rows a rank and its conv's halo rows); the
 XLA-only flags, which raise in the port; and a device check: one small
 matmul on the device and, on the card, one launch of B1 against its plain
 version. Prints one human block and ONE final JSON line. On the CPU the
@@ -123,17 +122,13 @@ def main(argv=None) -> dict:
             f"core(s): host decode may bottleneck e2e — consider "
             f"--dataset_mode packed or --device_cache")
 
-    from pcgan_tpu_torch.parallel.mesh import (SPATIAL, check_mesh_shape,
-                                               reject_spatial,
-                                               reject_unported_parallel)
+    from pcgan_tpu_torch.parallel.mesh import SPATIAL, check_mesh_shape
     from pcgan_tpu_torch.parallel.spatial import band_plan
     world = int(os.environ.get("WORLD_SIZE", 1))
     rep["world_size"] = world
     try:
         # the mesh these flags would build over this world
-        reject_unported_parallel(cfg)
         dims = check_mesh_shape(cfg.parallel.mesh_shape, world)
-        reject_spatial(cfg.parallel.mesh_axes, dims, cfg)
         rep["mesh"] = {a: int(n) for a, n in zip(cfg.parallel.mesh_axes,
                                                  dims)}
         if rep["mesh"].get(SPATIAL, 1) > 1:

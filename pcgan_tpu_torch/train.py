@@ -284,9 +284,7 @@ _XLA_ONLY = {
 def reject_unported_train(cfg: Config) -> None:
     """Every training flag the port does not implement raises when it is
     set away from its default; none is ignored. The XLA-only flags raise
-    for good; under a spatial mesh axis the flags not yet ported to bands
-    raise naming ROADMAP.md A10d (``parallel/mesh.py``)."""
-    from pcgan_tpu_torch.parallel.mesh import reject_unported_parallel
+    for good."""
     m, r = cfg.model, cfg.run
     if m.model not in ("pcgan", "comparator"):
         raise NotImplementedError(f"--model {m.model} not implemented "
@@ -298,7 +296,6 @@ def reject_unported_train(cfg: Config) -> None:
             raise NotImplementedError(
                 f"{flag} {_XLA_ONLY[flag]}: an XLA-only flag with no "
                 f"counterpart in pcgan_tpu_torch")
-    reject_unported_parallel(cfg)
 
 
 def create_train_state(cfg: Config, G: nn.Module, D: nn.Module,
@@ -435,6 +432,14 @@ class StepParts:
             return None
         return self.D.patch_size(spatial.global_h(real.shape[1]))
 
+    def feat_h(self, real: torch.Tensor):
+        """The global heights of D's feature taps on ``real`` (of a
+        multiscale D, each scale's), a band inside ``spatial.banded``, else
+        None."""
+        if spatial.active() is None:
+            return None
+        return self.D.feature_sizes(spatial.global_h(real.shape[1]))
+
     def g_forward(self, state: TrainState, x: torch.Tensor,
                   c: torch.Tensor) -> torch.Tensor:
         """G's training forward, its dropout masks from the state's device
@@ -443,11 +448,13 @@ class StepParts:
                       rows=self.rows)
 
     def draw_aug(self, state: TrainState, x: torch.Tensor):
-        """The augmentation draws of batch x (of its global batch, this
-        rank's rows kept, under ``rows``)."""
+        """The augmentation draws of batch x (of its global batch at the
+        global shape, this rank's rows kept, under ``rows``; inside
+        ``spatial.banded`` x is a band of the images)."""
         if self.rows is None:
             return self.aug.draw(state.generator, x)
-        full = torch.empty((self.rows.total(x.shape[0]),) + x.shape[1:],
+        full = torch.empty((self.rows.total(x.shape[0]),
+                            spatial.global_h(x.shape[1])) + x.shape[2:],
                            device="meta")
         return [{k: self.rows.take(v) for k, v in d.items()}
                 for d in self.aug.draw(state.generator, full)]
@@ -588,8 +595,8 @@ class StepParts:
         load_stats_state(D, end)
         with torch.no_grad():
             # ADA's overfitting signal from the real view D just scored
-            rt = (overfit_heuristic(pred_real, t.gan_mode) if self.use_ada
-                  else torch.zeros((), device=real.device))
+            rt = (overfit_heuristic(pred_real, t.gan_mode, h)
+                  if self.use_ada else torch.zeros((), device=real.device))
         return loss, l_real, l_fake, r1, rt
 
     def g_loss(self, state: TrainState, out, real, cond_real, cond_target,
@@ -615,7 +622,8 @@ class StepParts:
             if t.lambda_feat > 0:
                 pred, fake_feats = D(fake_for_d, cond_target,
                                      return_features=True)
-                l_feat = feature_matching_loss(fake_feats, real_feats)
+                l_feat = feature_matching_loss(fake_feats, real_feats,
+                                               self.feat_h(real))
             else:
                 pred = D(fake_for_d, cond_target)
                 l_feat = zero

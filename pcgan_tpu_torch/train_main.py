@@ -84,12 +84,10 @@ image and activation (``parallel/spatial.py``; B1 writes the band), and
 keeps its band of the pool; checkpoints hold the whole pool. Evaluation,
 previews and sampling stay whole-image on every rank.
 
-Runs on cuda unless ``--device cpu``. The flags a spatial axis does not
-run yet (the loss and data levers: ROADMAP.md A10d, ``parallel/mesh.py
-spatial_unported``) raise
-``NotImplementedError`` under it, as do the XLA-only
-``--profile_server``, ``--compile_cache`` and ``--xla_opt`` for good;
-``--spatial_shards`` is read by nothing, as in JAX.
+Runs on cuda unless ``--device cpu``. Every training flag runs under a
+spatial axis; the XLA-only ``--profile_server``, ``--compile_cache`` and
+``--xla_opt`` raise ``NotImplementedError`` for good; ``--spatial_shards``
+is read by nothing, as in JAX.
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@
 - dropout masks come from the state's generator only.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import dataclasses
 
 import numpy as np

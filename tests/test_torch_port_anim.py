@@ -8,6 +8,7 @@ JAX's on converted f32 weights within 1e-4 (the golden grid's atol); the
 CLI writes ``{i:04d}_aging.gif`` rows that decode to N frames.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import os
 import warnings
 

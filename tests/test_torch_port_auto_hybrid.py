@@ -14,6 +14,7 @@
   stream is the one-process plain run's (1e-4 rel).
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 import signal

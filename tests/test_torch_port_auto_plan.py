@@ -11,6 +11,7 @@ under ``--zero1`` on a data axis of 8, and with both on a 2 x 2 mesh,
 where an Adam leaf carries both axes.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import warnings
 
 import jax

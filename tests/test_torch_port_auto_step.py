@@ -37,6 +37,7 @@ uninterrupted run's losses bit for bit; its checkpoint is the one-device
 state, which a one-device ``TrainState`` restores whole.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import os
 
 import numpy as np

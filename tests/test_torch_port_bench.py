@@ -11,6 +11,7 @@ lane. The config and name checks stub the measures on both sides, so they
 compare the drivers and not two timings.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import dataclasses
 import json
 import sys

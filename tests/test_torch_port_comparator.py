@@ -12,6 +12,7 @@ log_var agree within 1e-2 of their largest f32 magnitude and 5e-2 of their
 f32 spread over the batch (measured: 2e-3-4e-3 and 1e-2-2e-2).
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

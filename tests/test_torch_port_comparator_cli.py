@@ -4,6 +4,7 @@ pretrain the comparator and check its bundle and exact resume, train the
 GAN with ``--comparator_path`` (onehot and score conditioning), and sample
 the score-sweep grid."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 

@@ -31,6 +31,7 @@ test takes both out, so that it holds on any seed:
   skips such a step; its losses and parameters are still checked.
 Each step's losses must then agree within 1e-4 abs + 1e-4 rel; its G and D
 gradients, read through the first moments (``mu' = b1 mu + (1 - b1) g``
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 from the same ``mu``, so before Adam takes their sign), within 1e-4 of
 each tensor's largest entry; its parameters within the one-step envelope.
 """

@@ -15,6 +15,7 @@ conv's s32 accumulators: equal to the CPU's; a CPU-exported f32 artifact
 on the card: 1e-4 of the CPU's output.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

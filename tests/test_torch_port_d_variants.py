@@ -7,6 +7,7 @@ attention's softmax and the generator's depth) + 1e-5 rel on outputs
 (batch norm's E[x^2]-E[x]^2 in f32 on both sides), 1e-6 on stored
 state. Plus ``define_D``'s errors."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import warnings
 
 import numpy as np

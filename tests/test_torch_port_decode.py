@@ -11,6 +11,7 @@ Tolerance everywhere: bit-identical. Skips only where g++ or libjpeg is
 missing on this host.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import ast
 import glob
 import hashlib

@@ -7,6 +7,7 @@ with a CUDA device). The sharded layout across ranks is
 ``tests/test_torch_port_parallel_data.py``'s; here it runs in one process.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 

@@ -4,6 +4,7 @@ weights: the flax params are drawn by the JAX package, carried over with
 numpy input in f32 (JAX at ``Precision.HIGHEST``), within 1e-5.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

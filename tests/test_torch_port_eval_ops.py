@@ -22,6 +22,7 @@ same numpy inputs and converted weights.
   within 1e-4 relative; ``split_holdout`` index for index.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import hashlib
 import json
 import os

@@ -26,6 +26,7 @@ the moments, in another summation order):
   within the rank-deficient tolerance above.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 import warnings

@@ -24,6 +24,7 @@ converted weights and the same numpy inputs:
   meta records ``float16``.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import dataclasses
 import json
 import os

@@ -7,6 +7,7 @@ the ``Loader`` with and without ``resize_to``. Tolerance: bit-identical
 images, equal ages, bins, labels and paths. Skips only where g++ or libjpeg
 is missing on this host."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 import shutil

@@ -19,6 +19,7 @@
 Skips only where g++ or libjpeg is missing on this host.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import importlib.util
 import json
 import os

@@ -8,6 +8,7 @@ The layers themselves, and the bf16 resnet G's routes, are held in
 ``test_torch_port_s2d.py``. Sizes: ngf 8, 4 bins, 32 px.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import os
 import warnings
 

@@ -9,6 +9,7 @@ bf16 path also reformulates the stem/tail convs under --lowch_matmul,
 exact only in real arithmetic).
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import os
 import warnings
 

@@ -8,6 +8,7 @@ imports jax (tests/conftest.py), so a module's import-time effects would not
 show which package pulled it in.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import ast
 import glob
 import os

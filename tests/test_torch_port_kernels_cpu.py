@@ -17,6 +17,7 @@ summed in f64, meets JAX's f32 kernel and the plain version at the
 tolerances of ``tests/test_torch_port_lowch.py``.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

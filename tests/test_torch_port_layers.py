@@ -8,6 +8,7 @@ only the summation order differs. bf16 instance norm: one bf16 ulp of the
 JAX value (magnitudes below 2^-7 count as 2^-7).
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import math
 
 import numpy as np

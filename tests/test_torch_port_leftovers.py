@@ -16,6 +16,7 @@
   checkpoints and an aging grid.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import dataclasses
 import os
 import shlex

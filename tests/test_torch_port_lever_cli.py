@@ -7,6 +7,7 @@ skip counters; ``convert_train_state`` of a JAX state that carries
 ``--debug_nans``; the XLA-only flags; and sampling and export of a
 batch-norm G."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 import time

@@ -6,6 +6,7 @@ draws, and the VGG19 perceptual loss (the JAX package's random trunk
 carried across; ``--vgg_path`` as ``.pth`` and ``.npz``). f32: 1e-6 on
 augmentations, 1e-5 relative on losses and gradients."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ skip counters are equal; spectral norm's u/sigma and batch norm's running
 stats within 1e-5.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import pytest
 
 from torch_port_levers import one_torch_thread, run_lockstep  # noqa: F401

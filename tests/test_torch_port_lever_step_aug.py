@@ -6,6 +6,7 @@ random trunk (the JAX package's PRNGKey(0) VGG19 carried across) and
 augmentation draws (and ADA's gates) are replayed in the port's step, so
 both apply the same transforms."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import pytest
 
 from torch_port_levers import one_torch_thread, run_lockstep  # noqa: F401

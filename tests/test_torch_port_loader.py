@@ -3,6 +3,7 @@
 over two shuffled epochs, after ``skip_next`` (exact mid-epoch resume) and
 unshuffled without ``drop_last``, with the same age bins attached."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import threading
 
 import numpy as np

@@ -2,6 +2,7 @@
 ``pcgan_tpu/ops/gan_loss.py`` and ``pcgan_tpu/data/binning.py`` on the same
 numpy inputs (f32 reductions both sides: 1e-6 relative)."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,7 @@ the CPU, as the JAX package's own tests run it). Tolerances are those of
 association.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,7 @@ norm, spectral norm (u and sigma after k train forwards, an eval forward
 that iterates without storing) and SAGAN self-attention with and without
 spectral norm. f32 tolerances: 1e-5 on outputs, 1e-6 on stored state."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -11,6 +11,7 @@ bf16's 8 bits on one side or the other), the gradient against ``jax.vjp`` of
 losses: no node of an op whose CUDA backward adds by atomics.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -2,6 +2,7 @@
 pairs, labels and images (``--dataset_mode pairwise|pairwise_hard`` over the
 synthetic set), and the same held-out split of comparator pretraining."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 

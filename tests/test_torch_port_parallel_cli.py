@@ -21,6 +21,7 @@ Each launch runs under its own timeout, and a cohort that outlives it is
 killed with its process group.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 import signal

@@ -12,6 +12,7 @@ and one rank's full one render the same fakes to f32 noise) and
 ``--mesh_shape`` against the world size.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

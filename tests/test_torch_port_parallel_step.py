@@ -25,6 +25,7 @@ one-device step on the whole global batch (``tests/test_parallel.py``'s
 invariant, held like ``--grad_accum``'s: 1e-5 of each tensor's scale).
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

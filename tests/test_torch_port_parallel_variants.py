@@ -17,6 +17,7 @@ score head's bias only within the sign-flip bound: its gradient is zero
 analytically).
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

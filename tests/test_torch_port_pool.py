@@ -8,6 +8,7 @@ sequence of batches that crosses the warm-up boundary
 must be equal (the pool only moves values).
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

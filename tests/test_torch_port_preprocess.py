@@ -8,6 +8,7 @@ of the reference value (magnitudes below 2^-7 count as 2^-7, so values that
 cancel to ~0 are held to 6e-5, above the f32 noise).
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

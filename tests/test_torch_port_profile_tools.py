@@ -7,6 +7,7 @@ propagates), ``memory_plan``'s state bytes against the JAX ``_tree_bytes``
 of the same subtrees, and ``doctor --device cpu``.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 import sys

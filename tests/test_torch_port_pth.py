@@ -11,6 +11,7 @@ port's mirror copy (``utils/pth_mirror.py``) is held against
 ``benchmarks/torch_baseline.py``.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import os
 import sys
 import warnings

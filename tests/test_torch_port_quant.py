@@ -24,6 +24,7 @@ package's (CPU).
   0.05, mean 0.01.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import functools
 import warnings
 

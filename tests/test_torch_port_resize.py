@@ -3,6 +3,7 @@
 Pillow): bit-identical for bicubic, bilinear and nearest, up and down,
 square and non-square, on random and on hard-edged images."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 from hypothesis import given, settings

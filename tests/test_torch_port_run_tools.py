@@ -8,6 +8,7 @@ mean of the converted JAX parameter trees within 1e-7 over G-only tags,
 full-state tags and EMA twins, with the buffers of the last tag.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 import subprocess

@@ -14,6 +14,7 @@ bf16 routes and ``ResizeConv`` against the JAX package (CPU).
   within the bf16 limits of the JAX G's output.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import warnings
 
 import numpy as np

@@ -8,6 +8,7 @@ within 1 u8 LSB (f32 noise can flip one rounding step of the final
 quantization).
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import os
 import warnings
 

@@ -11,6 +11,7 @@ the ``/metrics`` names. Then each client against the other framework's
 host, and the port's loadtest and abuse battery against the port's host.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import http.client
 import io
 import json

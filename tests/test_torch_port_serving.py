@@ -17,6 +17,7 @@ JAX package's artifact (CPU).
   ``--comparator_path``.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 import subprocess

@@ -5,7 +5,8 @@ shards gathered in order (the counterpart of
 
 - Equal to the single call within 1e-5 for an even batch, a ragged one
   (padded with its last row, sliced back) and an empty one, and through
-  ``progression``'s ``call``.
+  ``progression``'s ``call``; each device's shard bit for bit the single
+  call on that shard alone.
 - A ``--fixed_batch`` artifact raises ``ValueError`` matching
   "symbolic-batch", as JAX's does.
 - Against JAX's ``data_parallel`` over four CPU devices on the same
@@ -13,6 +14,7 @@ shards gathered in order (the counterpart of
   limit for the two servers.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 
@@ -46,6 +48,21 @@ def test_data_parallel_equals_the_single_call(served, b):
     if b:
         np.testing.assert_allclose(p.progression(x[:2], call=call),
                                    p.progression(x[:2]), atol=1e-5)
+
+
+@pytest.mark.parametrize("b", [8, 6])
+def test_each_shard_equals_the_single_call_on_that_shard(served, b):
+    """Like batch sizes: each device's rows of the split are bit for bit
+    the single call on those rows alone (the single call on the whole
+    batch may sum in another order: a backend picks its algorithms by the
+    batch size), a ragged batch's shards too."""
+    _, p = served
+    x, c = _inputs(b, seed=7)
+    got = p.data_parallel(DEVICES)(x, c)
+    k = -(-b // len(DEVICES))
+    for i in range(0, b, k):
+        np.testing.assert_array_equal(got[i:i + k], p(x[i:i + k],
+                                                      c[i:i + k]))
 
 
 def test_fixed_batch_artifact_raises(tmp_path):

@@ -17,14 +17,16 @@
   conv, group norm, dropout, ``--remat``) pass under a spatial axis and
   ``doctor`` prints their band plan; all of them at once (the resnet G)
   and the U-Net with dropout and remat each take two CLI steps at 1 x 2.
-  Every flag the band path does not run yet (the loss and data levers)
-  raises ``NotImplementedError`` under a spatial axis, naming ROADMAP.md
-  A10d, and passes without one.
+  So do the loss and data levers (R1, the gradient penalty, feature
+  matching, VGG, DiffAugment, ADA), each alone, with and without a
+  spatial axis; R1, feature matching, VGG, DiffAugment and ADA at once,
+  and the gradient penalty with the multiscale D, attention and group
+  norm, each take two CLI steps at 1 x 2.
 - ``tools.doctor`` over a world of two prints the band plan of
-  ``--mesh_shape 1,2 --mesh_axes data,spatial`` and names A10d for a flag
-  the band path does not run.
+  ``--mesh_shape 1,2 --mesh_axes data,spatial``, with R1 on too.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import math
 import os
@@ -35,7 +37,6 @@ import torch
 from pcgan_tpu_torch import config as tcfg
 from pcgan_tpu_torch import train_main
 from pcgan_tpu_torch.models import define_D, define_G
-from pcgan_tpu_torch.parallel.mesh import spatial_unported
 from pcgan_tpu_torch.tools import doctor
 from pcgan_tpu_torch.train import create_train_state, reject_unported_train
 from pcgan_tpu_torch.utils.checkpoint import (adam_state, restore_state,
@@ -52,7 +53,7 @@ CLI = ["--dataset_mode", "synthetic", "--max_dataset_size", "16",
        "--save_epoch_freq", "0", "--dtype", "float32"]
 MESHES = {2: ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial"],
           4: ["--mesh_shape", "2,2", "--device_cache_sharded"]}
-# the model levers, ported to bands (ROADMAP A10d items 1-6)
+# the model levers, ported to bands
 LEVERS = [["--g_attn"], ["--d_attn"], ["--netD", "multiscale"],
           ["--netG", "unet_32"], ["--netG", "resnet_6blocks@resize_conv"],
           ["--norm", "group"], ["--no-no_dropout"], ["--remat"]]
@@ -62,9 +63,17 @@ LEVER_RUNS = {
                       "--d_attn", "--netD", "multiscale", "--n_layers_D", "2",
                       "--norm", "group", "--no-no_dropout", "--remat",
                       "--remat_blocks", "2"],
-    "levers_unet": ["--netG", "unet_32", "--no-no_dropout", "--remat"]}
-# the loss and data levers, not yet (items 7-9)
-A10D = [["--lambda_r1", "1"], ["--gan_mode", "wgangp"],
+    "levers_unet": ["--netG", "unet_32", "--no-no_dropout", "--remat"],
+    "levers_losses": ["--lambda_r1", "10", "--lambda_feat", "10",
+                      "--lambda_vgg", "10", "--vgg_path", "random",
+                      "--diff_augment", "color,translation,cutout",
+                      "--ada_target", "0.6"],
+    "levers_wgangp": ["--gan_mode", "wgangp", "--netD", "multiscale",
+                      "--n_layers_D", "2", "--d_attn", "--norm", "group",
+                      "--lambda_feat", "10", "--diff_augment",
+                      "translation"]}
+# the loss and data levers, ported to bands
+LOSS_LEVERS = [["--lambda_r1", "1"], ["--gan_mode", "wgangp"],
         ["--lambda_feat", "10"], ["--lambda_vgg", "10"],
         ["--diff_augment", "color"],
         ["--diff_augment", "color", "--ada_target", "0.6"]]
@@ -112,7 +121,8 @@ def test_resume_is_exact_and_loads_on_one_device(runs, world):
     work, ranks = runs
     assert [r["resume"][:3] for r in ranks[world]] == [[8, "cut", 8]] * world
     if world == 2:      # the lever runs: two steps each
-        assert [r["resume"][4:] for r in ranks[world]] == [[2, 2]] * world
+        assert [r["resume"][4:] for r in ranks[world]] == [
+            [2] * len(LEVER_RUNS)] * world
         for name in LEVER_RUNS:
             got = _losses(os.path.join(work, name, "metrics.jsonl"))
             assert len(got) == 2 and all(
@@ -157,7 +167,6 @@ def test_ported_levers_pass_under_a_spatial_axis(flags, monkeypatch):
     argv = flags + ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial",
                     "--crop_size", "32", "--n_layers_D", "2"]
     cfg = tcfg.parse_config(argv)
-    assert spatial_unported(cfg) == []
     reject_unported_train(cfg)
     monkeypatch.setenv("WORLD_SIZE", "2")
     rep = doctor.main(["--device", "cpu", *argv])
@@ -173,16 +182,22 @@ def test_ported_levers_pass_under_a_spatial_axis(flags, monkeypatch):
     assert plan[first].startswith("32: 16+16 halo")
 
 
-@pytest.mark.parametrize("flags", A10D, ids=lambda f: "_".join(f).strip("-"))
-def test_a10d_flags_raise_under_a_spatial_axis(flags):
-    argv = flags + ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial"]
-    cfg = tcfg.parse_config(argv)
-    assert spatial_unported(cfg)
-    with pytest.raises(NotImplementedError, match="A10d"):
-        reject_unported_train(cfg)
+@pytest.mark.parametrize("flags", LOSS_LEVERS,
+                         ids=lambda f: "_".join(f).strip("-"))
+def test_loss_levers_pass_under_a_spatial_axis(flags, monkeypatch):
+    """A loss or data lever passes the config check under a spatial axis
+    (and without one), and ``doctor`` prints the band plan of its run."""
+    argv = flags + ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial",
+                    "--crop_size", "32"]
+    reject_unported_train(tcfg.parse_config(argv))
     reject_unported_train(tcfg.parse_config(flags))     # no spatial axis
     reject_unported_train(tcfg.parse_config(
         flags + ["--mesh_shape", "1,2", "--mesh_axes", "data,model"]))
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    rep = doctor.main(["--device", "cpu", *argv])
+    assert rep["mesh"] == {"data": 1, "spatial": 2}
+    assert rep["band_plan"]["G stem 7x7"] == "32: 16+16 halo 3/3"
+    assert rep["band_plan"]["D logits"] == "2: 1+1"
 
 
 def test_the_band_path_flags_pass():
@@ -190,7 +205,10 @@ def test_the_band_path_flags_pass():
         ["--mesh_shape", "2,2", "--norm", "batch", "--grad_accum", "2",
          "--ema_decay", "0.999", "--comparator_path", "x", "--netD",
          "pixel", "--zero1", "--dtype", "bfloat16", "--lowch_matmul"]))
-    assert spatial_unported(tcfg.parse_config([])) == []
+    reject_unported_train(tcfg.parse_config(
+        ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial",
+         "--lambda_r1", "1", "--lambda_feat", "10", "--lambda_vgg", "10",
+         "--diff_augment", "color", "--ada_target", "0.6"]))
 
 
 def test_doctor_prints_the_band_plan(monkeypatch, capsys):
@@ -203,7 +221,8 @@ def test_doctor_prints_the_band_plan(monkeypatch, capsys):
     assert plan["G stem 7x7"] == "32: 16+16 halo 3/3"
     assert plan["D logits"] == "2: 1+1"
     assert "band_plan" in capsys.readouterr().out
-    rep = doctor.main(["--device", "cpu", "--mesh_shape", "1,2",
-                       "--mesh_axes", "data,spatial", "--lambda_r1", "1"])
-    assert rep["mesh"].startswith("FAILED") and "A10d" in rep["mesh"]
-    assert "band_plan" not in rep
+    rep = doctor.main(["--device", "cpu", "--crop_size", "32",
+                       "--mesh_shape", "1,2", "--mesh_axes", "data,spatial",
+                       "--lambda_r1", "1"])
+    assert rep["mesh"] == {"data": 1, "spatial": 2}
+    assert rep["band_plan"] == plan

@@ -43,6 +43,7 @@ backward, and its recompute, inside the band context). Every rank of a
 line holds the same bits.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import dataclasses
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -245,16 +246,18 @@ def test_lever_band_step_matches_jax_step(cohorts, case):
     assert checked >= 1
 
 
-def _compare(start, jm, want, got, grads):
+def _compare(start, jm, want, got, grads, inert=()):
     """``compare_gan_step``, but for the inert tensors: a conv bias that a
     one-channel group (``--norm group`` at C <= 32) subtracts again has a
     gradient of 0 in exact arithmetic, so both frameworks step it by Adam's
     sign of f32 noise; those are held to the sign-flip bound alone, 2.1
     lr (as ``chip_smoke.py _envelope`` holds the stem's condition
-    channels)."""
+    channels). They are the tensors whose reference first moment is below
+    INERT, and ``inert``'s ((net, name) pairs known to be such biases,
+    whose noise scales with the step's other gradients)."""
     inert = {(net, k) for net, opt in (("G", "opt_g"), ("D", "opt_d"))
              for k, mu in want[opt]["mu"].items()
-             if float(np.abs(np.asarray(mu)).max()) < INERT}
+             if float(np.abs(np.asarray(mu)).max()) < INERT} | set(inert)
 
     def live(p):
         q = dict(p)

@@ -30,6 +30,7 @@ B1's plain twin writing a band equals the slice of its whole crop (the
 crop offset clamped first), bit for bit.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,7 @@ eight-rank cohort (``torch_port_parallel_worker.sharded_steps``) takes
 the step on its band of its rows. At (2, 4) the bands are 8 rows of the
 image and 2 of the bottleneck, and D's last maps (3 and 2 rows) leave
 ranks empty. Every step is held to JAX's one-device ``make_train_step``
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 from the same state on the same batch within the sharded-state
 lockstep's envelope (``test_torch_port_auto_step.py``): losses 1e-4 abs +
 rel, the gradients (Adam's first moments) 1e-4 of scale away from a ReLU

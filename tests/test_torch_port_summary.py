@@ -5,6 +5,7 @@ the discriminators and the comparator (a cross-check of the converters'
 layouts: the flax trees come from ``jax.eval_shape``, so no weights are
 drawn), and the banner and table read as the JAX package prints them."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import warnings
 
 import pytest

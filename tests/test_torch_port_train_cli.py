@@ -2,6 +2,7 @@
 the CPU at a tiny size: what a run writes, exact resume, checkpoint
 retention, and the flags it refuses."""
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import json
 import os
 

@@ -11,6 +11,7 @@ turns f32 noise into an update of up to +-lr, so the bulk must match
 tightly and the worst entry is bounded by the sign-flip envelope.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import dataclasses
 import warnings
 
@@ -252,16 +253,15 @@ def test_unported_training_flags_raise(tmp_path):
     reject_unported_train(tcfg.parse_config(["--device_cache_sharded"]))
     reject_unported_train(tcfg.parse_config(["--mesh_shape", "2"]))
     # the GSPMD flags (A10b) and a spatial axis (A10c) pass the config
-    # check, as in JAX (the mesh judges them); a flag the band path does
-    # not run yet raises under a spatial axis (A10d), and the XLA-only
-    # flags for good
+    # check, as in JAX (the mesh judges them), the loss levers under a
+    # spatial axis too; the XLA-only flags raise for good
     for argv in (["--zero1"], ["--spatial_shards", "2"],
                  ["--dcn_data", "2"],
-                 ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial"]):
+                 ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial"],
+                 ["--mesh_shape", "1,2", "--mesh_axes", "data,spatial",
+                  "--lambda_r1", "1"]):
         reject_unported_train(tcfg.parse_config(argv))
-    for argv, flag in ((["--mesh_shape", "1,2", "--mesh_axes",
-                         "data,spatial", "--lambda_r1", "1"], "A10d"),
-                       (["--xla_opt", "x"], "XLA-only"),
+    for argv, flag in ((["--xla_opt", "x"], "XLA-only"),
                        (["--compile_cache", "d"], "XLA-only"),
                        (["--profile_server", "9000"], "XLA-only")):
         with pytest.raises(NotImplementedError, match=flag):

@@ -15,6 +15,7 @@ for the dropout and remat levels. The train step's lockstep is
 ``test_torch_port_unet_step.py``.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import functools
 import os
 import warnings

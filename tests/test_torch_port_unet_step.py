@@ -7,6 +7,7 @@ made in torch, so the ``unet_64`` case replays JAX's masks in the port's
 step.
 """
 
+import torch_port_threads  # noqa: F401  (torch's pool: a share of the cores)
 import dataclasses
 
 import numpy as np

@@ -122,25 +122,38 @@ def _relu_margins(seen: list):
     """Records the smallest nonzero |input| of every ``F.relu`` and
     ``F.leaky_relu`` call (G's and D's kinks) while it is open. An exact
     zero is structural (a one-hot's, a dropped unit's), the same in every
-    framework, and no f32 noise picks its slope."""
+    framework, and no f32 noise picks its slope. The frozen VGG trunk's
+    ReLUs (``--lambda_vgg``) are not G's or D's kinks and are left out: at
+    32 px some of their ~10^5 inputs always lie within 1e-6 of zero."""
     import torch.nn.functional as F
+    from pcgan_tpu_torch.models import vgg
     fns = {"relu": F.relu, "leaky_relu": F.leaky_relu}
+    in_vgg, forward = [0], vgg._VGGTaps.forward
 
     def watch(fn):
         def wrapped(x, *args, **kwargs):
             a = x.detach().abs()
             a = a[a > 0]
-            if a.numel():        # a band may be empty
+            if a.numel() and not in_vgg[0]:        # a band may be empty
                 seen.append(float(a.min()))
             return fn(x, *args, **kwargs)
         return wrapped
+
+    def vgg_forward(self, x):
+        in_vgg[0] += 1
+        try:
+            return forward(self, x)
+        finally:
+            in_vgg[0] -= 1
     for name, fn in fns.items():
         setattr(F, name, watch(fn))
+    vgg._VGGTaps.forward = vgg_forward
     try:
         yield
     finally:
         for name, fn in fns.items():
             setattr(F, name, fn)
+        vgg._VGGTaps.forward = forward
 
 
 def comparator_steps(mesh, case):
@@ -270,12 +283,51 @@ def _replay_keeps(keeps):
         ResnetGenerator.draw_keeps, UnetGenerator.draw_keeps = own
 
 
+@contextlib.contextmanager
+def _replay_draws(draws):
+    """Inside, the step's augmentation draws and GP's weights are
+    ``draws`` (``{'aug': [(global NHWC shape, the op draws)] in the step's
+    call order, 'gp_eps': (B, 1, 1, 1) or None}``, made for the global
+    batch), of which the sharded step keeps this rank's rows; None: their
+    own draws."""
+    from pcgan_tpu_torch import train as ttrain
+    from pcgan_tpu_torch.ops import diffaug
+    own = diffaug.Augment.draw, ttrain.gp_eps
+    queue = [] if draws is None else list(draws["aug"])
+    if draws is not None:
+        def draw(self, generator, x):
+            shape, d = queue.pop(0)
+            assert tuple(x.shape) == tuple(shape), (tuple(x.shape), shape)
+            return [dict(op) for op in d]
+        diffaug.Augment.draw = draw
+        if draws.get("gp_eps") is not None:
+            ttrain.gp_eps = lambda g, b: draws["gp_eps"]
+    try:
+        yield
+        assert not queue, f"{len(queue)} draws left"
+    finally:
+        diffaug.Augment.draw, ttrain.gp_eps = own
+
+
+def _vgg(case):
+    """The frozen VGG19 trunk of a ``--lambda_vgg`` case (its state dict in
+    ``case['vgg']``), else None."""
+    if case.get("vgg") is None:
+        return None
+    from pcgan_tpu_torch.models.vgg import VGG19Taps
+    net = VGG19Taps()
+    net.load_state_dict(case["vgg"])
+    return net
+
+
 def sharded_steps(mesh, case):
     """One sharded-state step (``parallel/auto.py``) from each given state
     (a ``save_state``/``convert_train_state`` payload) on this rank's rows
     of its global batch: the step's metrics, the state gathered whole, and
     the rank's own shards after the step. ``case['keeps']``: each step's
-    dropout masks, replayed (``_replay_keeps``)."""
+    dropout masks, replayed (``_replay_keeps``); ``case['draws']``: each
+    step's augmentation draws and GP weights, replayed
+    (``_replay_draws``)."""
     from pcgan_tpu_torch.models import define_D, define_G
     from pcgan_tpu_torch.parallel import auto
     from pcgan_tpu_torch.train import create_train_state
@@ -284,11 +336,13 @@ def sharded_steps(mesh, case):
     mesh = _case_mesh(mesh, case)
     rows = auto.batch_rows(tc, mesh)
     keeps = case.get("keeps") or [None] * len(case["payloads"])
-    for payload, batch, keep in zip(case["payloads"], case["batches"],
-                                    keeps):
+    draws = case.get("draws") or [None] * len(case["payloads"])
+    for payload, batch, keep, drawn in zip(case["payloads"],
+                                           case["batches"], keeps, draws):
         G, D = define_G(tc).to(mesh.device), define_D(tc).to(mesh.device)
         state = create_train_state(tc, G, D,
-                                   torch.Generator().manual_seed(0))
+                                   torch.Generator().manual_seed(0),
+                                   vgg=_vgg(case))
         load_state(state, payload)
         auto.shard_state(state, mesh, tc.parallel.zero1)
         step = auto.make_sharded_train_step(
@@ -297,7 +351,8 @@ def sharded_steps(mesh, case):
         local = {k: torch.as_tensor(v).to(mesh.device)
                  for k, v in mesh.local_rows(batch, rows).items()}
         margins = []
-        with _relu_margins(margins), _replay_keeps(keep):
+        with _relu_margins(margins), _replay_keeps(keep), \
+                _replay_draws(drawn):
             m = step(state, local)
         plan = state.shard_plan
         shards = {}
@@ -450,6 +505,161 @@ def spatial_pieces(mesh, case):
     return out
 
 
+def second_piece(mod, x, cond, cot, H, spec, line=None):
+    """The double backward of a band layer (or, ``line`` None, of the
+    whole image): ``gx``, the input gradient of ``sum(y * y * cot)`` taken
+    with ``create_graph``, then the gradients of ``sum(gx * v)`` (``v`` of
+    x's shape, drawn from the case's seed) with respect to the input and
+    the parameters. On a band, ``x`` is the rank's band, each rank takes
+    its band of ``cot`` (of a ``gather_band`` case, a distinct share of the
+    whole) and of ``v``, and the returned gradients are the band's, the
+    parameter gradients this rank's part (the caller sums them)."""
+    from pcgan_tpu_torch.parallel import spatial
+    g = torch.Generator().manual_seed(spec["seed"] + 7)
+    v = torch.randn(x.shape if line is None else
+                    (x.shape[:2] + (spec["H"],) + x.shape[3:]), generator=g)
+    params = [] if mod is None else list(mod.parameters())
+    x = x.detach().requires_grad_(True)
+    y = run_piece(mod, x, cond, H, spec).float()
+    if line is None:
+        c = cot
+    elif spec["kind"] == "gather":
+        k = line.coord + 1
+        c = cot * (2.0 * k / (line.n * (line.n + 1)))
+    else:
+        ob = spatial.band_of(cot.shape[2], line.n, line.coord)
+        c = cot[:, :, ob.r0:ob.r1]
+    if line is not None:
+        b = spatial.band_of(spec["H"], line.n, line.coord)
+        v = v[:, :, b.r0:b.r1]
+    (gx,) = torch.autograd.grad((y * y * c).sum(), x, create_graph=True)
+    grads = torch.autograd.grad((gx.float() * v).sum(), [x] + params,
+                                allow_unused=True)
+    return gx.detach(), [torch.zeros_like(t) if gr is None else gr
+                         for gr, t in zip(grads, [x] + params)]
+
+
+def loss_piece(spec):
+    """(module, inputs) of one loss-lever case, drawn from its seed alike on
+    every rank: ``penalties`` a D (``spec['flags']``) with real, fake,
+    conditions and GP's weights; ``augment`` an NHWC batch and the draws of
+    ``spec['policy']`` (with ADA's gates) made for the whole batch;
+    ``vgg`` a random VGG19 trunk and two batches."""
+    from pcgan_tpu_torch import config as tcfg
+    from pcgan_tpu_torch.models import define_D
+    from pcgan_tpu_torch.models.vgg import random_vgg19
+    from pcgan_tpu_torch.ops.diffaug import Augment
+    g = torch.Generator().manual_seed(spec["seed"])
+    n, h, w = spec.get("B", 2), spec["H"], spec.get("W", spec["H"])
+    x = torch.rand((n, h, w, 3), generator=g) * 2 - 1
+    y = torch.rand((n, h, w, 3), generator=g) * 2 - 1
+    kind = spec["kind"]
+    if kind == "penalties":
+        cfg = tcfg.parse_config(["--ndf", "8", "--n_age_bins", "4",
+                                 "--dtype", "float32", "--crop_size",
+                                 str(h)] + spec["flags"])
+        D = define_D(cfg, torch.Generator().manual_seed(spec["seed"]))
+        cond = torch.eye(4)[torch.randint(0, 4, (n,), generator=g)]
+        eps = torch.rand((n, 1, 1, 1), generator=g)
+        return D, {"real": x, "fake": y, "cond": cond, "eps": eps}
+    if kind == "augment":
+        aug = Augment(spec["policy"], ada=True)
+        draws = aug.draw(g, x)
+        cot = torch.randn((n, h, w, 3), generator=g)
+        return aug, {"x": x, "draws": draws, "cot": cot}
+    return random_vgg19(spec["seed"]), {"x": x, "y": y}
+
+
+def run_loss_piece(mod, inp, spec, line=None):
+    """One loss-lever case on the whole batch (``line`` None) or on this
+    rank's band inside ``spatial.banded``: {name: value} (a loss: the
+    line's whole value) and the gradients (of the input, the fake batch's
+    for the penalties case, whose R1 and GP detach theirs: the band's; of
+    D's parameters, zero where unused: this rank's part)."""
+    from pcgan_tpu_torch.ops.gan_loss import (feature_matching_loss,
+                                              gradient_penalty, r1_penalty)
+    from pcgan_tpu_torch.models.vgg import vgg_perceptual_loss
+    from pcgan_tpu_torch.parallel import spatial
+    H = spec["H"]
+
+    def band(t):
+        if line is None:
+            return t.clone()
+        b = spatial.band_of(H, line.n, line.coord)
+        return t[:, b.r0:b.r1].clone()
+    ctx = (contextlib.nullcontext() if line is None
+           else spatial.banded(line, H))
+    with ctx:
+        if spec["kind"] == "penalties":
+            D = mod
+            real = band(inp["real"]).requires_grad_(True)
+            fake = band(inp["fake"]).requires_grad_(True)
+            cond, eps = inp["cond"], inp["eps"]
+            r1 = r1_penalty(D, real, cond)
+            gp = gradient_penalty(D, real, fake, cond, eps)
+            _, rf = D(real, cond, return_features=True)
+            _, ff = D(fake, cond, return_features=True)
+            sizes = (None if line is None else
+                     D.feature_sizes(spatial.global_h(real.shape[1])))
+            fm = feature_matching_loss(ff, [f.detach() for f in rf]
+                                       if not isinstance(rf[0], tuple) else
+                                       [[f.detach() for f in r] for r in rf],
+                                       sizes)
+            losses = {"r1": r1, "gp": gp, "fm": fm}
+            wrt = [fake] + list(D.parameters())   # R1 and GP detach x
+            total = r1 + 10.0 * gp + fm
+        elif spec["kind"] == "augment":
+            x = band(inp["x"]).requires_grad_(True)
+            out = mod.apply(x, inp["draws"], spec.get("p", 0.5))
+            c = band(inp["cot"])
+            losses = {"y": out.detach()}
+            wrt, total = [x], (out * c).sum()
+        else:
+            x = band(inp["x"]).requires_grad_(True)
+            vl = vgg_perceptual_loss(mod, x, band(inp["y"]))
+            losses, wrt, total = {"vgg": vl}, [x], vl
+        grads = [torch.zeros_like(t) if gr is None else gr for gr, t in zip(
+            torch.autograd.grad(total, wrt, allow_unused=True), wrt)]
+        if line is not None:
+            losses = {k: (v if k == "y" else spatial.line_total(v))
+                      for k, v in losses.items()}
+    return ({k: v.detach() for k, v in losses.items()},
+            [gr.detach() for gr in grads])
+
+
+def band_losses(mesh, case):
+    """Each case of ``case['specs']`` on this rank's band over a 1 x world
+    data x spatial mesh: a ``second`` case (a band layer's double
+    backward, ``second_piece``) or a loss-lever case (``run_loss_piece``),
+    the parameter gradients summed over the line."""
+    import torch.distributed as dist
+    from pcgan_tpu_torch.parallel import spatial
+    mesh = _case_mesh(mesh, {"shape": (1, mesh.world),
+                             "axes": ("data", "spatial")})
+    line = spatial.spatial_line(mesh)
+    out = {}
+    for name, spec in case["specs"].items():
+        if spec["kind"] == "second":
+            piece = dict(spec["piece"], seed=spec["seed"])
+            mod, x, cond, cot = build_piece(piece)
+            H = x.shape[2]
+            b = spatial.band_of(H, line.n, line.coord)
+            with spatial.banded(line, H):
+                gx, grads = second_piece(mod, x[:, :, b.r0:b.r1], cond, cot,
+                                         H, piece, line)
+            n_in = 1
+            res = {"gx": gx}
+        else:
+            mod, inp = loss_piece(spec)
+            res, grads = run_loss_piece(mod, inp, spec, line)
+            n_in = 1
+        gw = [gr.clone() for gr in grads[n_in:]]
+        for gr in gw:
+            dist.all_reduce(gr, group=line.group)
+        out[name] = {**res, "gin": grads[:n_in], "gw": gw}
+    return out
+
+
 def spatial_steps(mesh, case):
     """Consecutive sharded-state steps from one ``save_state`` payload over
     the case's mesh, B1's plain twin writing each rank's band with every
@@ -458,7 +668,7 @@ def spatial_steps(mesh, case):
     (the pool's images whole too); each step's ``spatial.SavedAudit``
     (what autograd kept, and any whole square image among it). With
     ``case['C']`` the frozen comparator (its state dict and score anchors)
-    joins the step."""
+    joins the step, with ``case['vgg']`` the VGG19 trunk."""
     from pcgan_tpu_torch.models import define_C, define_D, define_G
     from pcgan_tpu_torch.parallel import auto, spatial
     from pcgan_tpu_torch.train import create_train_state
@@ -471,7 +681,8 @@ def spatial_steps(mesh, case):
         C = define_C(tc)
         C.load_state_dict(case["C"])
     state = create_train_state(tc, G, D, torch.Generator().manual_seed(0),
-                               C=C, bin_anchors=case.get("anchors"))
+                               C=C, bin_anchors=case.get("anchors"),
+                               vgg=_vgg(case))
     load_state(state, case["payload"])
     auto.shard_state(state, mesh, tc.parallel.zero1)
     step = auto.make_sharded_train_step(tc, G, D, state.C, mesh=mesh)

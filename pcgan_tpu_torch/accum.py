@@ -29,7 +29,8 @@ from torch import nn
 
 from pcgan_tpu_torch.config import Config
 from pcgan_tpu_torch.models.layers import load_stats_state, stats_state
-from pcgan_tpu_torch.train import StepParts, TrainState
+from pcgan_tpu_torch.train import StepParts, TrainState, reduce_span
+from pcgan_tpu_torch.utils.tracing import span
 
 
 def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
@@ -69,15 +70,18 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
             c = parts.conditions(state, mb, real)
             conds.append(c)
             cond_real, cond_target = c[0], c[1]
-            with torch.no_grad():
+            with span("step/g_forward"), torch.no_grad():
                 out = parts.g_forward(state, torch.cat([real, real]),
                                       torch.cat([cond_target, cond_real]))
             fake_det = out[:bsz]
-            fake_d, cond_fake_d = parts.pool_query(state, fake_det,
-                                                   cond_target)
-            losses = parts.d_loss(state, real, fake_det, fake_d, cond_real,
-                                  cond_target, cond_fake_d, p)
-            grads = torch.autograd.grad(losses[0], parts.d_params)
+            with span("step/pool"):
+                fake_d, cond_fake_d = parts.pool_query(state, fake_det,
+                                                       cond_target)
+            with span("step/d_loss"):
+                losses = parts.d_loss(state, real, fake_det, fake_d,
+                                      cond_real, cond_target, cond_fake_d, p)
+            with span("step/d_backward"):
+                grads = torch.autograd.grad(losses[0], parts.d_params)
             if d_sum is None:
                 d_sum = list(grads)
             else:
@@ -86,8 +90,10 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
         d_grads = torch._foreach_div(d_sum, float(accum))
         d_mean = sums / accum
         # the microbatch-mean r_t (d_mean[4]) rides in D's collective
-        d_grads, rt = parts.reduce_grads("D", list(d_grads), d_mean[4])
-        parts.update(state, "D", d_grads)
+        with reduce_span(parts, "step/d_reduce"):
+            d_grads, rt = parts.reduce_grads("D", list(d_grads), d_mean[4])
+        with span("step/d_adam"):
+            parts.update(state, "D", d_grads)
         if parts.use_ada:
             # the microbatch-mean r_t is the full batch's
             parts.ada_update(state, rt, big * parts.world)
@@ -102,11 +108,14 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
         for mb, (cond_real, cond_target, cond_lo, cond_hi) in zip(mbs,
                                                                    conds):
             real = mb["image"].to(parts.cd)
-            out = parts.g_forward(state, torch.cat([real, real]),
-                                  torch.cat([cond_target, cond_real]))
-            losses = parts.g_loss(state, out, real, cond_real, cond_target,
-                                  cond_lo, cond_hi, p)
-            grads = torch.autograd.grad(losses[0], parts.g_params)
+            with span("step/g_forward"):
+                out = parts.g_forward(state, torch.cat([real, real]),
+                                      torch.cat([cond_target, cond_real]))
+            with span("step/g_loss"):
+                losses = parts.g_loss(state, out, real, cond_real,
+                                      cond_target, cond_lo, cond_hi, p)
+            with span("step/g_backward"):
+                grads = torch.autograd.grad(losses[0], parts.g_params)
             if g_sum is None:
                 g_sum = list(grads)
             else:
@@ -114,11 +123,14 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
             gsums += torch.stack([v.detach().float() for v in losses])
         load_stats_state(G, g_new)
         load_stats_state(D, d_new)
-        g_grads, _ = parts.reduce_grads("G", list(torch._foreach_div(
-            g_sum, float(accum))))
-        parts.update(state, "G", g_grads)
+        g_grads = list(torch._foreach_div(g_sum, float(accum)))
+        with reduce_span(parts, "step/g_reduce"):
+            g_grads, _ = parts.reduce_grads("G", g_grads)
+        with span("step/g_adam"):
+            parts.update(state, "G", g_grads)
         if state.ema is not None:
-            parts.ema_update(state)
+            with span("step/ema"):
+                parts.ema_update(state)
         state.step += 1
         parts.sync_stats()
         g_mean = gsums / accum
@@ -126,6 +138,7 @@ def make_accum_train_step(cfg: Config, G: nn.Module, D: nn.Module,
                    "loss_G_feat", "loss_G_vgg")
         names_d = ("loss_D", "loss_D_real", "loss_D_fake", "loss_D_r1")
         losses = {**dict(zip(names_g, g_mean)), **dict(zip(names_d, d_mean))}
-        return parts.metrics(state, losses, g_grads, d_grads, rt)
+        with span("step/metrics"):
+            return parts.metrics(state, losses, g_grads, d_grads, rt)
 
     return train_step

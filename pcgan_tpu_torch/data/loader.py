@@ -28,6 +28,7 @@ from pcgan_tpu_torch.data.binning import age_to_bin
 from pcgan_tpu_torch.data.pairwise import PairwiseComparisonDataset
 from pcgan_tpu_torch.data.resample import pil_resize_np
 from pcgan_tpu_torch.data.synthetic import SyntheticAgingDataset
+from pcgan_tpu_torch.utils import tracing
 
 
 def phase_root(dataroot: str, phase: str) -> str:
@@ -274,6 +275,9 @@ def with_bins(it: Iterator[Dict], n_bins: int, max_age: int = 116):
         yield batch
 
 
+_END = object()
+
+
 def prefetch(it: Iterator[Dict], size: int = 2) -> Iterator[Dict]:
     """Run the upstream iterator (host data generation) on a background
     thread, ``size`` batches ahead of the consumer, so host work overlaps
@@ -281,12 +285,23 @@ def prefetch(it: Iterator[Dict], size: int = 2) -> Iterator[Dict]:
     producer is re-raised in the consumer. When the consumer stops early
     (it raised, broke off, or was closed), the producer stops too and
     closes the upstream iterator, so no thread or worker pool outlives
-    it."""
+    it. With the span recorder on (``utils/tracing.py``), the consumer's
+    waits are ``data/wait`` spans and each batch the ``prefetch`` thread
+    makes is a ``data/make`` span."""
     if size <= 0:
-        yield from it
-        return
+        src = iter(it)
+        try:
+            while True:
+                with tracing.span("data/wait"):
+                    item = next(src, _END)
+                if item is _END:
+                    return
+                yield item
+        finally:
+            close = getattr(src, "close", None)
+            if close is not None:
+                close()
     q: "queue.Queue" = queue.Queue(maxsize=size)
-    end = object()
     stop = threading.Event()
 
     def put(item) -> bool:
@@ -299,25 +314,30 @@ def prefetch(it: Iterator[Dict], size: int = 2) -> Iterator[Dict]:
         return False
 
     def producer():
+        src = iter(it)
         try:
-            for b in it:
+            while True:
+                with tracing.span("data/make"):
+                    b = next(src, _END)
+                if b is _END:
+                    put(_END)
+                    break
                 if not put(b):
                     break
-            else:
-                put(end)
         except BaseException as e:   # re-raised below, never swallowed
             put(e)
         finally:
-            close = getattr(it, "close", None)
+            close = getattr(src, "close", None)
             if close is not None:
                 close()
 
-    thread = threading.Thread(target=producer, daemon=True)
+    thread = threading.Thread(target=producer, name="prefetch", daemon=True)
     thread.start()
     try:
         while True:
-            item = q.get()
-            if item is end:
+            with tracing.span("data/wait"):
+                item = q.get()
+            if item is _END:
                 return
             if isinstance(item, BaseException):
                 raise item

@@ -17,6 +17,7 @@ import torch
 
 from pcgan_tpu_torch.ops import _build
 from pcgan_tpu_torch.ops.resize import resize_band
+from pcgan_tpu_torch.utils import tracing
 
 SOURCE = "preprocess.cu"
 
@@ -87,7 +88,7 @@ def preprocess_batch_cuda(imgs: torch.Tensor, crop_y: torch.Tensor,
         if t.shape != (b,):
             raise ValueError(f"preprocess kernel: {name} shape "
                              f"{tuple(t.shape)}, want ({b},)")
-        idx.append(t.to(device=dev, dtype=torch.int32).contiguous())
+        idx.append(tracing.upload(t, dev, torch.int32).contiguous())
     lo_h, taps_h = _band_on(h, load_size, method, dev)
     lo_w, taps_w = _band_on(w, load_size, method, dev)
     out = torch.empty((b, n_rows, crop_size, c), dtype=out_dtype,

@@ -21,6 +21,7 @@ from pcgan_tpu_torch.models.registry import compute_dtype
 from pcgan_tpu_torch.ops.cuda_preprocess import preprocess_batch_cuda
 from pcgan_tpu_torch.ops.resize import resize_matrix
 from pcgan_tpu_torch.parallel import rows as draw
+from pcgan_tpu_torch.utils import tracing
 
 
 # --------------------------------------------------------------------------- #
@@ -63,9 +64,10 @@ def preprocess_batch(imgs: torch.Tensor, crop_y: torch.Tensor,
     if row0 < 0 or n_rows < 0 or row0 + n_rows > crop_size:
         raise ValueError(f"preprocess: rows [{row0}, {row0 + n_rows}) are "
                          f"not in a crop of {crop_size}")
-    m_h = torch.from_numpy(resize_matrix(h, load_size, method)).to(dev)
-    m_w = torch.from_numpy(resize_matrix(w, load_size, method)).to(dev)
-    ys, xs = crop_rows(crop_y.to(dev), crop_x.to(dev), flip.to(dev),
+    up = tracing.upload
+    m_h = up(torch.from_numpy(resize_matrix(h, load_size, method)), dev)
+    m_w = up(torch.from_numpy(resize_matrix(w, load_size, method)), dev)
+    ys, xs = crop_rows(up(crop_y, dev), up(crop_x, dev), up(flip, dev),
                        load_size, crop_size)
     ys = ys[:, row0:row0 + n_rows]
     mh_b, mw_b = m_h[ys], m_w[xs]                    # (B, crop, H|W)

@@ -72,7 +72,7 @@ from pcgan_tpu_torch.parallel.mesh import (DATA, MODEL, SPATIAL, DataMesh,
 from pcgan_tpu_torch.parallel.rows import Rows
 from pcgan_tpu_torch.train import (StepParts, adam_count, adam_step,
                                    check_finite, make_train_step)
-from pcgan_tpu_torch.utils import image_pool
+from pcgan_tpu_torch.utils import image_pool, tracing
 
 # --------------------------------------------------------------------------- #
 # the per-leaf rule
@@ -540,6 +540,9 @@ class ShardedParts(StepParts):
             state.pool, *full, state.generator)
         return self.rows.take(fake_d), self.rows.take(cond_d)
 
+    def reduces(self) -> bool:
+        return True
+
     def reduce_grads(self, which, grads, rt=None):
         if rt is not None and self.group is not None:
             rt = self.data.all_reduce_mean(rt.reshape(1)).view(())
@@ -613,6 +616,10 @@ def make_sharded_train_step(cfg, G: nn.Module, D: nn.Module,
     line = spatial.spatial_line(mesh)
 
     def step(state, raw):
+        with tracing.span("step"):
+            return sharded_step(state, raw)
+
+    def sharded_step(state, raw):
         plan = parts.plan = state.shard_plan
         rows = Rows(parts.n_data, parts.coord,
                     raw["image"].shape[0] // accum)
@@ -627,7 +634,8 @@ def make_sharded_train_step(cfg, G: nn.Module, D: nn.Module,
         try:
             with batch_norm_group(parts.group), spatial.banded(line, H):
                 if pre is not None:
-                    batch = pre(state.generator, raw, rows, band)
+                    with tracing.span("step/preprocess"):
+                        batch = pre(state.generator, raw, rows, band)
                 elif band is not None:
                     batch = {**raw, "image": raw["image"][:, band.r0:band.r1]}
                 else:

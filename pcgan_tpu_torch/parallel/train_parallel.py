@@ -27,6 +27,7 @@ from torch import nn
 
 from pcgan_tpu_torch.config import Config
 from pcgan_tpu_torch.parallel.mesh import DataMesh, rank_seed
+from pcgan_tpu_torch.utils import tracing
 
 
 def _group(mesh: Optional[DataMesh]):
@@ -93,8 +94,11 @@ def make_parallel_train_step(cfg: Config, G: nn.Module, D: nn.Module,
            else None)
 
     def step(state, raw):
-        return inner(state, raw if pre is None else pre(state.generator,
-                                                        raw))
+        with tracing.span("step"):
+            if pre is not None:
+                with tracing.span("step/preprocess"):
+                    raw = pre(state.generator, raw)
+            return inner(state, raw)
 
     return step
 

@@ -225,7 +225,8 @@ def run_and_trace(cfg, steps: int, trace_dir: str, warmup: int = 5) -> None:
     """``warmup`` steps, then ``steps`` steps under the trace, each in a
     ``train_step`` range; the trace stops after the device is synced."""
     from pcgan_tpu_torch.bench import _device, raw_batch, train_step_fn
-    from pcgan_tpu_torch.utils.profiling import annotate, trace
+    from pcgan_tpu_torch.utils import tracing
+    from pcgan_tpu_torch.utils.profiling import trace
     device = _device(cfg)
     _, run = train_step_fn(cfg, device)
     raw = raw_batch(cfg, device)
@@ -234,7 +235,7 @@ def run_and_trace(cfg, steps: int, trace_dir: str, warmup: int = 5) -> None:
     float(m["loss_G"])
     with trace(trace_dir, device, with_flops=True):
         for _ in range(steps):
-            with annotate(STEP_RANGE):
+            with tracing.span(STEP_RANGE):
                 m = run(raw)
         float(m["loss_G"])
 

@@ -72,7 +72,7 @@ from pcgan_tpu_torch.ops.gan_loss import (feature_matching_loss, gan_loss,
 from pcgan_tpu_torch.parallel import rows as draw
 from pcgan_tpu_torch.parallel import spatial
 from pcgan_tpu_torch.parallel.mesh import all_reduce_flat
-from pcgan_tpu_torch.utils import image_pool
+from pcgan_tpu_torch.utils import image_pool, tracing
 
 # --------------------------------------------------------------------------- #
 # LR schedules (the reference's --lr_policy)
@@ -481,6 +481,10 @@ class StepParts:
         *grads, rt = self.mean(grads + [rt])
         return grads, rt
 
+    def reduces(self) -> bool:
+        """Whether ``reduce_grads`` runs a collective."""
+        return self.group is not None
+
     def grad_norm(self, which: str, grads: List[torch.Tensor]
                   ) -> torch.Tensor:
         return global_norm(grads)
@@ -519,10 +523,11 @@ class StepParts:
         bsz, dev = real.shape[0], real.device
         if not self.score_mode:
             if "target_bin" in batch:
-                target_bin = torch.as_tensor(batch["target_bin"]).to(dev)
+                target_bin = tracing.upload(
+                    torch.as_tensor(batch["target_bin"]), dev)
             else:
-                target_bin = draw.randint(0, nb, bsz, state.generator,
-                                          self.rows).to(dev)
+                target_bin = tracing.upload(draw.randint(
+                    0, nb, bsz, state.generator, self.rows), dev)
             return (bin_to_onehot(batch["bin"], nb, cd, dev),
                     bin_to_onehot(target_bin, nb, cd, dev),
                     state.bin_lo[target_bin], state.bin_hi[target_bin])
@@ -533,14 +538,14 @@ class StepParts:
         else:
             s_target = draw.rand((bsz,), state.generator,
                                  self.rows) * 2.0 - 1.0
-        s_target = s_target.to(dev)
+        s_target = tracing.upload(s_target, dev)
         if C is not None:
             # the real image's own comparator score: label-free conditioning
             with torch.no_grad():
                 mu_r, _ = C(real)
             s_real = normalize_score(mu_r, state.score_min, state.score_max)
         else:
-            s_real = bin_to_score(batch["bin"], nb).to(dev)
+            s_real = tracing.upload(bin_to_score(batch["bin"], nb), dev)
         # score mode's interval is one point: the raw target score
         raw_target = denormalize_score(s_target, state.score_min,
                                        state.score_max)
@@ -584,7 +589,8 @@ class StepParts:
                 if self.aug:
                     gp_real, _ = self.augment(state, gp_real, p)
                     gp_fake, _ = self.augment(state, gp_fake, p)
-                eps = self.gp_weights(state, bsz).to(real.device)
+                eps = tracing.upload(self.gp_weights(state, bsz),
+                                     real.device)
                 gp = gradient_penalty(D, gp_real, gp_fake, cond_target, eps)
                 loss = l_real + l_fake + t.lambda_gp * gp
             r1 = torch.zeros((), device=real.device)
@@ -716,6 +722,11 @@ class StepParts:
         return {k: v.detach().float() for k, v in m.items()}
 
 
+def reduce_span(parts: StepParts, name: str):
+    """The span of a gradient collective, where there is one."""
+    return tracing.span(name) if parts.reduces() else tracing.NULL
+
+
 def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
                     C: Optional[nn.Module] = None, group=None,
                     parts: Optional[StepParts] = None) -> Callable:
@@ -744,6 +755,7 @@ def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
     parts = parts or StepParts(cfg, G, D, C, group)
 
     def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
+        span = tracing.span
         real = batch["image"].to(parts.cd)
         bsz = real.shape[0]
         parts.begin(bsz)
@@ -752,43 +764,58 @@ def make_train_step(cfg: Config, G: nn.Module, D: nn.Module,
         p = state.aug_p          # this step augments at the step-start p
 
         # ---- one 2B generator forward, its graph kept for the G update ----
-        out = parts.g_forward(state, torch.cat([real, real]),
-                              torch.cat([cond_target, cond_real]))
+        with span("step/g_forward"):
+            out = parts.g_forward(state, torch.cat([real, real]),
+                                  torch.cat([cond_target, cond_real]))
         fake_det = out[:bsz].detach()
 
         # ---- D update: detached fake, pool-mixed --------------------------
-        fake_d, cond_fake_d = parts.pool_query(state, fake_det, cond_target)
+        with span("step/pool"):
+            fake_d, cond_fake_d = parts.pool_query(state, fake_det,
+                                                   cond_target)
         d_start = stats_state(D)
-        d_loss, l_d_real, l_d_fake, l_d_r1, rt = parts.d_loss(
-            state, real, fake_det, fake_d, cond_real, cond_target,
-            cond_fake_d, p)
-        d_grads = list(torch.autograd.grad(d_loss, parts.d_params))
+        with span("step/d_loss"):
+            d_loss, l_d_real, l_d_fake, l_d_r1, rt = parts.d_loss(
+                state, real, fake_det, fake_d, cond_real, cond_target,
+                cond_fake_d, p)
+        with span("step/d_backward"):
+            d_grads = list(torch.autograd.grad(d_loss, parts.d_params))
         # r_t rides in D's collective
-        d_grads, rt = parts.reduce_grads("D", d_grads, rt)
-        parts.update(state, "D", d_grads)
+        with reduce_span(parts, "step/d_reduce"):
+            d_grads, rt = parts.reduce_grads("D", d_grads, rt)
+        with span("step/d_adam"):
+            parts.update(state, "D", d_grads)
         if parts.use_ada:
             parts.ada_update(state, rt, bsz * parts.world)
 
         # ---- G update against the updated D (sequential reference mode),
         # which reads the step's starting D state ----------------------------
-        d_new = stats_state(D)
-        load_stats_state(D, d_start)
-        g_loss, l_g_gan, l_g_l1, l_g_cond, l_g_feat, l_g_vgg = parts.g_loss(
-            state, out, real, cond_real, cond_target, cond_lo, cond_hi, p)
-        load_stats_state(D, d_new)
-        g_grads, _ = parts.reduce_grads("G", list(torch.autograd.grad(
-            g_loss, parts.g_params)))
-        parts.update(state, "G", g_grads)
+        with span("step/g_loss"):
+            d_new = stats_state(D)
+            load_stats_state(D, d_start)
+            g_loss, l_g_gan, l_g_l1, l_g_cond, l_g_feat, l_g_vgg = (
+                parts.g_loss(state, out, real, cond_real, cond_target,
+                             cond_lo, cond_hi, p))
+            load_stats_state(D, d_new)
+        with span("step/g_backward"):
+            g_grads = list(torch.autograd.grad(g_loss, parts.g_params))
+        with reduce_span(parts, "step/g_reduce"):
+            g_grads, _ = parts.reduce_grads("G", g_grads)
+        with span("step/g_adam"):
+            parts.update(state, "G", g_grads)
         if state.ema is not None:
-            parts.ema_update(state)
+            with span("step/ema"):
+                parts.ema_update(state)
         state.step += 1
         parts.sync_stats()
-        return parts.metrics(state, {
-            "loss_G": g_loss, "loss_G_GAN": l_g_gan, "loss_G_L1": l_g_l1,
-            "loss_G_cond": l_g_cond, "loss_D": d_loss,
-            "loss_D_real": l_d_real, "loss_D_fake": l_d_fake,
-            "loss_D_r1": l_d_r1, "loss_G_feat": l_g_feat,
-            "loss_G_vgg": l_g_vgg}, g_grads, d_grads, rt)
+        with span("step/metrics"):
+            return parts.metrics(state, {
+                "loss_G": g_loss, "loss_G_GAN": l_g_gan,
+                "loss_G_L1": l_g_l1, "loss_G_cond": l_g_cond,
+                "loss_D": d_loss, "loss_D_real": l_d_real,
+                "loss_D_fake": l_d_fake, "loss_D_r1": l_d_r1,
+                "loss_G_feat": l_g_feat, "loss_G_vgg": l_g_vgg},
+                g_grads, d_grads, rt)
 
     return train_step
 

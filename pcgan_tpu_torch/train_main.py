@@ -42,7 +42,8 @@ images when no ages exist) a GAN run reads::
 Run-level levers: ``--metrics_lag`` (each print point's metrics are read
 at the next one), ``--log_memory`` (the CUDA allocator's bytes in use and
 peak), ``--tb_logdir`` (TensorBoard event files), ``--profile_steps N`` (a
-``torch.profiler`` trace of N steps under ``{run}/trace``),
+``torch.profiler`` trace of N steps under ``{run}/trace``, the program's
+spans from ``utils/tracing.py`` as ranges in it),
 ``--debug_nans`` (autograd anomaly mode and a finiteness check of every
 step), ``--init_g_from name/tag`` (warm-start G), ``--lambda_vgg`` with
 ``--vgg_path``.
@@ -97,6 +98,8 @@ import os
 import time
 
 import numpy as np
+
+from pcgan_tpu_torch.utils import tracing
 
 
 def main(argv=None) -> dict:
@@ -349,8 +352,9 @@ def _train_gan(cfg, mesh, ld, steps_per_epoch, logger, run_dir,
 
     def fetch(metrics):
         # one device->host copy for all metrics; it also syncs
-        host = dict(zip(metrics, torch.stack(
-            list(metrics.values())).cpu().tolist()))
+        with tracing.span("loop/fetch"):
+            host = dict(zip(metrics, torch.stack(
+                list(metrics.values())).cpu().tolist()))
         if cfg.run.debug_nans:
             bad = sorted(k for k, v in host.items() if not np.isfinite(v))
             if bad:
@@ -483,7 +487,8 @@ def _to_device(v, device):
     """A batch entry on ``device``: host numpy arrays are uploaded, the
     device cache's tensors are already there."""
     import torch
-    return torch.as_tensor(v).to(device)
+    with tracing.span("data/upload"):
+        return tracing.upload(torch.as_tensor(v), device)
 
 
 def _epoch_batches(cfg, ld):
@@ -787,7 +792,8 @@ def _mem_metrics(device, on: bool) -> dict:
 class _Profiler:
     """--profile_steps N: a ``utils.profiling.trace`` (CPU and, on the card,
     CUDA activity) of N steady-state steps after 3 warm-up steps, written to
-    ``{run_dir}/trace/trace.json`` (chrome trace format)."""
+    ``{run_dir}/trace/trace.json`` (chrome trace format); the trace
+    enables the span recorder, so the steps' phases are ranges in it."""
 
     def __init__(self, n_steps: int, run_dir: str, device):
         self.left, self.skip = n_steps, 3

@@ -24,6 +24,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from pcgan_tpu_torch.utils import tracing
+
 
 @dataclass
 class PoolState:
@@ -55,8 +57,8 @@ def query_with_draws(state: PoolState, fakes: torch.Tensor,
     b = fakes.shape[0]
     p = state.imgs.shape[0]
     dev = state.imgs.device
-    rand_idx = rand_idx.to(device=dev, dtype=torch.long)
-    swap = swap.to(device=dev, dtype=torch.bool)
+    rand_idx = tracing.upload(rand_idx, dev, torch.long)
+    swap = tracing.upload(swap, dev, torch.bool)
     count = state.count
     disabled = count < 0
     pos = count.long() + torch.arange(b, device=dev)

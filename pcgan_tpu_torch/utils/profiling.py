@@ -6,9 +6,9 @@
   input shapes and writes, per ATen op call (keyed by the trace's
   ``External id``), its FLOPs and the bytes it must move to
   ``{logdir}/op_costs.json`` (``op_cost``; ``tools/profile_step.py
-  mine_trace`` reads both).
-- ``annotate(name)``: a named range on the trace's timeline
-  (``torch.profiler.record_function``).
+  mine_trace`` reads both). It enables ``utils/tracing.py``'s recorder
+  for the region, so the program's spans are named ranges on the trace's
+  timeline.
 - ``timed(fn)``: the wall time of a call, synchronized on the card when its
   result holds a CUDA tensor.
 """
@@ -24,6 +24,8 @@ import time
 from typing import Callable
 
 import torch
+
+from pcgan_tpu_torch.utils import tracing
 
 TRACE_FILE = "trace.json"
 COSTS_FILE = "op_costs.json"
@@ -262,16 +264,22 @@ def op_costs(events, flops_by_id=None) -> dict:
 def trace(logdir: str, device="cpu", with_flops: bool = False):
     """Profile the body; yields the ``torch.profiler.profile``. On the card
     the device is synchronized before the trace stops, so the body's
-    kernels are in it. The files are written only when the body
-    completes."""
+    kernels are in it. The span recorder runs for the body (its spans are
+    ranges in the trace) and is drained after it. The files are written
+    only when the body completes."""
     from torch.profiler import ProfilerActivity, profile
     cuda = torch.device(device).type == "cuda"
     acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     with profile(activities=acts, with_flops=with_flops,
                  record_shapes=with_flops) as prof:
-        yield prof
-        if cuda:
-            torch.cuda.synchronize(device)
+        tracing.enable(annotate=True)
+        try:
+            yield prof
+            if cuda:
+                torch.cuda.synchronize(device)
+        finally:
+            tracing.disable()
+            tracing.drain()
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, TRACE_FILE)
     prof.export_chrome_trace(path)
@@ -282,10 +290,6 @@ def trace(logdir: str, device="cpu", with_flops: bool = False):
             events = json.load(f)["traceEvents"]
         with open(os.path.join(logdir, COSTS_FILE), "w") as f:
             json.dump(op_costs(events, counted), f)
-
-
-def annotate(name: str):
-    return torch.profiler.record_function(name)
 
 
 def _sync_outputs(out) -> None:

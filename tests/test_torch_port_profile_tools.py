@@ -21,7 +21,7 @@ import optax
 from pcgan_tpu_torch import bench
 from pcgan_tpu_torch.tools import doctor, memory_plan, profile_step
 from pcgan_tpu_torch.tools import tune_batch
-from pcgan_tpu_torch.utils import profiling
+from pcgan_tpu_torch.utils import profiling, tracing
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "torch_port_data",
                        "trace_fixture")
@@ -237,8 +237,9 @@ def test_profile_step_on_a_cpu_trace(tmp_path):
 
 
 def test_trace_annotate_timed(tmp_path):
+    # inside the trace a span is a named range on its timeline
     with profiling.trace(str(tmp_path), "cpu", with_flops=True):
-        with profiling.annotate("region"):
+        with tracing.span("region"):
             torch.ones(4, 4) @ torch.ones(4, 4)
     with open(tmp_path / profiling.TRACE_FILE) as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}

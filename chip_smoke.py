@@ -513,7 +513,8 @@ def phase_build() -> dict:
                         r"(\d+ bytes spill stores.*|Used \d+ registers.*)",
                         body))
                 kernel = re.search(r"(preprocess|wgrad_tc|wgrad_fma|"
-                                   r"wgrad_reduce)_kernel(I.*?EE)?", name)
+                                   r"wgrad_reduce|norm_fwd|norm_bwd)"
+                                   r"_kernel(I.*?EE)?", name)
                 say(f"ptxas {kernel.group(0) if kernel else name}: {stats}")
     return out
 
@@ -681,13 +682,29 @@ def _seeded_G(torch, argv, seed=0):
                         torch.Generator().manual_seed(seed))
 
 
+def _seeded_C(torch, argv, seed=0):
+    from pcgan_tpu_torch.config import parse_config
+    from pcgan_tpu_torch.models import define_C
+    return define_C(parse_config(argv), torch.Generator().manual_seed(seed))
+
+
+def _norm_sites(net) -> int:
+    """A net's instance-norm sites: each call of the net launches the fused
+    norm once at each (and once more each in its backward)."""
+    from pcgan_tpu_torch.models.layers import InstanceNorm
+    return sum(isinstance(m, InstanceNorm) for m in net.modules())
+
+
 def _main_run(torch, argv):
-    """One run of the main path with the launch count zeroed just before and
-    read just after."""
+    """One run of the main path with the launch counts zeroed just before
+    and read just after; the fused norm's is ``res["norm_launches"]``, one
+    forward launch at each G site a batch (one G call on the batch's rows
+    times the bins, no backward)."""
     from pcgan_tpu_torch import test as port_test
+    from pcgan_tpu_torch.ops import cuda_instance_norm as cin
     from pcgan_tpu_torch.ops import cuda_preprocess as cp
     from pcgan_tpu_torch.ops import cuda_wgrad as cw
-    cp.launches = cw.launches = 0
+    cp.launches = cw.launches = cin.launches = 0
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
@@ -695,6 +712,11 @@ def _main_run(torch, argv):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(cw.launches == 0, f"sampling path: {cw.launches} B2 launches")
+    res["norm_launches"] = cin.launches
+    want = _norm_sites(_seeded_G(torch, argv)) * len(res["batch_seconds"])
+    check(cin.launches == want > 0,
+          f"sampling path: {cin.launches} fused norm launches for "
+          f"{len(res['batch_seconds'])} batches, want {want}")
     return res, cp.launches, wall
 
 
@@ -758,7 +780,7 @@ def _check_grid(torch, argv, res, inject):
 
 def phase_main_path(torch, tmp) -> dict:
     from pcgan_tpu_torch.utils.checkpoint import save_generator
-    out = {"launches_per_run": {}}
+    out = {"launches_per_run": {}, "norm_launches_per_run": {}}
     for inject in ("input", "bottleneck"):
         argv = _argv(tmp, f"smoke_{inject}", inject)
         save_generator(_seeded_G(torch, argv), os.path.join(tmp, "ck"),
@@ -771,6 +793,7 @@ def phase_main_path(torch, tmp) -> dict:
               f"{inject}: {launches} kernel launches for "
               f"{len(res['batch_seconds'])} batches")
         out["launches_per_run"][inject] = launches
+        out["norm_launches_per_run"][inject] = res["norm_launches"]
         out[inject] = _check_grid(torch, argv, res, inject)
 
     # grid rate after warm-up: 8 batches of 8 inputs, the first is warm-up
@@ -779,6 +802,7 @@ def phase_main_path(torch, tmp) -> dict:
     check(launches == len(res["batch_seconds"]) == 8,
           f"rate run: {launches} launches for {len(res['batch_seconds'])}")
     out["launches_per_run"]["rate"] = launches
+    out["norm_launches_per_run"]["rate"] = res["norm_launches"]
     steady = res["batch_seconds"][1:]
     inputs_per_s = 8 * len(steady) / sum(steady)
     out["rate"] = {"inputs_per_s": inputs_per_s,
@@ -790,6 +814,8 @@ def phase_main_path(torch, tmp) -> dict:
         f"bf16); CLI wall {wall:.2f} s for {res['done']} grids incl. PNGs")
     out["profile"] = _profile_run(torch, tmp)
     out["launches_per_run"]["profile"] = out["profile"]["launches"]
+    out["norm_launches_per_run"]["profile"] = \
+        out["profile"]["norm_launches"]
     out["launches"] = sum(out["launches_per_run"].values())
     return out
 
@@ -827,7 +853,8 @@ def _profile_run(torch, tmp, batches: int = 4) -> dict:
     window_ms = sum(res["batch_seconds"]) * 1e3 / n
     check(device_ms > 0, "profile run: no device time traced")
     b1_ms = sum(r[0] for r in rows if "preprocess_kernel" in r[2])
-    out = {"launches": launches, "device_ms_per_batch": device_ms,
+    out = {"launches": launches, "norm_launches": res["norm_launches"],
+           "device_ms_per_batch": device_ms,
            "preprocess_kernel_ms_per_batch": b1_ms,
            "window_ms_per_batch": window_ms,
            "device_busy_share": device_ms / window_ms,
@@ -983,6 +1010,127 @@ def phase_wgrad_check(torch) -> dict:
     return out
 
 
+# G's 256 px sites on its 2B = 64 rows (pcgan_cacd256): the stem (and the
+# last up conv) and the trunk (the blocks' second norm adds the residual);
+# then D's leaky sites on 64 rows, whose 31 x 31 planes take the 2-byte
+# loads
+NORM_SHAPES = {"stem_256": ((64, 64, 256, 256), "relu", False),
+               "trunk_256": ((64, 256, 64, 64), "relu", False),
+               "trunk_256_residual": ((64, 256, 64, 64), "none", True),
+               "d1_256": ((64, 128, 64, 64), "leaky", False),
+               "d2_256": ((64, 256, 32, 32), "leaky", False),
+               "d3_256": ((64, 512, 31, 31), "leaky", False)}
+
+
+def phase_norm_check(torch) -> dict:
+    """The fused instance norm (``ops/cuda_instance_norm.py``) against its
+    plain version at G's 256 px stem and trunk shapes, forward and
+    backward, then timed there, each direction beside its bytes bound, the
+    plain version and ``torch.nn.functional.instance_norm`` (the library
+    yardstick, never called by the port)."""
+    from pcgan_tpu_torch.ops import cuda_instance_norm as cin
+    F = torch.nn.functional
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    rows = {}
+    for name, (shape, act, residual) in NORM_SHAPES.items():
+        def rand():
+            return (torch.randn(shape, device=DEV, generator=gen) * 1.5
+                    + 0.5).to(torch.bfloat16)
+        x, g = rand(), rand()
+        res = rand() if residual else None
+        out, stats = cin.forward_cuda(x, act, res)
+        dx = cin.backward_cuda(x, g, stats, act)
+        want, want_stats = cin.plain_forward(x, act, res)
+        same = cin.plain_forward(x, act, res, stats=stats)[0]
+        want_dx = cin.plain_backward(x, g, stats, act)
+        again = cin.backward_cuda(x, g, cin.forward_cuda(x, act, res)[1],
+                                  act)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(dx, again)), f"norm {name}: two runs differ")
+        # from the kernel's moments the plain output has the kernel's bits;
+        # from its own, a norm output may round the other way (one ulp of
+        # it, many of a residual sum that cancels it)
+        check(bool(torch.equal(out, same)),
+              f"norm {name}: the output differs from the plain version's "
+              f"from the same moments")
+        mean, rstd = want_stats[0], want_stats[1]
+        stats_err = float(torch.maximum(
+            (stats[0] - mean).abs() / (mean.abs() + 1 / rstd),
+            (stats[1] - rstd).abs() / (rstd * (1 + (mean * rstd) ** 2)))
+            .max())
+        w, wd = want.float().cpu().numpy(), want_dx.float().cpu().numpy()
+        ulps = float((np.abs(out.float().cpu().numpy() - w)
+                      / bf16_ulp(w)).max())
+        scale = np.abs(wd).max(axis=(2, 3), keepdims=True) * 2.0 ** -7
+        a = np.maximum(np.abs(wd), scale)
+        ulps_dx = float((np.abs(dx.float().cpu().numpy() - wd)
+                         / 2.0 ** (np.floor(np.log2(a)) - 7)).max())
+        check(stats_err <= 1e-5 and ulps_dx <= 1.0,
+              f"norm {name}: moments {stats_err:.3g} (of the plain "
+              f"version's scale), backward {ulps_dx} ulp of the plain "
+              f"version")
+        del want, same, want_dx, again
+
+        def fwd():
+            return cin.forward_cuda(x, act, res)
+
+        def bwd():
+            return cin.backward_cuda(x, g, stats, act)
+
+        def plain_fwd():
+            return cin.plain_forward(x, act, res)
+
+        def plain_bwd():
+            return cin.plain_backward(x, g, stats, act)
+        xl = x.detach().requires_grad_()
+
+        def library():
+            return F.instance_norm(x, eps=1e-5)
+
+        def library_fwd_bwd():
+            return torch.autograd.grad(F.instance_norm(xl, eps=1e-5), xl, g)
+        n, c = shape[:2]
+        numel = x.numel()
+        fwd_bytes = 2 * numel * (3 if residual else 2) + 12 * n * c
+        bwd_bytes = 6 * numel + 12 * n * c
+        row = {"shape": list(shape), "act": act, "residual": residual,
+               "stats_err": stats_err, "max_ulp_fwd_own_moments": ulps,
+               "max_ulp_bwd": ulps_dx}
+        for key, fn, plain, nbytes in (("fwd", fwd, plain_fwd, fwd_bytes),
+                                       ("bwd", bwd, plain_bwd, bwd_bytes)):
+            turns = {"ms": [], "plain_ms": []}
+            for k in ("plain_ms", "ms", "ms", "plain_ms"):      # in turns
+                turns[k].append(graph_ms(torch, fn) if k == "ms"
+                                else cuda_ms(torch, plain, iters=20,
+                                             warmup=3))
+            bound = nbytes / PEAK_BYTES_PER_S * 1e3
+            ms = min(turns["ms"])
+            row[key] = {"ms": ms, "eager_ms": cuda_ms(torch, fn),
+                        "cold_ms": cold_ms(torch, fn),
+                        "plain_ms": min(turns["plain_ms"]),
+                        "bound_ms": bound, "bound_by": "bytes",
+                        "bytes": nbytes, "of_bound": ms / bound,
+                        "timings_in_turns_ms": turns}
+        row["fwd"]["library_ms"] = graph_ms(torch, library)
+        row["fwd"]["library_eager_ms"] = cuda_ms(torch, library)
+        row["bwd"]["library_fwd_bwd_eager_ms"] = cuda_ms(
+            torch, library_fwd_bwd, iters=50, warmup=3)
+        rows[name] = row
+        say(f"norm {name}: {json.dumps(row)}")
+        del x, g, res, out, dx, stats, xl
+        torch.cuda.empty_cache()
+    out = {"name": "instance_norm", "route": "cuda",
+           "source": "pcgan_tpu_torch/csrc/instance_norm.cu",
+           "replaces": "none (XLA fused it; the port's bf16 composite, "
+                       "models/layers.py instance_norm)",
+           "library": "torch.nn.functional.instance_norm (bf16), forward; "
+                      "forward + backward eager",
+           "bound_peaks": "3.35 TB/s HBM3", "timing": TIMING_NOTE,
+           "shapes": rows}
+    say(f"norm timing: {json.dumps(out)}")
+    return out
+
+
 def phase_path2(torch) -> dict:
     """``bench_lowch.main`` in bf16 at 128 px, batch 16; B2 launches once
     per routed tail VJP and never for the stem. Then the routed VJP is held
@@ -1065,16 +1213,18 @@ def _rates_str(r, batch) -> str:
 
 def _train_run(torch, argv):
     """One run of path 1 with every launch count zeroed just before and
-    read just after."""
+    read just after; the fused norm's is ``res["norm_launches"]``."""
     from pcgan_tpu_torch import train_main
+    from pcgan_tpu_torch.ops import cuda_instance_norm as cin
     from pcgan_tpu_torch.ops import cuda_preprocess as cp
     from pcgan_tpu_torch.ops import cuda_wgrad as cw
-    cp.launches = cw.launches = 0
+    cp.launches = cw.launches = cin.launches = 0
     t0 = time.perf_counter()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", RuntimeWarning)
         res = train_main.main(argv)
     torch.cuda.synchronize()
+    res["norm_launches"] = cin.launches
     return res, cp.launches, cw.launches, time.perf_counter() - t0
 
 
@@ -1117,10 +1267,18 @@ def phase_path1(torch, tmp) -> dict:
         check(len(moved) == len(init.state_dict()),
               f"path 1: {net} tensors that did not move: "
               f"{sorted(set(init.state_dict()) - set(moved))}")
+    # the fused norm, each way, at every site of one G call and two D calls
+    # a step (the D step's real and fake share one 2B pass; the G step)
+    sites = _norm_sites(g0) + 2 * _norm_sites(d0)
+    norm = res["norm_launches"]
+    check(norm == 2 * sites * steps > 0,
+          f"path 1: {norm} fused norm launches for {steps} steps of "
+          f"{sites} sites")
     later = res["epochs"][1:]
     steps_per_s = sum(e["steps"] for e in later) / sum(
         e["train_seconds"] for e in later)
     out = {"steps": steps, "b1_launches": b1, "b2_launches": b2,
+           "norm_launches": norm, "norm_sites_per_step": sites,
            "cli_wall_s": wall, "epochs": res["epochs"],
            "steps_per_s": steps_per_s, "images_per_s": 8 * steps_per_s,
            "last_metrics": res["metrics"]}
@@ -1135,11 +1293,18 @@ def phase_path1(torch, tmp) -> dict:
     check(res2["step"] == 32 and [e["epoch"] for e in res2["epochs"]] == [4],
           f"path 1 resume: step {res2['step']}, epochs {res2['epochs']}")
     check(b1r == 8, f"path 1 resume: {b1r} B1 launches for 8 steps")
+    check(res2["norm_launches"] == 2 * sites * 8,
+          f"path 1 resume: {res2['norm_launches']} fused norm launches for "
+          f"8 steps of {sites} sites")
     out["resume"] = {"step": res2["step"], "b1_launches": b1r,
+                     "norm_launches": res2["norm_launches"],
                      "metrics": res2["metrics"]}
     out["profile"] = _profile_train(torch, tmp)
     out["launches_per_run"] = {"train": b1, "resume": b1r,
                                "profile": out["profile"]["launches"]}
+    out["norm_launches_per_run"] = {
+        "train": norm, "resume": res2["norm_launches"],
+        "profile": out["profile"]["norm_launches"]}
     return out
 
 
@@ -1177,7 +1342,8 @@ def _profile_train(torch, tmp, steps: int = 4, argv=None,
     device_ms = sum(r[0] for r in rows)
     window_ms = res["epochs"][1]["train_seconds"] * 1e3 / steps
     check(device_ms > 0, f"{what} profile run: no device time traced")
-    out = {"launches": b1, "device_ms_per_step": device_ms,
+    out = {"launches": b1, "norm_launches": res["norm_launches"],
+           "device_ms_per_step": device_ms,
            "window_ms_per_step": window_ms,
            "device_busy_share": device_ms / window_ms,
            "device_launches_per_step": sum(r[1] for r in rows),
@@ -1295,6 +1461,16 @@ def phase_path3(torch, tmp) -> dict:
     want_b1 = steps + 2 * (CMP_HELD_OUT // 8) + CMP_SIZE // 8
     check(b1 == want_b1 and b2 == 0,
           f"path 3: {b1} B1 launches (want {want_b1}), {b2} B2 launches")
+    # the fused norm at every comparator site: forward and backward a step
+    # (one 2B call), forward only for each held-out batch of 8 pairs each
+    # epoch and for the one anchor call
+    sites = _norm_sites(_seeded_C(torch, _cmp_argv(tmp, name, niter=2)))
+
+    def want_norm(steps, epochs):
+        return sites * (2 * steps + epochs * (CMP_HELD_OUT // 8) + 1)
+    norm = res["norm_launches"]
+    check(norm == want_norm(steps, 2) > 0,
+          f"path 3: {norm} fused norm launches, want {want_norm(steps, 2)}")
     files = set(os.listdir(run))
     want = {"comparator.pt", "cmp_latest.pt", "cmp_epoch_1.pt",
             "cmp_epoch_2.pt", "metrics.jsonl", "opt.json"}
@@ -1319,7 +1495,8 @@ def phase_path3(torch, tmp) -> dict:
           f"path 3: degenerate anchors {means}")
     second = res["epochs"][1]
     pairs_per_s = 8 * second["steps"] / second["train_seconds"]
-    out = {"steps": steps, "b1_launches": b1, "cli_wall_s": wall,
+    out = {"steps": steps, "b1_launches": b1, "norm_launches": norm,
+           "cli_wall_s": wall,
            "epochs": res["epochs"], "pairs_per_s": pairs_per_s,
            "eval_acc": res["eval_acc"], "last_metrics": res["metrics"],
            "bin_means": means.tolist()}
@@ -1335,7 +1512,11 @@ def phase_path3(torch, tmp) -> dict:
           f"path 3 resume: step {res2['step']}, epochs {res2['epochs']}")
     want_b1 = CMP_STEPS + CMP_HELD_OUT // 8 + CMP_SIZE // 8
     check(b1r == want_b1, f"path 3 resume: {b1r} B1 launches, want {want_b1}")
+    check(res2["norm_launches"] == want_norm(CMP_STEPS, 1),
+          f"path 3 resume: {res2['norm_launches']} fused norm launches, "
+          f"want {want_norm(CMP_STEPS, 1)}")
     out["resume"] = {"step": res2["step"], "b1_launches": b1r,
+                     "norm_launches": res2["norm_launches"],
                      "eval_acc": res2["eval_acc"]}
     # profiled: 32 pairs, none held out, 4 steps an epoch
     out["profile"] = _profile_train(
@@ -1344,6 +1525,9 @@ def phase_path3(torch, tmp) -> dict:
         what="comparator")
     out["launches_per_run"] = {"pretrain": b1, "resume": b1r,
                                "profile": out["profile"]["launches"]}
+    out["norm_launches_per_run"] = {
+        "pretrain": norm, "resume": res2["norm_launches"],
+        "profile": out["profile"]["norm_launches"]}
     out["bundle_dir"] = run
     return out
 
@@ -3864,7 +4048,8 @@ def _tools_doctor(torch) -> dict:
     rep, _ = _counted(torch, doctor.main, [])
     check(rep["device_check"] == "ok"
           and rep["kernels"] == {"B1 preprocess": "built",
-                                 "B2 wgrad": "built"}
+                                 "B2 wgrad": "built",
+                                 "N1 instance norm": "built"}
           and rep["card"] == torch.cuda.get_device_name(0)
           and rep["power_limit"],
           f"doctor: {rep}")
@@ -6605,6 +6790,7 @@ def main() -> None:
     build = phase_build()
     b1 = phase_kernel_check(torch)
     b2 = phase_wgrad_check(torch)
+    norm = phase_norm_check(torch)
     with tempfile.TemporaryDirectory() as tmp:
         sampling = phase_main_path(torch, tmp)
         parity = phase_card_parity(torch, tmp)
@@ -6688,7 +6874,17 @@ def main() -> None:
     say(f"summary: {json.dumps({'build': build, 'sampling': sampling, 'parity': parity, 'path2': path2, 'path1': path1, 'train_parity': train_parity, 'path3': path3, 'path1_cond': cond, 'cond_parity': cond_parity, 'decoder': decoder, 'path4': path4, 'label_free': label_free, 'evaluation': evaluation, 'serving': serving, 'levers': levers, 'variants': variants, 'tools': tools, 'leftovers': leftovers, 'data_parallel': dp, 'sharded_state': sharded, 'spatial': spatial, 'spatial_levers': spatial_levers, 'spatial_losses': spatial_losses}, default=_jsonable)}")
     say(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
-    print(json.dumps({"kernels": [b1, b2]}), flush=True)
+    from pcgan_tpu_torch.ops import cuda_instance_norm
+    # counted per run (zeroed before each) where each run checks its count;
+    # the whole script's other paths launch it too, uncounted here
+    norm["launches_per_path"] = {
+        "sampling": sampling["norm_launches_per_run"],
+        "training": path1["norm_launches_per_run"],
+        "comparator": path3["norm_launches_per_run"]}
+    norm["launches"] = sum(sum(v.values())
+                           for v in norm["launches_per_path"].values())
+    check(norm["launches"] > 0, "the fused instance norm never launched")
+    print(json.dumps({"kernels": [b1, b2, norm]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pcgan_tpu_torch.models.layers import Norm, TorchConv, conv_bias_before_norm
+from pcgan_tpu_torch.models.layers import (Norm, TorchConv,
+                                           conv_bias_before_norm, norm_act)
 from pcgan_tpu_torch.parallel import spatial
 
 _SQRT2 = 1.4142135623730951
@@ -68,9 +69,8 @@ class Comparator(nn.Module):
         for i, conv in enumerate(self.convs):
             h = conv(h, H=H)
             H = conv.out_size(H)
-            if i > 0:
-                h = self.norms[i - 1](h)
-            h = F.leaky_relu(h, 0.2)
+            h = (norm_act(self.norms[i - 1], h, "leaky") if i > 0
+                 else F.leaky_relu(h, 0.2))
         h = F.leaky_relu(self.fc(spatial.mean_hw(h.float())), 0.2)
         if return_features:
             return h

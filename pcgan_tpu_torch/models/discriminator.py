@@ -32,7 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from pcgan_tpu_torch.models.generator import SelfAttention, broadcast_cond
-from pcgan_tpu_torch.models.layers import Norm, TorchConv, conv_bias_before_norm
+from pcgan_tpu_torch.models.layers import (Norm, TorchConv,
+                                           conv_bias_before_norm, norm_act)
 from pcgan_tpu_torch.parallel import spatial
 
 
@@ -103,12 +104,12 @@ class NLayerDiscriminator(nn.Module):
         H = None if H is None else self.convs[0].out_size(H)
         feats.append(h)
         for i in range(1, self.n_layers):
-            h = F.leaky_relu(self.norms[i - 1](self.convs[i](h, H=H)), 0.2)
+            h = norm_act(self.norms[i - 1], self.convs[i](h, H=H), "leaky")
             H = None if H is None else self.convs[i].out_size(H)
             feats.append(h)
         if self.attn is not None:
             h = self.attn(h, H)
-        h = F.leaky_relu(self.norms[-1](self.convs[-2](h, H=H)), 0.2)
+        h = norm_act(self.norms[-1], self.convs[-2](h, H=H), "leaky")
         H = None if H is None else self.convs[-2].out_size(H)
         feats.append(h)
         return (self.convs[-1](h, H=H).float(),
@@ -217,7 +218,7 @@ class PixelDiscriminator(nn.Module):
                 return_features: bool = False):
         h = F.leaky_relu(self.convs[0](_with_cond(x, cond)), 0.2)
         f0 = h
-        h = F.leaky_relu(self.norms[0](self.convs[1](h)), 0.2)
+        h = norm_act(self.norms[0], self.convs[1](h), "leaky")
         out = _nhwc(self.convs[2](h).float())
         if return_features:
             return out, (_nhwc(f0), _nhwc(h))

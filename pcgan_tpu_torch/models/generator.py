@@ -61,7 +61,8 @@ from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 from pcgan_tpu_torch.models.layers import (Norm, ResizeConv, TorchConv,
                                            TorchConvTranspose,
                                            conv_bias_before_norm,
-                                           frozen_stats, norm_uses_bias)
+                                           frozen_stats, norm_act,
+                                           norm_uses_bias)
 from pcgan_tpu_torch.parallel import rows as draw
 from pcgan_tpu_torch.parallel import spatial
 
@@ -94,11 +95,10 @@ class ResnetBlock(nn.Module):
         forward, drawn by the caller (flax ``nn.Dropout(0.5)``: kept
         entries are scaled by 2). ``H``: x's global height where x is a
         band of it (``parallel/spatial.py``)."""
-        h = F.relu(self.norm0(self.conv0(x, H=H)))
+        h = norm_act(self.norm0, self.conv0(x, H=H), "relu")
         if keep is not None:
             h = torch.where(keep, h / 0.5, torch.zeros_like(h))
-        h = self.norm1(self.conv1(h, H=H))
-        return x + h
+        return norm_act(self.norm1, self.conv1(h, H=H), residual=x)
 
 
 class SelfAttention(nn.Module):
@@ -229,9 +229,9 @@ class ResnetGenerator(nn.Module):
                 h = torch.cat([h, broadcast_cond(cond, h.shape[2], h.shape[3],
                                                  h.dtype)], 1)
             h = self.stem(h, H=H)
-        h = F.relu(self.stem_norm(h))
+        h = norm_act(self.stem_norm, h, "relu")
         for conv, norm in zip(self.down, self.down_norm):
-            h = F.relu(norm(conv(h, H=H)))
+            h = norm_act(norm, conv(h, H=H), "relu")
             H = conv.out_size(H)
         if self.cond_proj is not None:
             h = torch.cat([h, broadcast_cond(cond, h.shape[2], h.shape[3],
@@ -251,7 +251,7 @@ class ResnetGenerator(nn.Module):
             if i == self.attn_after:
                 h = self.attn(h, H)
         for deconv, norm in zip(self.up, self.up_norm):
-            h = F.relu(norm(deconv(h, H=H)))
+            h = norm_act(norm, deconv(h, H=H), "relu")
             H = deconv.out_size(H)
         h = self.tail(h, H=H)
         return torch.tanh(h.float()).permute(0, 2, 3, 1)

@@ -11,6 +11,9 @@ The convs are ``torch.nn.functional.conv2d`` / ``conv_transpose2d`` (cuDNN on
 the card), as the JAX package leaves them to XLA. ``--norm`` builds one
 norm module per site (instance, batch, group or none, flax's numbers), and
 ``--spectral_norm`` puts a conv's kernel under flax's ``SpectralNorm``.
+``norm_act`` runs a site's norm with the activation or residual after it:
+instance norm of a CUDA bf16 tensor is then one kernel each way
+(``ops/cuda_instance_norm.py``).
 Batch norm's running stats and spectral norm's u/sigma are buffers of a
 ``StatefulModule``: a train-mode forward writes them unless
 ``frozen_stats`` holds them, and ``stats_state`` / ``load_stats_state``
@@ -39,8 +42,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pcgan_tpu_torch.ops import cuda_instance_norm
+from pcgan_tpu_torch.ops.cuda_instance_norm import epilogue
 from pcgan_tpu_torch.ops.pad import pad2d, pad_edges
 from pcgan_tpu_torch.parallel import spatial
+from pcgan_tpu_torch.utils import tracing
 
 # --------------------------------------------------------------------------- #
 # init (normal | xavier | kaiming | orthogonal), JAX semantics
@@ -558,15 +564,31 @@ class SpectralNorm(StatefulModule):
 # --------------------------------------------------------------------------- #
 
 
-def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def instance_norm(x: torch.Tensor, eps: float = 1e-5, act: str = "none",
+                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """torch ``InstanceNorm2d(affine=False, track_running_stats=False)`` on
-    NCHW, in the JAX package's two forms (``layers.py:401-420``).
+    NCHW, in the JAX package's two forms (``layers.py:401-420``), then
+    ``epilogue(., act, residual)``.
 
     f32: exact two-pass mean/var. bf16: single-pass E[x^2]-E[x]^2 with f32
     accumulation (x*x rounds in bf16, as in JAX), output cast to bf16.
     Inside ``spatial.banded`` x is this rank's band along H: the moments
     are the band's sums over the spatial line, over its count.
+
+    A CUDA bf16 tensor outside a band takes the fused kernels, the norm and
+    its epilogue in one launch each way (``ops/cuda_instance_norm.py``,
+    counted as ``norm/fused``); every other case (a CPU tensor, f32 or
+    f16, a band) takes the composite (``norm/plain``).
     """
+    if (x.dtype == torch.bfloat16 and x.device.type == "cuda"
+            and spatial.active() is None):
+        tracing.count("norm/fused")
+        return cuda_instance_norm.fused(x, act, residual, eps)
+    tracing.count("norm/plain")
+    return epilogue(_instance_norm(x, eps), act, residual)
+
+
+def _instance_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
     if spatial.active() is not None:
         return _band_instance_norm(x, eps)
     if x.dtype == torch.float32:
@@ -607,6 +629,16 @@ def _band_instance_norm(x: torch.Tensor, eps: float) -> torch.Tensor:
 class InstanceNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return instance_norm(x)
+
+
+def norm_act(norm: nn.Module, x: torch.Tensor, act: str = "none",
+             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``epilogue(norm(x), act, residual)`` for a site's norm module: one
+    ``instance_norm`` call for instance norm, so that a CUDA bf16 tensor
+    takes the fused kernels with its epilogue."""
+    if isinstance(norm, InstanceNorm):
+        return instance_norm(x, act=act, residual=residual)
+    return epilogue(norm(x), act, residual)
 
 
 def _affine(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,

@@ -101,11 +101,14 @@ def main(argv=None) -> dict:
         rep["devices"] = ["cpu"]
 
     if cuda:
-        from pcgan_tpu_torch.ops import _build, cuda_preprocess, cuda_wgrad
+        from pcgan_tpu_torch.ops import (_build, cuda_instance_norm,
+                                         cuda_preprocess, cuda_wgrad)
         rep["nvcc"] = _build.find_nvcc()
         cuda_preprocess.build()
         cuda_wgrad.build()
-        rep["kernels"] = {"B1 preprocess": "built", "B2 wgrad": "built"}
+        cuda_instance_norm.build()
+        rep["kernels"] = {"B1 preprocess": "built", "B2 wgrad": "built",
+                          "N1 instance norm": "built"}
     else:
         rep["nvcc"] = shutil.which("nvcc")
         rep["kernels"] = "not built (--device cpu: the plain versions run)"

@@ -180,8 +180,10 @@ def test_upload_sites_are_counted(recorder, monkeypatch):
               + 2 * 36 * 40 * 4                # the f32 resize matrices
               + 2 * b * 8 + b                  # B1's crop offsets, flips
               + b * 8 + b + b * 8)             # pool slots, swaps; bins
+    # beside the uploads, the instance norm's route: every site of the tiny
+    # G (17) and of D's two calls (3 each) takes the composite on the CPU
     assert counters == {"h2d/copies": 10, "h2d/bytes": nbytes,
-                        "h2d/blocking": 10}
+                        "h2d/blocking": 10, "norm/plain": 23}
 
 
 def test_prefetch_spans_on_both_threads(recorder):
